@@ -1,0 +1,172 @@
+"""
+The featurization pipeline: raw audio clips -> (n, windows, 96) features.
+
+Counterpart of the JAX package's ``models/featurizer.py`` with
+``pooling="fused"``: ``featurize_batch`` runs the mel-patch kernel (K1) and
+the fused embedding kernel (K2) back to back, the patch layout handed from
+one to the other. On a CUDA device those are the hand-written kernels and
+nothing else; on the CPU the wrappers run their plain versions.
+
+The batch is not padded: padding existed only to bound XLA compiles. A
+(b, 23040) clip batch in int16 range gives (b, 16, 96).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from heybuddy_tpu_torch.constants import (
+    AUDIO_WINDOW_SIZE,
+    AUDIO_WINDOW_STRIDE,
+    EMBEDDING_WINDOW_SIZE,
+    EMBEDDING_WINDOW_STRIDE,
+    MEL_HOP_LENGTH,
+    SAMPLE_RATE,
+)
+from heybuddy_tpu_torch.convert import embedding_params_from_numpy
+from heybuddy_tpu_torch.device import DeviceLike, resolve_device
+from heybuddy_tpu_torch.models import embedding_net
+from heybuddy_tpu_torch.models.embedding_net import EmbeddingNet
+from heybuddy_tpu_torch.ops.kernels.embedding_kernel import fused_embedding_from_patches
+from heybuddy_tpu_torch.ops.kernels.melspec_kernel import mel_patches
+from heybuddy_tpu_torch.ops.melspec import mel_spectrogram, num_frames
+from heybuddy_tpu_torch.ops.windows import embedding_window_starts
+from heybuddy_tpu_torch.utils.audio_io import audio_to_bct_array
+from heybuddy_tpu_torch.utils.log import logger
+
+__all__ = ["featurize_batch", "SpeechEmbeddings", "get_speech_embeddings"]
+
+
+def featurize_batch(net: EmbeddingNet, audio: torch.Tensor) -> torch.Tensor:
+    """
+    (batch, t) float32 int16-range audio on the net's device ->
+    (batch, n_windows, 96) embeddings: K1 then K2.
+    """
+    if audio.ndim == 1:
+        audio = audio[None, :]
+    audio = audio.contiguous()
+    starts = embedding_window_starts(audio.shape[1])
+    patches, num_patches = mel_patches(audio)
+    return fused_embedding_from_patches(net, patches, starts, num_patches)
+
+
+class SpeechEmbeddings:
+    """
+    User-facing featurizer: accepts paths / arrays / lists, resamples to
+    16 kHz, downmixes to mono, scales to int16-range values and returns
+    float32 numpy embeddings (batch, n, 96); optionally also the scaled
+    log-mel spectrograms truncated to whole embedding windows.
+
+    ``params`` is the JAX-layout numpy tree (default: ``default_params()``)
+    or an ``EmbeddingNet``. ``device`` defaults to ``"cuda"`` and raises
+    without it. ``seed`` seeds the generator of ``_repair_nan``'s row choice.
+    """
+
+    def __init__(
+        self,
+        params: Optional[Any] = None,
+        device: DeviceLike = "cuda",
+        onnx_path: Optional[str] = None,
+        seed: int = 0,
+    ) -> None:
+        self.device = resolve_device(device)
+        if onnx_path or os.environ.get("HEYBUDDY_EMBEDDING_ONNX"):
+            raise NotImplementedError(
+                "the imported ONNX embedding (HEYBUDDY_EMBEDDING_ONNX / onnx_path) is not yet "
+                "ported to heybuddy_tpu_torch"
+            )
+        if params is None:
+            params = embedding_net.default_params()
+        net = params if isinstance(params, EmbeddingNet) else embedding_params_from_numpy(params)
+        self.net = net.to(self.device).eval()
+        self.backend = "trunkpool"
+        self.generator = torch.Generator().manual_seed(seed)
+        self._space_id: Optional[str] = None
+
+    @property
+    def space_id(self) -> str:
+        """Stable identifier of the feature space (backend + weights hash)."""
+        if self._space_id is None:
+            self._space_id = embedding_net.embedding_space_id(self.net, self.backend)
+        return self._space_id
+
+    @torch.no_grad()
+    def featurize_device(self, audio_batch: np.ndarray) -> Tuple[torch.Tensor, int]:
+        """
+        Featurize a prepared (b, t) float32 batch in [-1, 1] on the device;
+        returns the device tensor (not synchronised) and the row count.
+        """
+        mono = torch.from_numpy(np.ascontiguousarray(audio_batch, dtype=np.float32) * 32767.0)
+        return featurize_batch(self.net, mono.to(self.device)), audio_batch.shape[0]
+
+    @torch.no_grad()
+    def __call__(
+        self,
+        audio: Any,
+        remove_nan: bool = True,
+        return_spectrograms: bool = False,
+        **_compat_kwargs: Any,
+    ) -> Union[np.ndarray, Tuple[np.ndarray, np.ndarray]]:
+        batch, _sr = audio_to_bct_array(audio, sample_rate=SAMPLE_RATE)
+        mono = np.ascontiguousarray(batch.mean(axis=1) * 32767.0, dtype=np.float32)
+        b, t = mono.shape
+        mono_dev = torch.from_numpy(mono).to(self.device)
+        embeddings = featurize_batch(self.net, mono_dev).cpu().numpy()
+
+        if remove_nan:
+            embeddings = self._repair_nan(embeddings, self.generator)
+
+        if return_spectrograms:
+            # per-audio-window spectrograms concatenated along the frame axis,
+            # truncated to whole embedding windows (17280 -> 105 frames -> 100;
+            # 23040 -> 4 x 105 = 420)
+            spec = mel_spectrogram(mono_dev).cpu().numpy()
+            frames_per = num_frames(AUDIO_WINDOW_SIZE)
+            hops = AUDIO_WINDOW_STRIDE // MEL_HOP_LENGTH
+            per_window = [
+                spec[:, k * hops : k * hops + frames_per]
+                for k, _ in enumerate(range(0, t - AUDIO_WINDOW_SIZE + 1, AUDIO_WINDOW_STRIDE))
+            ]
+            concat = np.concatenate(per_window, axis=1)
+            total = concat.shape[1]
+            truncated = total - ((total - EMBEDDING_WINDOW_SIZE) % EMBEDDING_WINDOW_STRIDE)
+            return embeddings, concat[:, :truncated]
+        return embeddings
+
+    @staticmethod
+    def _repair_nan(embeddings: np.ndarray, generator: Optional[torch.Generator] = None) -> np.ndarray:
+        """Replace NaN rows with randomly chosen good rows (zeros if none is good)."""
+        nan_rows = np.isnan(embeddings).any(axis=(1, 2))
+        if not nan_rows.any():
+            return embeddings
+        keep = np.where(~nan_rows)[0]
+        bad = np.where(nan_rows)[0]
+        logger.warning(f"Replacing {len(bad)} NaN embeddings with random embeddings.")
+        if keep.size == 0:
+            logger.warning("All embeddings are NaN, returning zero embeddings.")
+            return np.zeros_like(embeddings)
+        pick = torch.randint(0, keep.size, (len(bad),), generator=generator).numpy()
+        embeddings = embeddings.copy()
+        embeddings[bad] = embeddings[keep[pick]]
+        return embeddings
+
+
+# one shared featurizer per device
+_GLOBAL_EMBEDDINGS: Dict[str, SpeechEmbeddings] = {}
+
+
+def get_speech_embeddings(device: DeviceLike = "cuda", **kwargs: Any) -> SpeechEmbeddings:
+    """The shared featurizer of ``device``, built on first use."""
+    key = str(resolve_device(device))
+    if key not in _GLOBAL_EMBEDDINGS:
+        _GLOBAL_EMBEDDINGS[key] = SpeechEmbeddings(device=device, **kwargs)
+    elif kwargs:
+        logger.warning(
+            f"get_speech_embeddings ignoring {sorted(kwargs)}: the shared featurizer "
+            "was already constructed with different settings."
+        )
+    return _GLOBAL_EMBEDDINGS[key]

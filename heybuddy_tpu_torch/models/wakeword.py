@@ -1,0 +1,309 @@
+"""
+The wake-word head and audio-level prediction.
+
+Counterpart of the JAX package's ``models/wakeword.py`` for the
+``perceptron`` architecture: ``WakeWordMLPModel`` flattens (batch, 16, 96)
+features -> LayerNorm -> gated MLP -> optional 16 half-layer branches on
+striped frame subsets -> N x [LayerNorm + gated MLP] -> LayerNorm -> gated
+MLP -> sigmoid. LayerNorm is float32 with eps 1e-5; the small products stay
+``torch.matmul`` in float32 (TF32 off), as the JAX head leaves them to XLA.
+
+``load_model`` reads the flat npz checkpoint with its ``__config__``; a
+``transformer`` checkpoint is not yet ported and raises.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from heybuddy_tpu_torch.constants import (
+    CLIP_SAMPLES,
+    DEFAULT_ACTIVATION_THRESHOLD,
+    EMBEDDING_DIM,
+    FEATURE_FRAMES,
+    SAMPLE_RATE,
+)
+from heybuddy_tpu_torch.convert import wakeword_params_from_numpy
+from heybuddy_tpu_torch.device import DeviceLike, resolve_device
+from heybuddy_tpu_torch.models.embedding_net import unflatten_params
+
+__all__ = ["WakeWordMLPModel", "load_model", "HALF_LAYER_INDICES", "get_normalized_dim"]
+
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),  # jax.nn.gelu's default
+    "silu": torch.nn.functional.silu,
+    "swish": torch.nn.functional.silu,
+    "mish": torch.nn.functional.mish,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "identity": lambda x: x,
+}
+
+# Striped index masks of the optional half-connected layers
+HALF_LAYER_INDICES: List[List[int]] = [
+    [0, 1, 2, 3, 4, 5, 6, 7],
+    [8, 9, 10, 11, 12, 13, 14, 15],
+    [0, 1, 2, 3, 8, 9, 10, 11],
+    [4, 5, 6, 7, 12, 13, 14, 15],
+    [4, 5, 6, 7, 8, 9, 10, 11],
+    [0, 1, 2, 3, 12, 13, 14, 15],
+    [0, 1, 4, 5, 8, 9, 12, 13],
+    [2, 3, 6, 7, 10, 11, 14, 15],
+    [0, 1, 6, 7, 8, 9, 14, 15],
+    [2, 3, 4, 5, 10, 11, 12, 13],
+    [0, 2, 4, 6, 8, 10, 12, 14],
+    [1, 3, 5, 7, 9, 11, 13, 15],
+    [0, 3, 4, 7, 8, 11, 12, 15],
+    [1, 2, 5, 6, 9, 10, 13, 14],
+    [0, 5, 2, 7, 8, 13, 10, 15],
+    [1, 4, 3, 6, 9, 12, 11, 14],
+]
+
+
+def get_normalized_dim(dim: int, multiple_of: int = 8, down_ratio: float = 2 / 3) -> int:
+    """Hidden width: ``dim * 2/3`` rounded up to a multiple of ``multiple_of``."""
+    n = int(dim * down_ratio)
+    return n if n % multiple_of == 0 else n + multiple_of - (n % multiple_of)
+
+
+class _Linear(nn.Module):
+    """x @ w + b, w stored (in, out) as in the JAX tree; torch default init."""
+
+    def __init__(self, fan_in: int, fan_out: int, generator: torch.Generator) -> None:
+        super().__init__()
+        bound = 1.0 / np.sqrt(fan_in)
+        self.w = nn.Parameter(torch.empty(fan_in, fan_out).uniform_(-bound, bound, generator=generator))
+        self.b = nn.Parameter(torch.empty(fan_out).uniform_(-bound, bound, generator=generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x, self.w) + self.b
+
+
+class _LayerNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-5) -> None:
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(dim))
+        self.b = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        return (xf - mean) * torch.rsqrt(var + self.eps) * self.g + self.b
+
+
+class _GatedMLP(nn.Module):
+    def __init__(
+        self, input_dim: int, hidden_dim: int, output_dim: int, gated: bool,
+        activation: str, generator: torch.Generator,
+    ) -> None:
+        super().__init__()
+        hidden_dim = get_normalized_dim(hidden_dim)
+        self.hidden = _Linear(input_dim, hidden_dim, generator)
+        self.output = _Linear(hidden_dim, output_dim, generator)
+        self.gate = _Linear(input_dim, hidden_dim, generator) if gated else None
+        self.act = ACTIVATIONS[activation]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.act(self.hidden(x))
+        if self.gate is not None:
+            h = h * self.gate(x)
+        return self.output(h)
+
+
+class _NormMLP(nn.Module):
+    def __init__(self, norm: _LayerNorm, mlp: _GatedMLP) -> None:
+        super().__init__()
+        self.norm = norm
+        self.mlp = mlp
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mlp(self.norm(x))
+
+
+class WakeWordInferenceMixin:
+    """Audio-level prediction on top of the shared featurizer of ``self.device``."""
+
+    device: torch.device
+
+    @torch.no_grad()
+    def scores(self, features: np.ndarray) -> np.ndarray:
+        """(n, 16, 96) features -> (n,) probabilities, as numpy."""
+        x = torch.from_numpy(np.ascontiguousarray(features, dtype=np.float32)).to(self.device)
+        return self(x).reshape(-1).cpu().numpy()
+
+    def _predict_scores(self, audio: Any, min_frames: int = CLIP_SAMPLES) -> np.ndarray:
+        from heybuddy_tpu_torch.models.featurizer import get_speech_embeddings
+        from heybuddy_tpu_torch.utils.audio_io import audio_to_bct_array
+
+        audio_arr, _ = audio_to_bct_array(audio, sample_rate=SAMPLE_RATE)
+        n, _c, t = audio_arr.shape
+        if t < min_frames:
+            pad = min_frames - t
+            left = pad // 2
+            audio_arr = np.pad(audio_arr, ((0, 0), (0, 0), (left, pad - left)))
+        embeddings = get_speech_embeddings(device=self.device)(audio_arr)  # (n, frames, 96)
+
+        frames = embeddings.shape[1]
+        if frames > FEATURE_FRAMES:
+            # every 4 consecutive embeddings come from one audio window, so a
+            # 16-embedding context slides in steps of 4; the max is the score
+            step = 4
+            k = (frames - FEATURE_FRAMES) // step + 1
+            windows = np.stack(
+                [embeddings[:, i * step : i * step + FEATURE_FRAMES] for i in range(k)], axis=1
+            )  # (n, k, 16, 96)
+            flat = windows.reshape(n * k, FEATURE_FRAMES, -1)
+            return self.scores(flat).reshape(n, k).max(axis=1)
+        return self.scores(embeddings)
+
+    def predict(
+        self,
+        audio: Any,
+        threshold: float = DEFAULT_ACTIVATION_THRESHOLD,
+        return_scores: bool = False,
+        min_frames: int = CLIP_SAMPLES,
+        **_compat: Any,
+    ) -> Tuple[Any, ...]:
+        scores = self._predict_scores(audio, min_frames=min_frames)
+        if return_scores:
+            return tuple(float(s) for s in scores)
+        return tuple(bool(s > threshold) for s in scores)
+
+    @staticmethod
+    def timecode_windows(audio: Any) -> np.ndarray:
+        """The 2 s windows, 1 s apart, that ``predict_timecodes`` scores."""
+        from heybuddy_tpu_torch.utils.audio_io import audio_to_bct_array
+
+        audio_arr, _ = audio_to_bct_array(audio, sample_rate=SAMPLE_RATE)
+        mono = audio_arr[0].mean(axis=0)
+        remainder = mono.shape[0] % SAMPLE_RATE
+        if remainder > 0:
+            mono = np.concatenate([mono, np.zeros(SAMPLE_RATE - remainder, dtype=np.float32)])
+        silence = np.zeros(SAMPLE_RATE, dtype=np.float32)
+        mono = np.concatenate([silence, mono, silence])
+        return np.stack(
+            [mono[i : i + 2 * SAMPLE_RATE] for i in range(0, mono.shape[0] - SAMPLE_RATE, SAMPLE_RATE)]
+        )
+
+    def predict_timecodes(
+        self, audio: Any, threshold: float = DEFAULT_ACTIVATION_THRESHOLD, **_compat: Any
+    ) -> List[float]:
+        """2 s windows, 1 s stride; adjacent hits are merged at the half second."""
+        predictions = [bool(p) for p in self.predict(self.timecode_windows(audio), threshold=threshold)]
+        times: List[float] = []
+        for i, hit in enumerate(predictions):
+            if not hit:
+                continue
+            if i < len(predictions) - 1 and predictions[i + 1]:
+                times.append(i + 0.5)
+            elif i == len(predictions) - 1 and i > 0 and predictions[i - 1]:
+                continue
+            else:
+                times.append(float(i))
+        return times
+
+
+class WakeWordMLPModel(WakeWordInferenceMixin, nn.Module):
+    """Gated-MLP wake-word classifier: (batch, 16, 96) -> (batch, 1) probability."""
+
+    architecture = "perceptron"
+
+    def __init__(
+        self,
+        input_shape: Tuple[int, int] = (FEATURE_FRAMES, EMBEDDING_DIM),
+        layer_dim: int = 96,
+        num_layers: int = 2,
+        use_gating: bool = True,
+        use_half_layers: bool = False,
+        dropout: float = 0.1,
+        activation: str = "silu",
+        params: Optional[Any] = None,
+        seed: int = 0,
+        device: DeviceLike = "cuda",
+    ) -> None:
+        nn.Module.__init__(self)
+        self.input_shape = tuple(input_shape)
+        features = input_shape[0] * input_shape[1]
+        self.layer_dim = layer_dim
+        self.num_layers = num_layers
+        self.use_gating = use_gating
+        self.use_half_layers = use_half_layers
+        self.dropout = dropout
+        self.activation = activation
+        gen = torch.Generator().manual_seed(seed)
+
+        def mlp(fan_in: int, fan_out: int) -> _GatedMLP:
+            return _GatedMLP(fan_in, layer_dim, fan_out, use_gating, activation, gen)
+
+        self.norm_in = _LayerNorm(features)
+        self.mlp_in = mlp(features, layer_dim)
+        self.half_layers = nn.ModuleList(
+            _NormMLP(_LayerNorm(features // 2), mlp(features // 2, layer_dim)) for _ in self.half_indices
+        )
+        self.layers = nn.ModuleList(
+            _NormMLP(_LayerNorm(layer_dim), mlp(layer_dim, layer_dim)) for _ in range(num_layers)
+        )
+        self.norm_out = _LayerNorm(layer_dim)
+        self.mlp_out = mlp(layer_dim, 1)
+        if params is not None:
+            self.load_state_dict(wakeword_params_from_numpy(params), strict=True)
+        self.device = resolve_device(device)
+        self.to(self.device).eval()
+        self._half_idx = [torch.tensor(i, device=self.device) for i in self.half_indices]
+
+    @property
+    def half_indices(self) -> List[List[int]]:
+        return HALF_LAYER_INDICES if self.use_half_layers else []
+
+    def config(self) -> Dict[str, Any]:
+        return {
+            "architecture": self.architecture,
+            "input_shape": list(self.input_shape),
+            "layer_dim": self.layer_dim,
+            "num_layers": self.num_layers,
+            "use_gating": self.use_gating,
+            "use_half_layers": self.use_half_layers,
+            "dropout": self.dropout,
+            "activation": self.activation,
+        }
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        b = x.shape[0]
+        states = self.mlp_in(self.norm_in(x.reshape(b, -1)))
+        for idx, half in zip(self._half_idx, self.half_layers):
+            states = states + half(x[:, idx, :].reshape(b, -1))
+        for layer in self.layers:
+            states = layer(states)
+        return torch.sigmoid(self.mlp_out(self.norm_out(states)))
+
+
+def load_model(path: str, device: DeviceLike = "cuda") -> WakeWordMLPModel:
+    """Load a checkpoint npz (flat parameters + ``__config__``) onto ``device``."""
+    with np.load(path) as loaded:
+        config = json.loads(bytes(loaded["__config__"]).decode("utf-8"))
+        flat = {k: np.asarray(loaded[k]) for k in loaded.files if k != "__config__"}
+    arch = config.pop("architecture")
+    if arch == "transformer":
+        raise NotImplementedError("the transformer wake-word head is not yet ported")
+    if arch != "perceptron":
+        raise ValueError(f"Unknown architecture in checkpoint: {arch}")
+    return WakeWordMLPModel(
+        input_shape=tuple(config["input_shape"]),
+        layer_dim=config["layer_dim"],
+        num_layers=config["num_layers"],
+        use_gating=config["use_gating"],
+        use_half_layers=config["use_half_layers"],
+        dropout=config.get("dropout", 0.1),
+        activation=config.get("activation", "silu"),
+        params=unflatten_params(flat),
+        device=device,
+    )

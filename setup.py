@@ -4,7 +4,9 @@ setup(
     name="heybuddy-tpu",
     version="0.1.0",
     description="TPU-native wake-word training and deployment framework (JAX/XLA/Pallas)",
-    packages=find_packages(include=["heybuddy_tpu", "heybuddy_tpu.*"]),
+    packages=find_packages(
+        include=["heybuddy_tpu", "heybuddy_tpu.*", "heybuddy_tpu_torch", "heybuddy_tpu_torch.*"]
+    ),
     python_requires=">=3.10",
     install_requires=[
         "jax",

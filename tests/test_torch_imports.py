@@ -1,0 +1,33 @@
+"""The port imports neither jax nor any module of the JAX package."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r"""
+import importlib, pkgutil, sys
+import heybuddy_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(heybuddy_tpu_torch.__path__, "heybuddy_tpu_torch.")]
+for name in names:
+    if not name.endswith("__main__"):  # running it would parse argv
+        importlib.import_module(name)
+import chip_smoke  # the chip check imports the port only
+jax_like = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+reference = sorted(m for m in sys.modules if m == "heybuddy_tpu" or m.startswith("heybuddy_tpu."))
+print(len(names), jax_like, reference)
+assert not jax_like, jax_like
+assert not reference, reference
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    result = subprocess.run(
+        [sys.executable, "-c", PROBE], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert result.returncode == 0, result.stderr + result.stdout
+    count = int(result.stdout.split()[0])
+    assert count >= 15  # every module of the port was walked
