@@ -3,45 +3,61 @@ Chip check of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from ``heybuddy_tpu_torch/ops/kernels/csrc``,
-holds each against its plain PyTorch version on the card, drives the serving
-path at full width (2048 clips through ``SpeechEmbeddings``, then
-``predict`` through the CLI entry with the shipped head), shows through the
-launch counters that the path ran the kernels, times kernels and plain
-versions with CUDA events, and ends with one JSON line
-``{"ok": true, "device": {...}}``. Any failed check raises, so the script
-exits non-zero; it also fails without a CUDA device.
+Builds the five hand-written kernels from ``heybuddy_tpu_torch/ops/kernels/
+csrc`` (K1 mel patches, K1b its hop-block form, K2 fused embedding, K3 mel
+spectrogram, K4 one-kernel featurizer), holds each against its plain PyTorch
+version on the card, then drives every path a user calls at full width,
+each with the launch counters set to 0 just before it and read just after:
+``featurize_batch`` in each pooling formulation on 2048 clips (``SpeechEmbeddings``
+for "fused", with ``return_spectrograms`` too), the hop-block mel path, the
+spectrogram-layout embedding entry, ``extract`` and ``predict`` through the CLI
+entry. It checks what each path returns, times kernels and plain versions
+with CUDA events, prints one JSON line of kernel numbers and ends with one
+JSON line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
+script exits non-zero; it also fails without a CUDA device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import glob
 import io
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
 from heybuddy_tpu_torch.cli import main as cli_main
-from heybuddy_tpu_torch.models.featurizer import SpeechEmbeddings, featurize_batch
+from heybuddy_tpu_torch.constants import MEL_N_FFT
+from heybuddy_tpu_torch.data.extract import LabeledFeatureExtractor
+from heybuddy_tpu_torch.models.featurizer import SpeechEmbeddings, featurize_batch, get_speech_embeddings
 from heybuddy_tpu_torch.models.wakeword import load_model
 from heybuddy_tpu_torch.ops.kernels import build
 from heybuddy_tpu_torch.ops.kernels import embedding_kernel as ek
+from heybuddy_tpu_torch.ops.kernels import featurize_kernel as fk
 from heybuddy_tpu_torch.ops.kernels import melspec_kernel as mk
+from heybuddy_tpu_torch.ops.melspec import mel_filterbank, num_frames
 from heybuddy_tpu_torch.ops.windows import embedding_window_starts
+from heybuddy_tpu_torch.text.tokens import BERTTokenizer
 from heybuddy_tpu_torch.utils.audio_io import write_wav
+from heybuddy_tpu_torch.utils.codecs import read_wav_any
+from heybuddy_tpu_torch.utils.cuda_timing import cuda_ms, nvidia_smi_line
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "reports", "quality-v26-embedv8.npz")
 SEED = 20261016
 BATCH = 2048
 CLIP = 23040
+EXTRACT_FILES = 16
+EXTRACT_SECONDS = 60
+EXTRACT_RUNS = 3  # extract through the CLI, timed apart: the spread of its host-clock time
+E2E_PAIRS = 10  # fused-vs-mega pairs: a difference of about 1% needs more than one pair
 
 # H100 SXM data-sheet peaks (dense): memory 3.35 TB/s, fp32 on the CUDA cores
 # 67 TFLOP/s, bf16 on the tensor cores 989 TFLOP/s
@@ -50,11 +66,11 @@ PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 
 # Tolerances, each with its reason:
-# K1: fp32 DFT on int16-range audio, summed in another order than the plain
-#     version: 5e-3 absolute + 1e-4 relative on log-mel values of about -1..4
-#     (the JAX suite's bound between its Pallas and XLA mel paths).
-K1_ATOL, K1_RTOL = 5e-3, 1e-4
-# K2: the bf16 rounding points (RMS outputs, feats, GELU, softmax weights)
+# K1, K1b, K3: fp32 DFT on int16-range audio, summed in another order than
+#     the plain version: 5e-3 absolute + 1e-4 relative on log-mel values of
+#     about -1..4 (the JAX suite's bound between its Pallas and XLA mel paths).
+MEL_ATOL, MEL_RTOL = 5e-3, 1e-4
+# K2, K4: the bf16 rounding points (RMS outputs, feats, GELU, softmax weights)
 #     turn any change of float32 summation order into one-ulp bf16 flips that
 #     the trunk carries on to the output. The plain version summed in float32
 #     and in float64 already differ by 0.02-0.03 at the worst element (printed
@@ -63,34 +79,20 @@ K1_ATOL, K1_RTOL = 5e-3, 1e-4
 #     JAX suite holds its Pallas kernel to against the float32 reference) or
 #     by three times that float32-vs-float64 spread, whichever is larger, and
 #     its mean deviation must stay under 5e-3.
-K2_ATOL, K2_SPREAD, K2_MEAN = 5e-2, 3.0, 5e-3
-# the whole path against the plain path, and predict's scores
-PATH_ATOL = 0.05
+BF16_ATOL, BF16_SPREAD, BF16_MEAN = 5e-2, 3.0, 5e-3
+# predict's scores, card against the plain path on the CPU
 SCORE_ATOL = 0.02
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, warmup: int = 3, runs: int = 11) -> float:
-    """Median milliseconds of ``fn`` on the current stream, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+# "banded" / "gather": plain PyTorch in bf16 emulation that rounds the log-mel
+#     input itself to bf16, so K3's fp32 rounding differences (about 5e-7)
+#     flip input roundings and every bf16 rounding point after them carries
+#     the flip on: the worst element moves by more than in K2 (which rounds
+#     no input), the mean barely. Against the same formulation fed K3's
+#     plain version: max 0.25, mean 5e-3 (printed beside the measured values).
+XLA_FORM_ATOL, XLA_FORM_MEAN = 0.25, 5e-3
+# extract against SpeechEmbeddings on the same windows: every kernel block
+#     computes one clip (K1 one chunk of one clip), so a clip's features do
+#     not depend on the batch around it and must be equal bit for bit.
+EXTRACT_ATOL = 0.0
 
 
 def check(cond: bool, what: str) -> None:
@@ -98,49 +100,150 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def check_k1(audio: torch.Tensor, expect_patches: int) -> tuple:
-    got, n = mk.mel_patches(audio)
-    ref, n_ref = mk.mel_patches_plain(audio)
+def check_mel(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """A mel kernel's real rows against its plain version's; returns max |d|."""
+    err = (got - ref).abs()
+    check(bool(torch.isfinite(got).all()), f"{name} output not finite")
+    check(bool((err <= MEL_ATOL + MEL_RTOL * ref.abs()).all()),
+          f"{name} disagrees: max |d| {err.max().item():.3e}")
+    return err.max().item()
+
+
+def check_k1(audio: torch.Tensor, expect_patches: int, dft_mode: str) -> Tuple[torch.Tensor, int, float]:
+    name = "K1" if dft_mode == "chunked" else "K1b"
+    got, n = mk.mel_patches(audio, dft_mode)
+    ref, n_ref = mk.mel_patches_plain(audio, dft_mode)
     torch.cuda.synchronize()
-    check(n == n_ref == expect_patches, f"K1 num_patches {n}/{n_ref} != {expect_patches}")
-    real, real_ref = got[:, :n], ref[:, :n]
-    err = (real - real_ref).abs()
-    bound = K1_ATOL + K1_RTOL * real_ref.abs()
-    check(bool(torch.isfinite(got).all()), "K1 output not finite")
-    check(bool((err <= bound).all()), f"K1 disagrees: max |d| {err.max().item():.3e}")
-    check(bool((got[:, n:] == 0).all()), "K1 pad rows are not exactly zero")
-    return got, n, err.max().item()
+    check(n == n_ref == expect_patches, f"{name} num_patches {n}/{n_ref} != {expect_patches}")
+    err = check_mel(name, got[:, :n], ref[:, :n])
+    check(bool((got[:, n:] == 0).all()), f"{name} pad rows are not exactly zero")
+    return got, n, err
 
 
-def check_k2(net, patches: torch.Tensor, n: int, t: int) -> float:
+def check_bf16(
+    name: str, got: torch.Tensor, ref: torch.Tensor, ref64: torch.Tensor
+) -> Tuple[float, float]:
+    """K2's recipe for a bf16 kernel against its plain version; returns max |d| and its limit."""
+    check(bool(torch.isfinite(got).all()), f"{name} output not finite")
+    err = (got - ref).abs()
+    cond = (ref - ref64).abs()
+    limit = max(BF16_ATOL, BF16_SPREAD * cond.max().item())
+    print(f"  {name}: max |d| {err.max().item():.3e}, mean |d| {err.mean().item():.3e}; "
+          f"plain f32 vs f64: max {cond.max().item():.3e}, mean {cond.mean().item():.3e}")
+    check(err.max().item() <= limit and err.mean().item() <= BF16_MEAN,
+          f"{name} disagrees: max |d| {err.max().item():.3e} (limit {limit:.3e}), "
+          f"mean {err.mean().item():.3e}")
+    return err.max().item(), limit
+
+
+def check_path(name: str, got: torch.Tensor, ref: torch.Tensor, limit: float) -> None:
+    """A bf16 path against another that differs only in summation order or fp32 mel rounding."""
+    err = (got - ref).abs()
+    print(f"  {name}: max |d| {err.max().item():.3e}, mean |d| {err.mean().item():.3e} "
+          f"(limits {limit:.3e}, {BF16_MEAN})")
+    check(bool(torch.isfinite(got).all()), f"{name}: not finite")
+    check(err.max().item() <= limit and err.mean().item() <= BF16_MEAN, f"{name}: disagree")
+
+
+def check_k2(net, patches: torch.Tensor, n: int, t: int) -> Tuple[float, float]:
     starts = embedding_window_starts(t)
     got = ek.fused_embedding_from_patches(net, patches, starts, n)
     ref = ek.fused_embedding_plain(net, patches, starts, n)
     ref64 = ek.fused_embedding_plain(net, patches, starts, n, accumulate=torch.float64)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), "K2 output not finite")
     spec = patches[:, :n].reshape(patches.shape[0], 4 * n, 32)
     exact = net.apply_spectrogram(spec, starts, compute_dtype=torch.float32)
-    err = (got - ref).abs()
-    cond = (ref - ref64).abs()
-    print(f"K2 t={t} b={patches.shape[0]}: max |d| {err.max().item():.3e}, "
-          f"mean |d| {err.mean().item():.3e}; plain f32 vs f64: max {cond.max().item():.3e}, "
-          f"mean {cond.mean().item():.3e}; vs the float32 reference: kernel max "
+    print(f"K2 t={t} b={patches.shape[0]}: vs the float32 reference: kernel max "
           f"{(got - exact).abs().max().item():.3e}, plain max {(ref - exact).abs().max().item():.3e}")
-    limit = max(K2_ATOL, K2_SPREAD * cond.max().item())
-    check(err.max().item() <= limit and err.mean().item() <= K2_MEAN,
-          f"K2 disagrees: max |d| {err.max().item():.3e} (limit {limit:.3e}), "
-          f"mean {err.mean().item():.3e}")
-    return err.max().item()
+    return check_bf16("K2", got, ref, ref64)
 
 
-def reset_counts() -> None:
-    mk.mel_patches.launches = 0
-    ek.fused_embedding_from_patches.launches = 0
+def check_k4(net, audio: torch.Tensor, t: int) -> Tuple[float, float]:
+    starts = embedding_window_starts(t)
+    got = fk.fused_featurize(net, audio, starts)
+    patches, n = mk.mel_patches_plain(audio)
+    ref = ek.fused_embedding_plain(net, patches, starts, n)
+    ref64 = ek.fused_embedding_plain(net, patches, starts, n, accumulate=torch.float64)
+    k1_patches, _ = mk.mel_patches(audio)
+    two_kernels = ek.fused_embedding_from_patches(net, k1_patches, starts, n)
+    torch.cuda.synchronize()
+    print(f"K4 t={t} b={audio.shape[0]}: vs K1 -> K2 on the same audio max |d| "
+          f"{(got - two_kernels).abs().max().item():.3e} (the same arithmetic: 0 expected)")
+    return check_bf16("K4", got, ref, ref64)
 
 
-def read_counts() -> tuple:
-    return mk.mel_patches.launches, ek.fused_embedding_from_patches.launches
+def run_path(name: str, fn: Callable, kernels: Tuple[str, ...]) -> Tuple[object, Dict[str, int]]:
+    """
+    Run one path with the launch counters from 0; returns its result and the
+    counts, and fails unless exactly ``kernels`` were launched.
+    """
+    build.LAUNCHES.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in build.LAUNCHES.items() if v}
+    check(sorted(counts) == sorted(kernels), f"path {name} launched {counts}, expected {kernels}")
+    return out, counts
+
+
+def extract_phase(featurizer: SpeechEmbeddings, rng: np.random.Generator, tmp: str) -> Dict:
+    """``extract`` through the CLI entry on generated wavs; checks the shards."""
+    wav_dir = os.path.join(tmp, "wavs")
+    n = EXTRACT_SECONDS * 16000
+    t_axis = np.arange(n) / 16000.0
+    texts = []
+    for i in range(EXTRACT_FILES):
+        tone = 0.2 * np.sin(2 * np.pi * (150.0 + 40.0 * i) * t_axis)
+        write_wav(os.path.join(wav_dir, f"speech{i:02d}.wav"),
+                  (tone + rng.normal(0.0, 0.05, n)).astype(np.float32))
+        texts.append(f"sample {i} says hello number {i * 7}")
+        with open(os.path.join(wav_dir, f"speech{i:02d}.txt"), "w") as f:
+            f.write(texts[-1])
+    # The timed window holds the CLI's whole run: argument parsing, listing the
+    # wavs, reading them, windowing, tokenizing, featurizing (the loader, both
+    # copies, K1 and K2 in batches of 100) and writing the shards. The shared
+    # featurizer is built before it. Runs 2.. show the spread.
+    walls, runs = [], []
+    for k in range(EXTRACT_RUNS):
+        out_dir = os.path.join(tmp, f"shards{k}")
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            rc, counts = run_path("extract", lambda: cli_main(
+                ["extract", "noise", os.path.join(wav_dir, "*.wav"), "--local-files",
+                 "--directory", out_dir]), ("mel_patches", "embedding_pool"))
+        walls.append(time.perf_counter() - t0)
+        check(rc == 0, "extract failed")
+        shards = sorted(glob.glob(os.path.join(out_dir, "noise-*.npy")))
+        check(stdout.getvalue().startswith(f"Wrote {len(shards)} shard(s):"), "extract's report")
+        runs.append(np.concatenate([np.load(p) for p in shards]))
+        if k == 0:
+            launches = counts
+            print(f"path extract: launches {counts}; {stdout.getvalue().strip()!r}")
+    data = runs[0]
+    check(all(np.array_equal(r, data) for r in runs), "extract runs wrote different shards")
+
+    windows, token_rows = [], []
+    extractor = LabeledFeatureExtractor(tmp, "reference", device="cuda")
+    tokenizer = BERTTokenizer()
+    for i, text in enumerate(texts):
+        audio, _ = read_wav_any(os.path.join(wav_dir, f"speech{i:02d}.wav"))
+        for window in extractor.windows(audio.mean(axis=0)):
+            windows.append(window)
+            token_rows.append(tokenizer(text).astype(np.float32))
+    check(data.shape == (len(windows), 17, 96), f"extract shards {data.shape}")
+    check(bool(np.array_equal(data[:, 16], np.stack(token_rows))), "extract token rows")
+    ref = featurizer(np.stack(windows))
+    err = float(np.abs(data[:, :16] - ref).max())
+    wall = statistics.median(walls)
+    print(f"extract {EXTRACT_FILES} wavs x {EXTRACT_SECONDS} s -> {data.shape[0]} clips in "
+          f"{len(shards)} shard(s), {EXTRACT_RUNS} runs of the CLI (host clock, featurizer built "
+          f"before): {[round(w, 4) for w in walls]} s, median {wall:.4f} s = "
+          f"{data.shape[0] / wall:.1f} clips/s (range {data.shape[0] / max(walls):.1f}-"
+          f"{data.shape[0] / min(walls):.1f}); features vs SpeechEmbeddings on the same windows "
+          f"max |d| {err:.3e} (bound {EXTRACT_ATOL})")
+    check(err <= EXTRACT_ATOL, "extract features disagree with SpeechEmbeddings")
+    return {"extract_s": walls, "extract_clips": int(data.shape[0]),
+            "extract_clips_per_s": data.shape[0] / wall, "launches": launches}
 
 
 def main() -> int:
@@ -160,51 +263,119 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     rng = np.random.default_rng(SEED)
-    featurizer = SpeechEmbeddings(device=dev)
+    # the shared featurizer, which extract and predict reach too: built here, out of their timing
+    featurizer = get_speech_embeddings(device=dev)
     net = featurizer.net
 
-    # ---- K1 and K2 against their plain versions ------------------------------------
-    k1_err = k2_err = 0.0
+    # ---- each kernel against its plain version ------------------------------------------
+    errs = {k: 0.0 for k in ("K1", "K1b", "K2", "K3", "K4")}
     for b, t, expect in ((64, 23040, 35), (3, 17280, 26), (2, 32000, 49)):
         audio = torch.from_numpy(rng.normal(0.0, 1000.0, (b, t)).astype(np.float32)).to(dev)
-        patches, n, err = check_k1(audio, expect)
-        print(f"K1 t={t} b={b}: num_patches {n}, max |d| {err:.3e}")
-        k1_err = max(k1_err, err)
-        k2_err = max(k2_err, check_k2(net, patches, n, t))
+        patches, n, err = check_k1(audio, expect, "chunked")
+        errs["K1"] = max(errs["K1"], err)
+        fat, _, err = check_k1(audio, expect, "fat")
+        errs["K1b"] = max(errs["K1b"], err)
+        fat_vs_k1 = check_mel("K1b vs K1", fat[:, :n], patches[:, :n])
+        spec = mk.mel_spectrogram(audio)
+        errs["K3"] = max(errs["K3"], check_mel("K3", spec, mk.mel_spectrogram_plain(audio)))
+        layout = (patches[:, :n].reshape(b, 4 * n, 32) - spec[:, : 4 * n]).abs().max().item()
+        print(f"K1/K1b/K3 t={t} b={b}: num_patches {n}, frames {spec.shape[1]}; max |d| vs plain "
+              f"K1 {errs['K1']:.3e} K1b {errs['K1b']:.3e} K3 {errs['K3']:.3e}; K1b vs K1 "
+              f"{fat_vs_k1:.3e}; K3 vs K1 layout {layout:.3e} (one mel body: 0 expected)")
+        check(layout <= MEL_ATOL, "K3 disagrees with K1's layout")
+        err, limit = check_k2(net, patches, n, t)
+        errs["K2"] = max(errs["K2"], err)
+        starts = embedding_window_starts(t)
+        windows = ek.fused_embedding_windows(net, spec, starts)
+        direct = ek.fused_embedding_from_patches(net, patches, starts, n)
+        torch.cuda.synchronize()
+        check_path("fused_embedding_windows(K3) vs K2 on K1's patches", windows, direct, limit)
+        errs["K4"] = max(errs["K4"], check_k4(net, audio, t)[0])
 
-    # ---- the full path at full width -------------------------------------------------
     clips = np.clip(rng.normal(0.0, 0.05, (BATCH, CLIP)), -1.0, 1.0).astype(np.float32)
-    reset_counts()
-    emb = featurizer(clips)
-    launches_featurize = read_counts()
-    check(emb.shape == (BATCH, 16, 96), f"embeddings shape {emb.shape}")
-    check(bool(np.isfinite(emb).all()), "embeddings not finite")
-    check(min(launches_featurize) > 0, f"featurization launched {launches_featurize}")
-    mono = torch.from_numpy(clips[:16] * 32767.0).to(dev)
-    patches, n = mk.mel_patches_plain(mono)
-    plain = ek.fused_embedding_plain(net, patches, embedding_window_starts(CLIP), n).cpu().numpy()
-    path_err = float(np.abs(emb[:16] - plain).max())
-    print(f"featurize {BATCH} x {CLIP}: launches K1/K2 {launches_featurize}, "
-          f"first 16 rows vs plain path max |d| {path_err:.3e}")
-    check(path_err <= PATH_ATOL, "featurization disagrees with the plain path")
+    audio = torch.from_numpy(clips * 32767.0).to(dev)
+    starts = embedding_window_starts(CLIP)
+    # ---- the kernels at batch 2048 against their plain versions --------------------------------
+    patches, n = mk.mel_patches(audio)
+    errs["K1"] = max(errs["K1"], check_mel("K1", patches[:, :n], mk.mel_patches_plain(audio)[0][:, :n]))
+    fat, _ = mk.mel_patches(audio, "fat")
+    errs["K1b"] = max(errs["K1b"], check_mel("K1b", fat[:, :n], mk.mel_patches_plain(audio, "fat")[0][:, :n]))
+    spec = mk.mel_spectrogram(audio)
+    errs["K3"] = max(errs["K3"], check_mel("K3", spec, mk.mel_spectrogram_plain(audio)))
+    del fat, spec
+    err, path_limit = check_k2(net, patches, n, CLIP)  # the limit of every bf16 path below
+    errs["K2"] = max(errs["K2"], err)
+    errs["K4"] = max(errs["K4"], check_k4(net, audio, CLIP)[0])
 
-    # ---- predict through the CLI entry -------------------------------------------------
+
+    # ---- the paths at full width, each with the counters from 0 -------------------------------
+    paths: Dict[str, Dict[str, int]] = {}
+    emb, paths["fused"] = run_path("fused", lambda: featurizer(clips), ("mel_patches", "embedding_pool"))
+    check(emb.shape == (BATCH, 16, 96) and bool(np.isfinite(emb).all()), f"embeddings {emb.shape}")
+    emb_dev = torch.from_numpy(emb).to(dev)
+    print(f"path fused (SpeechEmbeddings): launches {paths['fused']}")
+    check_path("fused vs the plain path", emb_dev, fk.fused_featurize_plain(net, audio, starts),
+               path_limit)
+
+    mega, paths["mega"] = run_path(
+        "mega", lambda: featurize_batch(net, audio, pooling="mega"), ("featurize",))
+    print(f"path mega: launches {paths['mega']}")
+    check_path("mega vs fused (the same arithmetic: 0 expected)", mega, emb_dev, path_limit)
+
+    spec_plain = mk.mel_spectrogram_plain(audio)
+    for pooling, form in (("banded", net.apply_spectrogram_banded), ("gather", net.apply_spectrogram)):
+        out, paths[pooling] = run_path(
+            pooling, lambda: featurize_batch(net, audio, pooling=pooling), ("mel_spectrogram",))
+        ref = form(spec_plain, starts, compute_dtype=torch.bfloat16)
+        err = (out - ref).abs()
+        print(f"path {pooling}: launches {paths[pooling]}; vs the same formulation on K3's plain "
+              f"version: max |d| {err.max().item():.3e}, mean {err.mean().item():.3e}")
+        check(out.shape == (BATCH, 16, 96) and bool(torch.isfinite(out).all()), f"{pooling} output")
+        check(err.max().item() <= XLA_FORM_ATOL and err.mean().item() <= XLA_FORM_MEAN,
+              f"{pooling} disagrees with its plain-mel version")
+    del spec_plain
+
+    (emb_s, spec), paths["spectrograms"] = run_path(
+        "spectrograms", lambda: featurizer(clips, return_spectrograms=True),
+        ("mel_patches", "embedding_pool", "mel_spectrogram"))
+    print(f"path spectrograms (SpeechEmbeddings, return_spectrograms): launches "
+          f"{paths['spectrograms']}; spectrograms {spec.shape}")
+    check(spec.shape == (BATCH, 420, 32) and bool(np.isfinite(spec).all()), f"spectrograms {spec.shape}")
+    check(bool(np.array_equal(emb_s, emb)), "return_spectrograms changed the embeddings")
+
+    def fat_path():
+        fat_patches, n_fat = mk.mel_patches(audio, dft_mode="fat")
+        return ek.fused_embedding_from_patches(net, fat_patches, starts, n_fat)
+
+    fat_out, paths["fat"] = run_path("fat", fat_path, ("mel_patches_fat", "embedding_pool"))
+    print(f"path fat (hop-block mel -> K2): launches {paths['fat']}")
+    check_path("fat vs fused", fat_out, emb_dev, path_limit)
+
+    win_out, paths["windows"] = run_path(
+        "windows", lambda: ek.fused_embedding_windows(net, mk.mel_spectrogram(audio), starts),
+        ("mel_spectrogram", "embedding_pool"))
+    print(f"path windows (K3 -> fused_embedding_windows): launches {paths['windows']}")
+    check_path("windows vs fused (one mel body: 0 expected)", win_out, emb_dev, path_limit)
+
     with tempfile.TemporaryDirectory() as tmp:
+        extract = extract_phase(featurizer, rng, tmp)
+        paths["extract"] = extract.pop("launches")
+
+        # ---- predict through the CLI entry -------------------------------------------------
         wav = os.path.join(tmp, "speech.wav")
         t_axis = np.arange(int(3.5 * 16000)) / 16000.0
         tone = 0.3 * np.sin(2 * np.pi * (220.0 + 180.0 * t_axis) * t_axis)
         write_wav(wav, (tone + rng.normal(0.0, 0.02, t_axis.shape)).astype(np.float32))
-        reset_counts()
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            rc = cli_main(["predict", CHECKPOINT, wav])
+            rc, paths["predict"] = run_path(
+                "predict", lambda: cli_main(["predict", CHECKPOINT, wav]),
+                ("mel_patches", "embedding_pool"))
         predict_s = time.perf_counter() - t0
-        launches_predict = read_counts()
-        print(f"predict (cli, 3.5 s wav, host clock incl. model load): {predict_s * 1e3:.1f} ms, "
-              f"rc {rc}, launches K1/K2 {launches_predict}: {out.getvalue().strip()!r}")
+        print(f"path predict (cli, 3.5 s wav): launches {paths['predict']}; host clock incl. loading "
+              f"the head (the shared featurizer already built) {predict_s * 1e3:.1f} ms, rc {rc}: {out.getvalue().strip()!r}")
         check(rc == 0, "predict failed")
-        check(min(launches_predict) > 0, f"predict launched {launches_predict}")
         windows = load_model(CHECKPOINT, device="cpu").timecode_windows(wav)
         s_gpu = np.array(load_model(CHECKPOINT, device=dev).predict(windows, return_scores=True))
         s_cpu = np.array(load_model(CHECKPOINT, device="cpu").predict(windows, return_scores=True))
@@ -213,29 +384,42 @@ def main() -> int:
           f"{np.round(s_cpu, 4).tolist()}: max |d| {score_err:.3e}")
     check(score_err <= SCORE_ATOL, "predict scores disagree with the plain path")
 
-    # ---- times at batch 2048 -------------------------------------------------------------
-    audio = torch.from_numpy(clips * 32767.0).to(dev)
-    starts = embedding_window_starts(CLIP)
-    patches, n = mk.mel_patches(audio)
-    ref_patches, _ = mk.mel_patches_plain(audio)
-    torch.cuda.synchronize()
-    k1_err = max(k1_err, (patches[:, :n] - ref_patches[:, :n]).abs().max().item())
-    check(k1_err <= K1_ATOL + K1_RTOL * 4.0, f"K1 at batch {BATCH}: max |d| {k1_err:.3e}")
-    del ref_patches
-    k2_err = max(k2_err, check_k2(net, patches, n, CLIP))
-
-    k1_ms = cuda_ms(lambda: mk.mel_patches(audio))
-    k1_plain_ms = cuda_ms(lambda: mk.mel_patches_plain(audio))
-    k2_ms = cuda_ms(lambda: ek.fused_embedding_from_patches(net, patches, starts, n))
-    k2_plain_ms = cuda_ms(lambda: ek.fused_embedding_plain(net, patches, starts, n))
-    path_ms = cuda_ms(lambda: featurize_batch(net, audio))
+    # ---- times -----------------------------------------------------------------------
+    times = {
+        "K1": (cuda_ms(lambda: mk.mel_patches(audio)), cuda_ms(lambda: mk.mel_patches_plain(audio))),
+        "K1b": (cuda_ms(lambda: mk.mel_patches(audio, "fat")),
+                cuda_ms(lambda: mk.mel_patches_plain(audio, "fat"))),
+        "K3": (cuda_ms(lambda: mk.mel_spectrogram(audio)), cuda_ms(lambda: mk.mel_spectrogram_plain(audio))),
+        "K2": (cuda_ms(lambda: ek.fused_embedding_from_patches(net, patches, starts, n)),
+               cuda_ms(lambda: ek.fused_embedding_plain(net, patches, starts, n))),
+        "K4": (cuda_ms(lambda: fk.fused_featurize(net, audio, starts)),
+               cuda_ms(lambda: fk.fused_featurize_plain(net, audio, starts))),
+    }
+    # end to end: E2E_PAIRS pairs of fused and mega, each pair in the other order
+    e2e = {"fused": [], "mega": []}
+    for i in range(E2E_PAIRS):
+        for pooling in ("fused", "mega") if i % 2 == 0 else ("mega", "fused"):
+            e2e[pooling].append(cuda_ms(lambda: featurize_batch(net, audio, pooling=pooling)))
+    fused_ms, mega_ms = statistics.median(e2e["fused"]), statistics.median(e2e["mega"])
+    mega_wins = sum(m < f for f, m in zip(e2e["fused"], e2e["mega"]))
     t0 = time.perf_counter()
     featurizer(clips)  # numpy in, numpy out: host loading, copies both ways, K1, K2
     call_ms = (time.perf_counter() - t0) * 1e3
 
+    # Bounds: the least work of each function, not of the kernel's own method.
+    # A mel frame needs at least: the Hann window on its 400 taps; a real
+    # 512-point FFT, 2.5 N log2 N FLOP (the kernels compute a direct DFT
+    # instead, 400 x 256 FMAs: both counts are printed); the power of the bins that
+    # any mel filter reads; the filterbank's non-zero products (the triangular
+    # filters overlap by one, so 231 of its 128 x 32 entries); and log + scale
+    # per mel bin. The trunk of K2 is dense and counted as it is.
     usable, _, p_pad = mk.patch_geometry(CLIP)
-    k1_ops = BATCH * usable * (mk.TAPS * 2 * mk.N_FREQ_PAD * 2 + mk.N_FREQ_PAD * 32 * 2)
-    k1_bytes = BATCH * CLIP * 4 + BATCH * p_pad * 128 * 4 + (mk.TAPS * 256 + 128 * 32) * 4
+    frames = num_frames(CLIP)  # 141: K3 computes every frame, K1 the 140 of whole patches
+    fbank = mel_filterbank()
+    per_frame = (mk.TAPS + 2.5 * MEL_N_FFT * np.log2(MEL_N_FFT)
+                 + 3 * int((fbank != 0).any(axis=1).sum()) + 2 * int(np.count_nonzero(fbank))
+                 + 3 * fbank.shape[1])
+    consts = (mk.TAPS * 256 + 128 * 32) * 4
     cfg = net.config
     n_windows = len(starts)
     k2_ops = BATCH * (
@@ -246,43 +430,58 @@ def main() -> int:
         + n_windows * cfg.pool_heads * cfg.hidden_dim * cfg.embedding_dim * 2
     )
     weight_bytes = sum(p.numel() for p in net.parameters()) * 2
-    k2_bytes = BATCH * n * 128 * 4 + BATCH * n_windows * 96 * 4 + weight_bytes
+    audio_bytes = BATCH * CLIP * 4
+    out_bytes = BATCH * n_windows * 96 * 4
+    k1_ops = BATCH * usable * per_frame
+    print(f"bounds: {per_frame:.0f} FLOP per mel frame (the kernels' direct DFT does "
+          f"{mk.TAPS * 2 * mk.N_FREQ_PAD * 2 + mk.N_FREQ_PAD * 32 * 2}); K1 {k1_ops / 1e9:.3f} GFLOP, "
+          f"K2 {k2_ops / 1e9:.3f} GFLOP at batch {BATCH}")
+    work = {  # (seconds of operations at their peak rate, bytes, what the operations are)
+        "K1": (k1_ops / PEAK_FP32, audio_bytes + BATCH * p_pad * 128 * 4 + consts, "fp32"),
+        "K3": (BATCH * frames * per_frame / PEAK_FP32,
+               audio_bytes + BATCH * frames * 32 * 4 + consts, "fp32"),
+        "K2": (k2_ops / PEAK_BF16, BATCH * n * 128 * 4 + out_bytes + weight_bytes, "bf16"),
+        "K4": (k1_ops / PEAK_FP32 + k2_ops / PEAK_BF16,
+               audio_bytes + out_bytes + weight_bytes + consts, "fp32 mel + bf16 trunk"),
+    }
+    work["K1b"] = work["K1"]  # the same function: its extra zero-row work is distance from the bound
 
-    def bound(ops: float, rate: float, nbytes: float) -> tuple:
-        t_ops, t_bytes = ops / rate * 1e3, nbytes / PEAK_BYTES * 1e3
-        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    def bound(name: str) -> Tuple[float, str]:
+        t_ops, nbytes, _ = work[name]
+        t_bytes = nbytes / PEAK_BYTES
+        return (t_ops * 1e3, "operations") if t_ops >= t_bytes else (t_bytes * 1e3, "bytes")
 
-    k1_bound, k1_by = bound(k1_ops, PEAK_FP32, k1_bytes)
-    k2_bound, k2_by = bound(k2_ops, PEAK_BF16, k2_bytes)
-    print(f"K1 mel_patches     kernel_ms {k1_ms:.4f} plain_ms {k1_plain_ms:.4f} "
-          f"bound_ms {k1_bound:.4f} ({k1_by}, {k1_ops / 1e9:.2f} GFLOP fp32)")
-    print(f"K2 embedding_pool  kernel_ms {k2_ms:.4f} plain_ms {k2_plain_ms:.4f} "
-          f"bound_ms {k2_bound:.4f} ({k2_by}, {k2_ops / 1e9:.2f} GFLOP bf16)")
-    print(f"featurize_batch K1+K2 at {BATCH} x {CLIP}: {path_ms:.4f} ms, "
-          f"{BATCH / path_ms * 1e3:.0f} clips/s; SpeechEmbeddings call (host clock) {call_ms:.1f} ms")
-
-    kernels = [
-        {
-            "name": "mel_patches", "route": "cuda",
-            "source": "heybuddy_tpu_torch/ops/kernels/csrc/mel_patches.cu",
-            "replaces": "heybuddy_tpu/ops/pallas/melspec_kernel.py:199",
-            "launches": launches_featurize[0], "launches_predict": launches_predict[0],
-            "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
-            "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
-        },
-        {
-            "name": "embedding_pool", "route": "cuda",
-            "source": "heybuddy_tpu_torch/ops/kernels/csrc/embedding_pool.cu",
-            "replaces": "heybuddy_tpu/ops/pallas/embedding_kernel.py:309",
-            "launches": launches_featurize[1], "launches_predict": launches_predict[1],
-            "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-            "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
-        },
-    ]
+    meta = {
+        "K1": ("mel_patches", "mel_patches.cu", "melspec_kernel.py:199", "fused"),
+        "K1b": ("mel_patches_fat", "mel_patches_fat.cu", "melspec_kernel.py:346", "fat"),
+        "K2": ("embedding_pool", "embedding_pool.cu", "embedding_kernel.py:309", "fused"),
+        "K3": ("mel_spectrogram", "mel_spectrogram.cu", "melspec_kernel.py:96", "spectrograms"),
+        "K4": ("featurize", "featurize.cu", "featurize_kernel.py:105", "mega"),
+    }
+    kernels = []
+    for kid, (name, src, replaces, path) in meta.items():
+        bound_ms, bound_by = bound(kid)
+        print(f"{kid} {name:16s} kernel_ms {times[kid][0]:.4f} plain_ms {times[kid][1]:.4f} "
+              f"bound_ms {bound_ms:.4f} ({bound_by}, {work[kid][2]}) max_abs_err {errs[kid]:.3e} "
+              f"launches on path {path}: {paths[path][name]}")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"heybuddy_tpu_torch/ops/kernels/csrc/{src}",
+            "replaces": f"heybuddy_tpu/ops/pallas/{replaces}",
+            "launches": paths[path][name], "path": path,
+            "max_abs_err": errs[kid], "ms": times[kid][0], "plain_ms": times[kid][1],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
+    print(f"featurize_batch at {BATCH} x {CLIP}, {E2E_PAIRS} pairs in alternating order: fused "
+          f"{[round(v, 4) for v in e2e['fused']]} ms, mega {[round(v, 4) for v in e2e['mega']]} ms; "
+          f"medians fused {fused_ms:.4f} ms ({BATCH / fused_ms * 1e3:.0f} clips/s), mega "
+          f"{mega_ms:.4f} ms ({BATCH / mega_ms * 1e3:.0f} clips/s); mega faster in {mega_wins} of "
+          f"{E2E_PAIRS} pairs; SpeechEmbeddings call (host clock) {call_ms:.1f} ms")
     print(smi)
-    print(json.dumps({"kernels": kernels, "featurize_ms": path_ms,
-                      "clips_per_s": BATCH / path_ms * 1e3, "call_ms": call_ms,
-                      "predict_ms": predict_s * 1e3, "batch": BATCH}))
+    print(json.dumps({"kernels": kernels, "paths": paths, "featurize_ms": fused_ms,
+                      "mega_ms": mega_ms, "mega_wins": mega_wins, "clips_per_s": BATCH / fused_ms * 1e3,
+                      "call_ms": call_ms, "predict_ms": predict_s * 1e3, "batch": BATCH,
+                      **extract}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

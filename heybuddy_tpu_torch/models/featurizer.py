@@ -1,14 +1,21 @@
 """
 The featurization pipeline: raw audio clips -> (n, windows, 96) features.
 
-Counterpart of the JAX package's ``models/featurizer.py`` with
-``pooling="fused"``: ``featurize_batch`` runs the mel-patch kernel (K1) and
-the fused embedding kernel (K2) back to back, the patch layout handed from
-one to the other. On a CUDA device those are the hand-written kernels and
-nothing else; on the CPU the wrappers run their plain versions.
+Counterpart of the JAX package's ``models/featurizer.py``. ``featurize_batch``
+takes the JAX function's ``pooling`` values:
 
-The batch is not padded: padding existed only to bound XLA compiles. A
-(b, 23040) clip batch in int16 range gives (b, 16, 96).
+* ``"fused"`` (and ``"auto"``): the mel-patch kernel (K1) and the fused
+  embedding kernel (K2) back to back, the patch layout handed from one to
+  the other;
+* ``"mega"``: the one-kernel featurizer (K4), audio to embeddings;
+* ``"banded"`` / ``"gather"``: the mel-spectrogram kernel (K3), then
+  ``EmbeddingNet.apply_spectrogram_banded`` / ``apply_spectrogram`` in plain
+  PyTorch, as the JAX package leaves those formulations to XLA.
+
+On a CUDA device the kernels are the hand-written ones; on the CPU the
+wrappers run their plain versions. The batch is not padded: padding existed
+only to bound XLA compiles. A (b, 23040) clip batch in int16 range gives
+(b, 16, 96).
 """
 
 from __future__ import annotations
@@ -32,26 +39,49 @@ from heybuddy_tpu_torch.device import DeviceLike, resolve_device
 from heybuddy_tpu_torch.models import embedding_net
 from heybuddy_tpu_torch.models.embedding_net import EmbeddingNet
 from heybuddy_tpu_torch.ops.kernels.embedding_kernel import fused_embedding_from_patches
-from heybuddy_tpu_torch.ops.kernels.melspec_kernel import mel_patches
-from heybuddy_tpu_torch.ops.melspec import mel_spectrogram, num_frames
+from heybuddy_tpu_torch.ops.kernels.featurize_kernel import fused_featurize
+from heybuddy_tpu_torch.ops.kernels.melspec_kernel import mel_patches, mel_spectrogram
+from heybuddy_tpu_torch.ops.melspec import num_frames
 from heybuddy_tpu_torch.ops.windows import embedding_window_starts
 from heybuddy_tpu_torch.utils.audio_io import audio_to_bct_array
 from heybuddy_tpu_torch.utils.log import logger
 
-__all__ = ["featurize_batch", "SpeechEmbeddings", "get_speech_embeddings"]
+__all__ = ["featurize_batch", "SpeechEmbeddings", "get_speech_embeddings", "POOLINGS"]
+
+POOLINGS = ("fused", "mega", "banded", "gather")
 
 
-def featurize_batch(net: EmbeddingNet, audio: torch.Tensor) -> torch.Tensor:
+def featurize_batch(
+    net: EmbeddingNet,
+    audio: torch.Tensor,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    pooling: str = "fused",
+) -> torch.Tensor:
     """
     (batch, t) float32 int16-range audio on the net's device ->
-    (batch, n_windows, 96) embeddings: K1 then K2.
+    (batch, n_windows, 96) embeddings, by the formulation ``pooling`` names
+    (module docstring; ``"auto"`` is ``"fused"``). The kernels of ``"fused"``
+    and ``"mega"`` compute in bf16, so another ``compute_dtype`` runs
+    ``"banded"`` instead, as in the JAX function.
     """
     if audio.ndim == 1:
         audio = audio[None, :]
     audio = audio.contiguous()
+    if pooling == "auto":
+        pooling = "fused"
+    if pooling in ("mega", "fused") and compute_dtype != torch.bfloat16:
+        pooling = "banded"
+    if pooling not in POOLINGS:
+        raise ValueError(f"unknown pooling {pooling!r}; expected auto or one of {POOLINGS}")
     starts = embedding_window_starts(audio.shape[1])
-    patches, num_patches = mel_patches(audio)
-    return fused_embedding_from_patches(net, patches, starts, num_patches)
+    if pooling == "mega":
+        return fused_featurize(net, audio, starts)
+    if pooling == "fused":
+        patches, num_patches = mel_patches(audio)
+        return fused_embedding_from_patches(net, patches, starts, num_patches)
+    spec = mel_spectrogram(audio)
+    apply_fn = net.apply_spectrogram_banded if pooling == "banded" else net.apply_spectrogram
+    return apply_fn(spec, starts, compute_dtype=compute_dtype)
 
 
 class SpeechEmbeddings:
@@ -63,17 +93,21 @@ class SpeechEmbeddings:
 
     ``params`` is the JAX-layout numpy tree (default: ``default_params()``)
     or an ``EmbeddingNet``. ``device`` defaults to ``"cuda"`` and raises
-    without it. ``seed`` seeds the generator of ``_repair_nan``'s row choice.
+    without it. ``compute_dtype`` is ``featurize_batch``'s (bf16 runs the
+    fused kernels). ``seed`` seeds the generator of ``_repair_nan``'s row
+    choice.
     """
 
     def __init__(
         self,
         params: Optional[Any] = None,
         device: DeviceLike = "cuda",
+        compute_dtype: torch.dtype = torch.bfloat16,
         onnx_path: Optional[str] = None,
         seed: int = 0,
     ) -> None:
         self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
         if onnx_path or os.environ.get("HEYBUDDY_EMBEDDING_ONNX"):
             raise NotImplementedError(
                 "the imported ONNX embedding (HEYBUDDY_EMBEDDING_ONNX / onnx_path) is not yet "
@@ -101,7 +135,8 @@ class SpeechEmbeddings:
         returns the device tensor (not synchronised) and the row count.
         """
         mono = torch.from_numpy(np.ascontiguousarray(audio_batch, dtype=np.float32) * 32767.0)
-        return featurize_batch(self.net, mono.to(self.device)), audio_batch.shape[0]
+        out = featurize_batch(self.net, mono.to(self.device), self.compute_dtype)
+        return out, audio_batch.shape[0]
 
     @torch.no_grad()
     def __call__(
@@ -115,7 +150,7 @@ class SpeechEmbeddings:
         mono = np.ascontiguousarray(batch.mean(axis=1) * 32767.0, dtype=np.float32)
         b, t = mono.shape
         mono_dev = torch.from_numpy(mono).to(self.device)
-        embeddings = featurize_batch(self.net, mono_dev).cpu().numpy()
+        embeddings = featurize_batch(self.net, mono_dev, self.compute_dtype).cpu().numpy()
 
         if remove_nan:
             embeddings = self._repair_nan(embeddings, self.generator)
@@ -123,7 +158,7 @@ class SpeechEmbeddings:
         if return_spectrograms:
             # per-audio-window spectrograms concatenated along the frame axis,
             # truncated to whole embedding windows (17280 -> 105 frames -> 100;
-            # 23040 -> 4 x 105 = 420)
+            # 23040 -> 4 x 105 = 420); K3 on the card
             spec = mel_spectrogram(mono_dev).cpu().numpy()
             frames_per = num_frames(AUDIO_WINDOW_SIZE)
             hops = AUDIO_WINDOW_STRIDE // MEL_HOP_LENGTH

@@ -1,40 +1,57 @@
 """
-Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
 
 Each source has a plain C interface and is compiled on its own by ``nvcc``
 for Hopper (``sm_90a``) into a shared library under ``heybuddy_tpu_torch/_build``
 (listed in ``.gitignore``), then loaded with ``ctypes``. The library name
-carries a hash of the source and the flags, so a changed source is rebuilt at
-its first use and an unchanged one is loaded as it is. ``build_all`` starts one
-``nvcc`` per source, all at once.
+carries a hash of the flags, the source and every shared header
+(``csrc/*.cuh``), so a changed source or header is rebuilt at its first use
+and an unchanged one is loaded as it is. ``build_all`` starts one ``nvcc``
+per source, all at once.
 
-Every C entry returns ``cudaGetLastError()`` after its launch; ``check`` raises
-if it is not 0. A missing ``nvcc`` or a failed build raises: there is no
-fallback.
+Every C entry ``<name>_launch(pointers..., ints..., stream)`` returns
+``cudaGetLastError()`` after its launch; ``launch`` raises if it is not 0 and
+otherwise adds one to ``LAUNCHES[name]``, the count a run reads to show which
+kernels it went through. A missing ``nvcc`` or a failed build raises: there
+is no fallback. ``library_from`` points a kernel's launches at another build
+of its source for a while, so that one process can time two versions of a
+kernel through the same wrapper.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
+import functools
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "library", "build_all", "check", "BuildError"]
+import torch
+
+__all__ = [
+    "SOURCES", "NVCC_FLAGS", "LAUNCHES", "library", "build_all", "launch", "library_from",
+    "nvcc_command", "BuildError",
+]
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "_build"
 )
-SOURCES = ("mel_patches", "embedding_pool")
+SOURCES = ("mel_patches", "mel_patches_fat", "mel_spectrogram", "embedding_pool", "featurize")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# launches of each kernel in this process, by source name
+LAUNCHES: collections.Counter = collections.Counter()
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -56,11 +73,20 @@ def _nvcc() -> str:
     raise BuildError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
+def nvcc_command(src: str, out: str) -> List[str]:
+    """The command that builds the kernel source ``src`` into the library ``out``."""
+    return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
+
+
 def _target(name: str) -> Tuple[str, str]:
+    """(source path, library path); the name hashes the flags, source and headers."""
     src = os.path.join(CSRC, f"{name}.cu")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers: List[str] = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    for path in (src, *headers):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -72,7 +98,7 @@ def _start(name: str) -> Optional[Tuple[subprocess.Popen, str, str]]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        nvcc_command(src, tmp),
         stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT,
         text=True,
@@ -122,7 +148,45 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(status: int, what: str) -> None:
-    """Raise if a C entry reported a CUDA error."""
+@functools.lru_cache(maxsize=None)
+def _entry(name: str, n_pointers: int, n_ints: int):
+    fn = getattr(library(name), f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, device: torch.device, pointers: Sequence[int], ints: Sequence[int]) -> None:
+    """
+    Launch kernel ``name`` on ``device``'s current stream with the given
+    device pointers (``tensor.data_ptr()``) and ints; raise if CUDA refused
+    the launch, else count it. The caller keeps the tensors alive.
+    """
+    fn = _entry(name, len(pointers), len(ints))
+    with torch.cuda.device(device):
+        status = fn(*pointers, *ints, torch.cuda.current_stream().cuda_stream)
     if status != 0:
-        raise RuntimeError(f"{what}: CUDA error {status} at launch")
+        raise RuntimeError(f"{name}: CUDA error {status} at launch")
+    LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def library_from(name: str, path: str) -> Iterator[None]:
+    """
+    Inside the block, launches of kernel ``name`` go to the library at
+    ``path``: another build of its source with the same C entry.
+    """
+    other = ctypes.CDLL(path)
+    with _LOCK:
+        saved = _LIBS.get(name)
+        _LIBS[name] = other
+    _entry.cache_clear()
+    try:
+        yield
+    finally:
+        with _LOCK:
+            if saved is None:
+                _LIBS.pop(name, None)
+            else:
+                _LIBS[name] = saved
+        _entry.cache_clear()

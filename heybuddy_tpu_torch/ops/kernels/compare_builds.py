@@ -1,0 +1,138 @@
+"""
+Time this checkout's K1 and K2 against another version's build of the same
+sources on one card, in alternating pairs.
+
+    python -m heybuddy_tpu_torch.ops.kernels.compare_builds OTHER
+
+OTHER is the root of another checkout of the repo (for example the parent
+commit, unpacked with ``git archive``). Its ``mel_patches.cu`` and
+``embedding_pool.cu``, with whatever headers sit beside them, are built with
+this checkout's flags into ``heybuddy_tpu_torch/_build/other-<hash>/`` and
+launched through this checkout's wrappers (``build.library_from``): both
+versions get the same inputs and the same launch code, so their C entries
+must match. On 2048 seeded clips of 23040 samples, as ``chip_smoke.py``
+times them, each of 10 pairs times both versions by CUDA events (the median
+of 11 runs after 3 warm-ups), this checkout first in even pairs and the
+other first in odd ones. It prints the two versions' largest output
+difference, every pair's times, the medians, the per-pair ratio of other to
+this, the card's name and power limit, and one JSON line of the same.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from heybuddy_tpu_torch.models.featurizer import SpeechEmbeddings
+from heybuddy_tpu_torch.ops.kernels import build
+from heybuddy_tpu_torch.ops.kernels import embedding_kernel as ek
+from heybuddy_tpu_torch.ops.kernels import melspec_kernel as mk
+from heybuddy_tpu_torch.ops.windows import embedding_window_starts
+from heybuddy_tpu_torch.utils.cuda_timing import cuda_ms, nvidia_smi_line
+
+KERNELS = ("mel_patches", "embedding_pool")
+BATCH = 2048
+CLIP = 23040
+PAIRS = 10  # the fewest pairs that can show a difference (9 of 10 wins)
+SEED = 20261016
+
+
+def build_other(root: str, names: Sequence[str]) -> Dict[str, str]:
+    """Build ``names`` from the checkout at ``root``, in parallel; returns library paths."""
+    csrc = os.path.join(root, "heybuddy_tpu_torch", "ops", "kernels", "csrc")
+    h = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
+    for entry in sorted(os.listdir(csrc)):
+        h.update(entry.encode())
+        with open(os.path.join(csrc, entry), "rb") as f:
+            h.update(f.read())
+    out_dir = os.path.join(build.BUILD_DIR, f"other-{h.hexdigest()[:16]}")
+    os.makedirs(out_dir, exist_ok=True)
+    libs = {name: os.path.join(out_dir, f"lib{name}.so") for name in names}
+    jobs = {
+        name: subprocess.Popen(
+            build.nvcc_command(os.path.join(csrc, f"{name}.cu"), libs[name]),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for name in names
+        if not os.path.exists(libs[name])
+    }
+    for name, proc in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise build.BuildError(f"nvcc failed for {root}'s {name}.cu:\n{log}")
+    return libs
+
+
+def compare(fn: Callable[[], torch.Tensor], name: str, other_lib: str, pairs: int) -> Dict:
+    """Both versions' output difference and their times in alternating pairs."""
+    mine = fn()
+    with build.library_from(name, other_lib):
+        theirs = fn()
+    torch.cuda.synchronize()
+    times: Dict[str, List[float]] = {"this": [], "other": []}
+    for i in range(pairs):
+        for which in ("this", "other") if i % 2 == 0 else ("other", "this"):
+            if which == "this":
+                times["this"].append(cuda_ms(fn))
+            else:
+                with build.library_from(name, other_lib):
+                    times["other"].append(cuda_ms(fn))
+    ratios = [o / t for t, o in zip(times["this"], times["other"])]
+    return {
+        "max_abs_diff": (mine - theirs).abs().max().item(),
+        "this_ms": times["this"], "other_ms": times["other"],
+        "this_median_ms": statistics.median(times["this"]),
+        "other_median_ms": statistics.median(times["other"]),
+        "other_over_this": ratios,
+        "median_ratio": statistics.median(ratios),
+        "this_faster_pairs": sum(r > 1.0 for r in ratios),
+    }
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0].strip())
+    parser.add_argument("other", help="root of the other checkout")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("compare_builds needs a CUDA device")
+    smi = nvidia_smi_line()
+    print(smi)
+    dev = torch.device("cuda")
+    build.build_all(KERNELS)
+    others = build_other(args.other, KERNELS)
+    net = SpeechEmbeddings(device=dev).net
+    rng = np.random.default_rng(SEED)
+    clips = np.clip(rng.normal(0.0, 0.05, (BATCH, CLIP)), -1.0, 1.0).astype(np.float32)
+    audio = torch.from_numpy(clips * 32767.0).to(dev)
+    starts = embedding_window_starts(CLIP)
+    patches, n = mk.mel_patches(audio)
+    runs = {
+        "mel_patches": lambda: mk.mel_patches(audio)[0],
+        "embedding_pool": lambda: ek.fused_embedding_from_patches(net, patches, starts, n),
+    }
+    results = {}
+    for name in KERNELS:
+        r = compare(runs[name], name, others[name], PAIRS)
+        results[name] = r
+        print(f"{name} at {BATCH} x {CLIP}, {PAIRS} pairs in alternating order: this "
+              f"{[round(v, 4) for v in r['this_ms']]} ms, other {[round(v, 4) for v in r['other_ms']]} "
+              f"ms; medians this {r['this_median_ms']:.4f}, other {r['other_median_ms']:.4f} ms; "
+              f"other / this per pair {[round(v, 4) for v in r['other_over_this']]}, median "
+              f"{r['median_ratio']:.4f}; this faster in {r['this_faster_pairs']} of {PAIRS}; "
+              f"outputs max |d| {r['max_abs_diff']:.3e}")
+    print(smi)
+    print(json.dumps({"device": smi, "batch": BATCH, "pairs": PAIRS, "kernels": results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

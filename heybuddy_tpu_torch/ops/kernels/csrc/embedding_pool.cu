@@ -3,23 +3,8 @@
 //
 // Replaces heybuddy_tpu/ops/pallas/embedding_kernel.py::
 // fused_embedding_from_patches (its body is _trunk_pool_body): patches
-// (b, p_pad, 128) float32 -> embeddings (b, W, 96) float32.
-//
-//   feats = bf16(rms(x) @ Wp + bp)                        x: float32 patch row
-//   2x: h = bf16(gelu(rms(feats) @ Wup + bup))            exact erff
-//       feats = bf16(feats + bf16(h @ Wdown + bdown))     the add rounds to bf16
-//   a = feats @ Q (192 -> 4 heads)
-//   per window w, head h, k < 19 (patch p0(w) + k):
-//       e = exp_c[k, h] * exp(a[p, h] - max_p a[., h]);  wgt = bf16(e / (sum_k e + 1e-30))
-//       pooled[w, h, :] = sum_k wgt feats[p, :] + sum_k wgt pos_bf16[k, :]
-//   norm = bf16(grouped centred RMS over the window's 4 x 192 values)
-//   out = norm @ Whead + bhead                            float32
-//
-// Numerics follow the TPU kernel's rounding points: bf16 operands, float32
-// accumulation, RMS (eps 1e-6), softmax and pooling sums in float32, the
-// softmax weights rounded to bf16 after normalisation, the positional code in
-// bf16. A product of two bf16 values is exact in float32, so the FMA products
-// here equal the tensor cores' and only the order of the sums differs.
+// (b, p_pad, 128) float32 -> embeddings (b, W, 96) float32. The function, its
+// rounding points and its layout are trunk_pool.cuh's, shared with K4.
 //
 // What bounds it: operations. Per clip of 35 real patches about 26.5 MFLOP
 // (the trunk is 22.4 of them) against 20 KB read and 6 KB written. This
@@ -28,336 +13,47 @@
 // could use; mma.sync / wgmma tiles are the next step.
 //
 // Design: one block of 256 threads per clip. The trunk runs over chunks of 40
-// patch rows (the 35 real rows of a 1.44 s clip in one chunk); activations of
-// the chunk stay in shared memory as bf16, and the weights (about 0.8 MB in
-// bf16, too large for shared memory) stream through a shared tile of 16 rows
-// x 192 columns that L2 serves to every block. Each thread holds a 5-row x
-// 6-column register tile (rows ty + 8 i, columns tx + 32 j): a warp shares its
-// rows, so activation reads are broadcasts and weight reads are
-// conflict-free. The finished patch features and scores go to a global
-// scratch (L2-resident) because the windows of a long clip span all of its
-// patches; the pooling then walks the windows 16 at a time, with the grouped
-// RMS and the head product in shared memory. The Pallas selector matmuls
-// (tile_h, gs, sel_h) and the banded (WH, P) weight matrix become indexing
-// by window start.
+// patch rows read from the patch tensor (the 35 real rows of a 1.44 s clip in
+// one chunk), then the pooling walks the windows (trunk_pool.cuh).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "trunk_pool.cuh"
 
 namespace {
 
-constexpr int PD = 128;     // patch values (4 frames x 32 mel)
-constexpr int HID = 192;    // trunk width
-constexpr int TH = 384;     // trunk MLP width
-constexpr int HEADS = 4;
-constexpr int WPAT = 19;    // patches per window
-constexpr int EMB = 96;
-constexpr int POOLED = HEADS * HID;  // 768 values per window
-
-constexpr int THREADS = 256;
-constexpr int RC = 40;      // patch rows per trunk chunk
-constexpr int KT = 16;      // weight rows per shared tile
-constexpr int WC = 16;      // windows per pooling chunk
-
-using bf16 = __nv_bfloat16;
-
-// shared-memory layout, bytes: phase 1 (trunk) and phase 2 (pooling) overlap
-constexpr int S1_XN = 0;                                  // RC x HID bf16
-constexpr int S1_FEATS = S1_XN + RC * HID * 2;            // RC x HID bf16
-constexpr int S1_HID = S1_FEATS + RC * HID * 2;           // RC x TH bf16
-constexpr int S1_WT = S1_HID + RC * TH * 2;               // KT x 192 float
-constexpr int S1_END = S1_WT + KT * 192 * 4;
-constexpr int S2_POOLED = 0;                              // WC x 768 float
-constexpr int S2_NORM = S2_POOLED + WC * POOLED * 4;      // WC x 768 bf16
-constexpr int S2_WGT = S2_NORM + WC * POOLED * 2;         // WC x HEADS x WPAT float
-constexpr int S2_WT = S2_WGT + WC * HEADS * WPAT * 4;     // KT x 96 float
-constexpr int S2_END = S2_WT + KT * EMB * 4;
-constexpr int SMEM_BYTES = S1_END > S2_END ? S1_END : S2_END;
-
-static_assert(RC % 8 == 0 && WC % 8 == 0, "row tiles are 8 rows of threads");
-
-__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16(v)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// acc[i][j] += A[ty + 8 i, :K] . W[:K, n0 + tx + 32 j]; A is bf16 in shared
-// memory, W bf16 in global memory streamed through wt_s in KT-row tiles.
-template <int RM, int RN>
-__device__ __forceinline__ void gemm_tile(const bf16* A, int lda, int K, const bf16* __restrict__ W,
-                                          int ldw, int n0, float* wt_s, float (&acc)[RM][RN]) {
-  constexpr int NC = 32 * RN;
-  const int tid = threadIdx.x;
-  const int tx = tid & 31;
-  const int ty = tid >> 5;
-  for (int k0 = 0; k0 < K; k0 += KT) {
-    __syncthreads();
-    for (int i = tid; i < KT * NC; i += THREADS) {
-      const int kk = i / NC;
-      const int c = i - kk * NC;
-      wt_s[i] = bf(W[static_cast<size_t>(k0 + kk) * ldw + n0 + c]);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KT; ++kk) {
-      float a[RM];
-      float bv[RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = bf(A[(ty + 8 * i) * lda + k0 + kk]);
-#pragma unroll
-      for (int j = 0; j < RN; ++j) bv[j] = wt_s[kk * NC + tx + 32 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-  }
-  __syncthreads();
-}
-
-template <int RM, int RN>
-__device__ __forceinline__ void zero(float (&acc)[RM][RN]) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0.0f;
-}
-
-// Centred RMS of `rows` rows of width N (float32 math) -> bf16 rows of dst;
-// rows rows..RC-1 are zeroed. One warp per row.
-template <int N, typename Src>
-__device__ __forceinline__ void rms_rows(Src load, int rows, bf16* dst) {
-  constexpr int PER = N / 32;
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < RC; r += THREADS / 32) {
-    if (r >= rows) {
-      for (int c = lane; c < N; c += 32) dst[r * N + c] = __float2bfloat16(0.0f);
-      continue;
-    }
-    float v[PER];
-    float s = 0.0f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      v[i] = load(r, lane + 32 * i);
-      s += v[i];
-    }
-    const float mean = warp_sum(s) / N;
-    float ss = 0.0f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      v[i] -= mean;
-      ss += v[i] * v[i];
-    }
-    const float scale = 1.0f / sqrtf(warp_sum(ss) / N + 1e-6f);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) dst[r * N + lane + 32 * i] = __float2bfloat16(v[i] * scale);
-  }
-}
+using trunk::bf16;
 
 struct Args {
   const float* patches;   // (b, P, 128)
   float* out;             // (b, W, 96)
   bf16* feats_g;          // (b, P, 192) scratch
   float* scores_g;        // (b, P, 4) scratch
-  const bf16* wp;         // (128, 192)
-  const float* bp;        // (192)
-  const bf16* upw;        // (nb, 192, 384)
-  const float* upb;       // (nb, 384)
-  const bf16* dnw;        // (nb, 384, 192)
-  const float* dnb;       // (nb, 192)
-  const bf16* q;          // (192, 4)
-  const bf16* wh;         // (768, 96)
-  const float* bh;        // (96)
-  const float* expc;      // (19, 4) exp(pos @ Q - max)
-  const bf16* pos;        // (19, 192)
-  const int* p0;          // (W) first patch of each window
+  trunk::Weights net;
   int p_pad;
   int num_patches;
   int n_windows;
-  int n_blocks;
 };
 
-__global__ void __launch_bounds__(THREADS, 2) embedding_pool_kernel(const Args args) {
+__global__ void __launch_bounds__(trunk::THREADS, 2) embedding_pool_kernel(const Args args) {
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  __shared__ float red_s[THREADS];
-  __shared__ float hmax_s[HEADS];
+  __shared__ float red_s[trunk::THREADS];
+  __shared__ float hmax_s[trunk::HEADS];
 
   const int clip = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int tx = tid & 31;
-  const int ty = tid >> 5;
   const int P = args.p_pad;
-  const float* patches = args.patches + static_cast<size_t>(clip) * P * PD;
-  bf16* feats_g = args.feats_g + static_cast<size_t>(clip) * P * HID;
-  float* scores_g = args.scores_g + static_cast<size_t>(clip) * P * HEADS;
+  const float* patches = args.patches + static_cast<size_t>(clip) * P * trunk::PD;
+  bf16* feats_g = args.feats_g + static_cast<size_t>(clip) * P * trunk::HID;
+  float* scores_g = args.scores_g + static_cast<size_t>(clip) * P * trunk::HEADS;
 
-  // ---- phase 1: trunk over chunks of RC patch rows ---------------------------
-  bf16* xn_s = reinterpret_cast<bf16*>(smem + S1_XN);
-  bf16* feats_s = reinterpret_cast<bf16*>(smem + S1_FEATS);
-  bf16* hid_s = reinterpret_cast<bf16*>(smem + S1_HID);
-  float* wt_s = reinterpret_cast<float*>(smem + S1_WT);
-
-  for (int r0 = 0; r0 < args.num_patches; r0 += RC) {
-    const int rows = min(RC, args.num_patches - r0);
-    __syncthreads();
-    rms_rows<PD>([&](int r, int c) { return patches[(r0 + r) * PD + c]; }, rows, xn_s);
-    {
-      float acc[RC / 8][6];
-      zero(acc);
-      gemm_tile(xn_s, PD, PD, args.wp, HID, 0, wt_s, acc);
-#pragma unroll
-      for (int i = 0; i < RC / 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 6; ++j) {
-          const int c = tx + 32 * j;
-          feats_s[(ty + 8 * i) * HID + c] = __float2bfloat16(acc[i][j] + args.bp[c]);
-        }
-    }
-    for (int blk = 0; blk < args.n_blocks; ++blk) {
-      __syncthreads();
-      rms_rows<HID>([&](int r, int c) { return bf(feats_s[r * HID + c]); }, rows, xn_s);
-      const bf16* upw = args.upw + static_cast<size_t>(blk) * HID * TH;
-      const float* upb = args.upb + blk * TH;
-      for (int n0 = 0; n0 < TH; n0 += 192) {
-        float acc[RC / 8][6];
-        zero(acc);
-        gemm_tile(xn_s, HID, HID, upw, TH, n0, wt_s, acc);
-#pragma unroll
-        for (int i = 0; i < RC / 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 6; ++j) {
-            const int c = n0 + tx + 32 * j;
-            const float h = acc[i][j] + upb[c];
-            const float g = 0.5f * h * (1.0f + erff(h * 0.70710678118654752f));
-            hid_s[(ty + 8 * i) * TH + c] = __float2bfloat16(g);
-          }
-      }
-      const bf16* dnw = args.dnw + static_cast<size_t>(blk) * TH * HID;
-      const float* dnb = args.dnb + blk * HID;
-      float acc[RC / 8][6];
-      zero(acc);
-      gemm_tile(hid_s, TH, TH, dnw, HID, 0, wt_s, acc);
-#pragma unroll
-      for (int i = 0; i < RC / 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 6; ++j) {
-          const int idx = (ty + 8 * i) * HID + tx + 32 * j;
-          const float d = round_bf16(acc[i][j] + dnb[tx + 32 * j]);
-          feats_s[idx] = __float2bfloat16(bf(feats_s[idx]) + d);
-        }
-    }
-    __syncthreads();
-    // patch scores a = feats @ Q, and the finished rows to the scratch
-    for (int i = tid; i < rows * HEADS; i += THREADS) {
-      const int r = i / HEADS;
-      const int h = i % HEADS;
-      float a = 0.0f;
-      for (int d = 0; d < HID; ++d) a = fmaf(bf(feats_s[r * HID + d]), bf(args.q[d * HEADS + h]), a);
-      scores_g[(r0 + r) * HEADS + h] = a;
-    }
-    for (int i = tid; i < rows * HID; i += THREADS) feats_g[r0 * HID + i] = feats_s[i];
+  for (int r0 = 0; r0 < args.num_patches; r0 += trunk::RC) {
+    const int rows = min(trunk::RC, args.num_patches - r0);
+    trunk::trunk_chunk(
+        args.net, [&](int r, int c) { return patches[(r0 + r) * trunk::PD + c]; }, r0, rows,
+        feats_g, scores_g, smem);
   }
-  __syncthreads();
-
-  // ---- phase 2: banded window pooling, grouped RMS, head ----------------------
-  {
-    float m = -3.0e38f;
-    for (int p = tid / HEADS; p < args.num_patches; p += THREADS / HEADS)
-      m = fmaxf(m, scores_g[p * HEADS + tid % HEADS]);
-    red_s[tid] = m;
-    __syncthreads();
-    if (tid < HEADS) {
-      float mm = -3.0e38f;
-      for (int i = tid; i < THREADS; i += HEADS) mm = fmaxf(mm, red_s[i]);
-      hmax_s[tid] = mm;
-    }
-  }
-
-  float* pooled_s = reinterpret_cast<float*>(smem + S2_POOLED);
-  bf16* norm_s = reinterpret_cast<bf16*>(smem + S2_NORM);
-  float* wgt_s = reinterpret_cast<float*>(smem + S2_WGT);
-  float* wt2_s = reinterpret_cast<float*>(smem + S2_WT);
-  float* out = args.out + static_cast<size_t>(clip) * args.n_windows * EMB;
-
-  for (int w0 = 0; w0 < args.n_windows; w0 += WC) {
-    const int nw = min(WC, args.n_windows - w0);
-    __syncthreads();
-    // softmax weights of each (window, head) over its 19 patches
-    if (tid < nw * HEADS) {
-      const int w = tid / HEADS;
-      const int h = tid % HEADS;
-      const int p0 = args.p0[w0 + w];
-      float* wg = wgt_s + (w * HEADS + h) * WPAT;
-      float denom = 0.0f;
-      for (int k = 0; k < WPAT; ++k) {
-        const float e = args.expc[k * HEADS + h] * expf(scores_g[(p0 + k) * HEADS + h] - hmax_s[h]);
-        wg[k] = e;
-        denom += e;
-      }
-      for (int k = 0; k < WPAT; ++k) wg[k] = round_bf16(wg[k] / (denom + 1e-30f));
-    }
-    __syncthreads();
-    // pooled = W @ feats + W @ POSP, in float32
-    for (int i = tid; i < nw * POOLED; i += THREADS) {
-      const int w = i / POOLED;
-      const int h = (i % POOLED) / HID;
-      const int d = i % HID;
-      const int p0 = args.p0[w0 + w];
-      const float* wg = wgt_s + (w * HEADS + h) * WPAT;
-      float n1 = 0.0f;
-      float n2 = 0.0f;
-#pragma unroll
-      for (int k = 0; k < WPAT; ++k) {
-        n1 = fmaf(wg[k], bf(feats_g[(p0 + k) * HID + d]), n1);
-        n2 = fmaf(wg[k], bf(args.pos[k * HID + d]), n2);
-      }
-      pooled_s[i] = n1 + n2;
-    }
-    __syncthreads();
-    // grouped centred RMS over each window's 768 values, one warp per window
-    {
-      constexpr int PER = POOLED / 32;
-      const int lane = tid & 31;
-      for (int w = tid >> 5; w < WC; w += THREADS / 32) {
-        if (w >= nw) {
-          for (int c = lane; c < POOLED; c += 32) norm_s[w * POOLED + c] = __float2bfloat16(0.0f);
-          continue;
-        }
-        float s = 0.0f;
-        for (int i = 0; i < PER; ++i) s += pooled_s[w * POOLED + lane + 32 * i];
-        const float mean = warp_sum(s) / POOLED;
-        float ss = 0.0f;
-        for (int i = 0; i < PER; ++i) {
-          const float c = pooled_s[w * POOLED + lane + 32 * i] - mean;
-          ss += c * c;
-        }
-        const float scale = 1.0f / sqrtf(warp_sum(ss) / POOLED + 1e-6f);
-        for (int i = 0; i < PER; ++i) {
-          const int c = w * POOLED + lane + 32 * i;
-          norm_s[c] = __float2bfloat16((pooled_s[c] - mean) * scale);
-        }
-      }
-    }
-    // head: out = norm @ Whead + bhead
-    float acc[WC / 8][EMB / 32];
-    zero(acc);
-    gemm_tile(norm_s, POOLED, POOLED, args.wh, EMB, 0, wt2_s, acc);
-#pragma unroll
-    for (int i = 0; i < WC / 8; ++i) {
-      const int w = ty + 8 * i;
-      if (w >= nw) continue;
-#pragma unroll
-      for (int j = 0; j < EMB / 32; ++j) {
-        const int c = tx + 32 * j;
-        out[(w0 + w) * EMB + c] = acc[i][j] + args.bh[c];
-      }
-    }
-  }
+  trunk::pool_head(args.net, feats_g, scores_g,
+                   args.out + static_cast<size_t>(clip) * args.n_windows * trunk::EMB,
+                   args.num_patches, args.n_windows, smem, red_s, hmax_s);
 }
 
 }  // namespace
@@ -369,29 +65,31 @@ extern "C" int embedding_pool_launch(const void* patches, void* out, void* feats
                                      int b, int p_pad, int num_patches, int n_windows, int n_blocks,
                                      void* stream) {
   cudaError_t err = cudaFuncSetAttribute(embedding_pool_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         trunk::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   Args args;
   args.patches = static_cast<const float*>(patches);
   args.out = static_cast<float*>(out);
   args.feats_g = static_cast<bf16*>(feats_g);
   args.scores_g = static_cast<float*>(scores_g);
-  args.wp = static_cast<const bf16*>(wp);
-  args.bp = static_cast<const float*>(bp);
-  args.upw = static_cast<const bf16*>(upw);
-  args.upb = static_cast<const float*>(upb);
-  args.dnw = static_cast<const bf16*>(dnw);
-  args.dnb = static_cast<const float*>(dnb);
-  args.q = static_cast<const bf16*>(q);
-  args.wh = static_cast<const bf16*>(wh);
-  args.bh = static_cast<const float*>(bh);
-  args.expc = static_cast<const float*>(expc);
-  args.pos = static_cast<const bf16*>(pos);
-  args.p0 = static_cast<const int*>(p0);
+  args.net.wp = static_cast<const bf16*>(wp);
+  args.net.bp = static_cast<const float*>(bp);
+  args.net.upw = static_cast<const bf16*>(upw);
+  args.net.upb = static_cast<const float*>(upb);
+  args.net.dnw = static_cast<const bf16*>(dnw);
+  args.net.dnb = static_cast<const float*>(dnb);
+  args.net.q = static_cast<const bf16*>(q);
+  args.net.wh = static_cast<const bf16*>(wh);
+  args.net.bh = static_cast<const float*>(bh);
+  args.net.expc = static_cast<const float*>(expc);
+  args.net.pos = static_cast<const bf16*>(pos);
+  args.net.p0 = static_cast<const int*>(p0);
+  args.net.n_blocks = n_blocks;
   args.p_pad = p_pad;
   args.num_patches = num_patches;
   args.n_windows = n_windows;
-  args.n_blocks = n_blocks;
-  embedding_pool_kernel<<<b, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(args);
+  embedding_pool_kernel<<<b, trunk::THREADS, trunk::SMEM_BYTES,
+                          static_cast<cudaStream_t>(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
 }

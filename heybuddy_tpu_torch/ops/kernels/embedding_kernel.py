@@ -5,7 +5,9 @@ Counterpart of the JAX package's ``ops/pallas/embedding_kernel.py::
 fused_embedding_from_patches``. ``fused_embedding_from_patches`` takes the
 padded patch layout that ``mel_patches`` emits, (b, p_pad, 128) float32 with
 ``num_patches`` real rows, and returns (b, W, 96) float32 embeddings for the
-window starts of the clip length.
+window starts of the clip length. ``fused_embedding_windows`` is the
+spectrogram-layout entry (the JAX function of that name): it lays a
+(b, frames, 32) spectrogram out as patches and runs the same kernel.
 
 The rounding points are the TPU kernel's: bf16 operands with float32
 accumulation, ``feats`` rounded to bf16 after ``patch_proj`` and after each
@@ -24,8 +26,6 @@ chip check compare against. The Pallas selector matmuls become indexing.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Dict, Sequence, Tuple
 
 import torch
@@ -33,9 +33,9 @@ import torch
 from heybuddy_tpu_torch.models.embedding_net import EmbeddingNet, EmbeddingNetConfig, _band_constants
 from heybuddy_tpu_torch.ops.kernels import build
 
-__all__ = ["fused_embedding_from_patches", "fused_embedding_plain"]
+__all__ = ["fused_embedding_from_patches", "fused_embedding_plain", "fused_embedding_windows"]
 
-# the geometry compiled into csrc/embedding_pool.cu
+# the geometry compiled into csrc/trunk_pool.cuh (K2 and K4)
 KERNEL_CONFIG = EmbeddingNetConfig()
 
 
@@ -162,41 +162,60 @@ def fused_embedding_plain(
     return out.reshape(b, n_windows, cfg.embedding_dim)
 
 
-@functools.lru_cache(maxsize=1)
-def _launcher():
-    fn = build.library("embedding_pool").embedding_pool_launch
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(
-    net: EmbeddingNet, patches: torch.Tensor, starts: Tuple[int, ...], num_patches: int
-) -> torch.Tensor:
+def require_kernel_config(net: EmbeddingNet) -> None:
+    """Raise unless ``net`` has the geometry the CUDA kernels are compiled for."""
     if net.config != KERNEL_CONFIG:
         raise ValueError(
             f"the CUDA kernel is built for {KERNEL_CONFIG.as_dict()}, not {net.config.as_dict()}"
         )
-    b, p_pad, _ = patches.shape
-    w = _kernel_weights(net)
+
+
+def launch_trunk(
+    name: str,
+    net: EmbeddingNet,
+    inputs: Sequence[int],
+    sizes: Sequence[int],
+    b: int,
+    p_pad: int,
+    num_patches: int,
+    starts: Tuple[int, ...],
+) -> torch.Tensor:
+    """
+    Launch a kernel built on ``csrc/trunk_pool.cuh`` (K2 ``embedding_pool``,
+    K4 ``featurize``) on the net's device and return its (b, W, 96) output.
+    Its C entry takes the ``inputs`` pointers, then the output, the L2 scratch
+    for features and scores, the weights and pooling constants; then the
+    ``sizes`` ints, then p_pad, num_patches, W and the trunk depth.
+    """
+    require_kernel_config(net)
+    cfg = net.config
+    dev = net.pos.device
     pool = _pool_constants(net, starts, num_patches, p_pad)
-    dev = patches.device
-    n_windows = len(starts)
-    out = torch.empty((b, n_windows, KERNEL_CONFIG.embedding_dim), device=dev, dtype=torch.float32)
-    feats = torch.empty((b, p_pad, KERNEL_CONFIG.hidden_dim), device=dev, dtype=torch.bfloat16)
-    scores = torch.empty((b, p_pad, KERNEL_CONFIG.pool_heads), device=dev, dtype=torch.float32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _launcher()(
-            patches.data_ptr(), out.data_ptr(), feats.data_ptr(), scores.data_ptr(),
-            w["wp"].data_ptr(), w["bp"].data_ptr(), w["upw"].data_ptr(), w["upb"].data_ptr(),
-            w["dnw"].data_ptr(), w["dnb"].data_ptr(), w["q"].data_ptr(), w["wh"].data_ptr(),
-            w["bh"].data_ptr(), pool["exp_c"].data_ptr(), pool["pos_bf16"].data_ptr(),
-            pool["p0"].data_ptr(),
-            b, p_pad, num_patches, n_windows, len(net.trunk), stream,
-        )
-    build.check(status, "embedding_pool")
+    w = _kernel_weights(net)
+    out = torch.empty((b, len(starts), cfg.embedding_dim), device=dev, dtype=torch.float32)
+    feats = torch.empty((b, p_pad, cfg.hidden_dim), device=dev, dtype=torch.bfloat16)
+    scores = torch.empty((b, p_pad, cfg.pool_heads), device=dev, dtype=torch.float32)
+    build.launch(
+        name,
+        dev,
+        [*inputs, out.data_ptr(), feats.data_ptr(), scores.data_ptr()]
+        + [w[k].data_ptr() for k in ("wp", "bp", "upw", "upb", "dnw", "dnb", "q", "wh", "bh")]
+        + [pool[k].data_ptr() for k in ("exp_c", "pos_bf16", "p0")],
+        [*sizes, p_pad, num_patches, len(starts), len(net.trunk)],
+    )
     return out
+
+
+def check_window_starts(
+    cfg: EmbeddingNetConfig, window_starts: Sequence[int], num_patches: int
+) -> Tuple[int, ...]:
+    """The window starts as a tuple; raise unless each window is whole on the patch grid."""
+    starts = tuple(int(s) for s in window_starts)
+    if not starts or any(s % cfg.patch_frames for s in starts):
+        raise ValueError("window starts must be non-empty and align to the patch grid")
+    if min(starts) < 0 or max(starts) // cfg.patch_frames + cfg.window_patches > num_patches:
+        raise ValueError("a window reaches past the last real patch")
+    return starts
 
 
 def fused_embedding_from_patches(
@@ -220,20 +239,41 @@ def fused_embedding_from_patches(
         raise ValueError(f"patch dim {patch_dim} != config {cfg.patch_dim}")
     if not 1 <= num_patches <= p_pad or b < 1:
         raise ValueError(f"num_patches {num_patches} does not fit patches {tuple(patches.shape)}")
-    starts = tuple(int(s) for s in window_starts)
-    if not starts or any(s % cfg.patch_frames for s in starts):
-        raise ValueError("window starts must be non-empty and align to the patch grid")
-    if max(starts) // cfg.patch_frames + cfg.window_patches > num_patches:
-        raise ValueError("a window reaches past the last real patch")
+    starts = check_window_starts(cfg, window_starts, num_patches)
     if net.pos.device != patches.device:
         raise ValueError(f"net on {net.pos.device}, patches on {patches.device}")
     if patches.device.type == "cpu":
         return fused_embedding_plain(net, patches, starts, num_patches)
     if patches.device.type != "cuda":
         raise ValueError(f"fused_embedding_from_patches: unsupported device {patches.device}")
-    out = _launch(net, patches, starts, num_patches)
-    fused_embedding_from_patches.launches += 1
-    return out
+    return launch_trunk("embedding_pool", net, [patches.data_ptr()], [b], b, p_pad, num_patches, starts)
 
 
-fused_embedding_from_patches.launches = 0
+def fused_embedding_windows(
+    net: EmbeddingNet, spectrogram: torch.Tensor, window_starts: Sequence[int]
+) -> torch.Tensor:
+    """
+    Spectrogram-layout entry to K2: (b, frames, 32) float32 scaled log-mel ->
+    (b, W, 96). Cuts the spectrogram to whole patches, lays them out as the
+    (b, p_pad, 128) patch tensor with zero pad rows, and runs
+    ``fused_embedding_from_patches`` (the CUDA kernel for a CUDA tensor).
+    """
+    cfg = net.config
+    if (
+        not isinstance(spectrogram, torch.Tensor)
+        or spectrogram.dtype != torch.float32
+        or spectrogram.ndim != 3
+    ):
+        raise ValueError("fused_embedding_windows takes a 3-D float32 tensor")
+    b, frames, mel = spectrogram.shape
+    if mel != cfg.mel_bins:
+        raise ValueError(f"mel bins {mel} != config {cfg.mel_bins}")
+    num_patches = frames // cfg.patch_frames
+    if num_patches < 1:
+        raise ValueError(f"spectrogram of shape {tuple(spectrogram.shape)} holds no whole patch")
+    p_pad = -(-num_patches // 8) * 8
+    patches = spectrogram.new_zeros((b, p_pad, cfg.patch_dim))
+    patches[:, :num_patches] = spectrogram[:, : num_patches * cfg.patch_frames].reshape(
+        b, num_patches, cfg.patch_dim
+    )
+    return fused_embedding_from_patches(net, patches, window_starts, num_patches)

@@ -1,14 +1,12 @@
 """
-Log-mel spectrogram: numpy constants and the plain PyTorch version.
+Log-mel spectrogram constants (numpy).
 
-The constants are numpy copies of the JAX package's ``ops/melspec.py``
-(``num_frames``, ``mel_filterbank``, ``dft_basis``, ``mel_band_freqs``) and
-must stay equal to them element for element. The spectrogram is a matmul DFT:
-frames (hop 160, 512 samples, center=False) times a Hann-windowed real-DFT
-basis, power, the HTK mel filterbank, then ``log(x + 1e-6)/10 + 2``.
-
-The DFT multiplies int16-range audio, so it runs in full fp32; TF32 is off
-(``device.py``).
+Copies of the JAX package's ``ops/melspec.py`` helpers (``num_frames``,
+``mel_filterbank``, ``dft_basis``, ``mel_band_freqs``), held equal to them
+element for element by the tests. The spectrogram is a matmul DFT: frames
+(hop 160, 512 samples, center=False) times a Hann-windowed real-DFT basis,
+power, the HTK mel filterbank, then ``log(x + 1e-6)/10 + 2``; the mel kernels
+and their plain versions (``ops/kernels/melspec_kernel.py``) compute it.
 """
 
 from __future__ import annotations
@@ -17,17 +15,13 @@ import functools
 from typing import Optional
 
 import numpy as np
-import torch
 
 from heybuddy_tpu_torch.constants import (
     MEL_BINS,
     MEL_F_MAX,
     MEL_F_MIN,
     MEL_HOP_LENGTH,
-    MEL_LOG_EPS,
     MEL_N_FFT,
-    MEL_SCALE_ADD,
-    MEL_SCALE_DIV,
     MEL_WIN_LENGTH,
     SAMPLE_RATE,
 )
@@ -37,7 +31,6 @@ __all__ = [
     "mel_filterbank",
     "dft_basis",
     "mel_band_freqs",
-    "mel_spectrogram",
 ]
 
 
@@ -116,29 +109,3 @@ def mel_band_freqs(
     """
     bins = int(np.ceil(f_max / (sample_rate / 2) * (n_fft // 2))) + 2
     return min(((bins + 7) // 8) * 8, n_fft // 2 + 1)
-
-
-@functools.lru_cache(maxsize=None)
-def _device_constants(device: torch.device):
-    n_freqs = mel_band_freqs()
-    basis = torch.from_numpy(dft_basis(MEL_N_FFT, MEL_WIN_LENGTH, n_freqs)).to(device)
-    fb = torch.from_numpy(np.ascontiguousarray(mel_filterbank()[:n_freqs])).to(device)
-    return basis, fb
-
-
-def mel_spectrogram(audio: torch.Tensor) -> torch.Tensor:
-    """
-    (batch, t) float32 int16-range audio -> (batch, n_frames, 32) scaled
-    log-mel, on the tensor's device, in plain PyTorch ops.
-    """
-    if audio.ndim == 1:
-        audio = audio[None, :]
-    audio = audio.float()
-    n_freqs = mel_band_freqs()
-    basis, fb = _device_constants(audio.device)
-    frames = audio.unfold(-1, MEL_N_FFT, MEL_HOP_LENGTH)  # (b, F, n_fft)
-    spectrum = torch.matmul(frames, basis)  # (b, F, 2*n_freqs), full fp32
-    re, im = spectrum[..., :n_freqs], spectrum[..., n_freqs:]
-    power = re * re + im * im
-    mel = torch.matmul(power, fb)
-    return torch.log(mel + MEL_LOG_EPS) / MEL_SCALE_DIV + MEL_SCALE_ADD

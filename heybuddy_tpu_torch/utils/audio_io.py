@@ -1,11 +1,12 @@
 """
 Audio input for the serving path (numpy).
 
-WAV files through the stdlib ``wave`` module (integer PCM), resampling by
-polyphase filtering (``scipy.signal.resample_poly``), and the universal
-``audio_to_bct_array`` loader that turns paths, WAV bytes, arrays or lists
-into float32 ``(batch, channels, time)`` in [-1, 1]. Other containers
-(mp3, flac, ogg, IEEE-float WAV) are not ported yet and raise.
+WAV files through the stdlib ``wave`` module (integer PCM; ``codecs.
+read_wav_any`` adds IEEE-float WAV), resampling by polyphase filtering
+(``scipy.signal.resample_poly``), and the universal ``audio_to_bct_array``
+loader that turns paths, WAV bytes, arrays or lists into float32
+``(batch, channels, time)`` in [-1, 1]. Other containers (mp3, flac, ogg)
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -97,7 +98,9 @@ def _coerce_single(item: AudioLike, sample_rate: Optional[int]) -> Tuple[np.ndar
                 f"{item!r}: only WAV files are supported by this port so far; "
                 "the other codecs are not yet ported"
             )
-        return read_wav(item)
+        from heybuddy_tpu_torch.utils.codecs import read_wav_any
+
+        return read_wav_any(item)
     raw = np.asarray(item)
     arr = raw.astype(np.float32)
     if raw.dtype.kind == "i":
