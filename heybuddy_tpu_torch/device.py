@@ -7,9 +7,14 @@ caller that wants the CPU (the tests) passes ``device="cpu"`` and then gets
 the plain PyTorch versions of the kernels.
 
 TF32 is switched off for both matmuls and cuDNN when this module is imported.
-The mel DFT is an fp32 product on int16-range audio, and TF32 (about three
-decimal digits) would move the log-mel far outside the tolerance the port is
-held to; the wake-word head's products are fp32 in the JAX reference too.
+The mel DFT multiplies int16-range audio, and TF32 (one product of 10-bit
+mantissas, about three decimal digits) would move the log-mel far outside
+the tolerance the port is held to. The mel kernels do use the tensor cores,
+but as a split product of fp16 pairs (three fp16 products that keep 22
+significant bits of each operand, with exact power-of-two scalings that keep
+both in fp16's normal range, ``csrc/mel_common.cuh``), not TF32; the plain float32
+versions they are checked against, and the wake-word head (float32 in the
+JAX reference too), must not fall to TF32 either.
 """
 
 from __future__ import annotations

@@ -9,11 +9,13 @@ carries a hash of the flags, the source and every shared header
 and an unchanged one is loaded as it is. ``build_all`` starts one ``nvcc``
 per source, all at once.
 
-Every C entry ``<name>_launch(pointers..., ints..., stream)`` returns
+Every C entry ``<entry>_launch(pointers..., ints..., stream)`` returns
 ``cudaGetLastError()`` after its launch; ``launch`` raises if it is not 0 and
-otherwise adds one to ``LAUNCHES[name]``, the count a run reads to show which
-kernels it went through. A missing ``nvcc`` or a failed build raises: there
-is no fallback. ``library_from`` points a kernel's launches at another build
+otherwise adds one to ``LAUNCHES[entry]``, the count a run reads to show which
+kernels it went through. A library's main entry has its name; a variant
+(``mel_patches_bf16`` in ``mel_patches``) has an entry of its own.
+``<name>_smem_bytes()`` gives the dynamic shared memory of its kernels. A
+missing ``nvcc`` or a failed build raises: there is no fallback. ``library_from`` points a kernel's launches at another build
 of its source for a while, so that one process can time two versions of a
 kernel through the same wrapper.
 """
@@ -36,8 +38,8 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 import torch
 
 __all__ = [
-    "SOURCES", "NVCC_FLAGS", "LAUNCHES", "library", "build_all", "launch", "library_from",
-    "nvcc_command", "BuildError",
+    "SOURCES", "NVCC_FLAGS", "LAUNCHES", "library", "library_path", "build_all", "launch",
+    "library_from", "nvcc_command", "smem_bytes", "BuildError",
 ]
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -88,6 +90,11 @@ def _target(name: str) -> Tuple[str, str]:
         with open(path, "rb") as f:
             h.update(f.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def library_path(name: str) -> str:
+    """Where this checkout's build of kernel source ``name`` lives."""
+    return _target(name)[1]
 
 
 def _start(name: str) -> Optional[Tuple[subprocess.Popen, str, str]]:
@@ -149,25 +156,41 @@ def library(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(name: str, n_pointers: int, n_ints: int):
-    fn = getattr(library(name), f"{name}_launch")
+def _entry(name: str, entry: str, n_pointers: int, n_ints: int):
+    fn = getattr(library(name), f"{entry}_launch")
     fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch(name: str, device: torch.device, pointers: Sequence[int], ints: Sequence[int]) -> None:
+def launch(
+    name: str,
+    device: torch.device,
+    pointers: Sequence[int],
+    ints: Sequence[int],
+    entry: Optional[str] = None,
+) -> None:
     """
-    Launch kernel ``name`` on ``device``'s current stream with the given
-    device pointers (``tensor.data_ptr()``) and ints; raise if CUDA refused
-    the launch, else count it. The caller keeps the tensors alive.
+    Launch kernel ``entry`` (default ``name``) of library ``name`` on
+    ``device``'s current stream with the given device pointers
+    (``tensor.data_ptr()``) and ints; raise if CUDA refused the launch, else
+    count it under ``entry``. The caller keeps the tensors alive.
     """
-    fn = _entry(name, len(pointers), len(ints))
+    entry = entry or name
+    fn = _entry(name, entry, len(pointers), len(ints))
     with torch.cuda.device(device):
         status = fn(*pointers, *ints, torch.cuda.current_stream().cuda_stream)
     if status != 0:
-        raise RuntimeError(f"{name}: CUDA error {status} at launch")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{entry}: CUDA error {status} at launch")
+    LAUNCHES[entry] += 1
+
+
+def smem_bytes(name: str) -> int:
+    """Dynamic shared memory per block of library ``name``'s kernels."""
+    fn = getattr(library(name), f"{name}_smem_bytes")
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return int(fn())
 
 
 @contextlib.contextmanager

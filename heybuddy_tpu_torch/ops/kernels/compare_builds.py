@@ -98,6 +98,20 @@ def compare(fn: Callable[[], torch.Tensor], name: str, other_lib: str, pairs: in
     }
 
 
+def kernel_runs(dev: torch.device) -> Dict[str, Callable[[], torch.Tensor]]:
+    """One launch of K1 and of K2 on the seeded 2048-clip batch that chip_smoke.py times."""
+    net = SpeechEmbeddings(device=dev).net
+    rng = np.random.default_rng(SEED)
+    clips = np.clip(rng.normal(0.0, 0.05, (BATCH, CLIP)), -1.0, 1.0).astype(np.float32)
+    audio = torch.from_numpy(clips * 32767.0).to(dev)
+    starts = embedding_window_starts(CLIP)
+    patches, n = mk.mel_patches(audio)
+    return {
+        "mel_patches": lambda: mk.mel_patches(audio)[0],
+        "embedding_pool": lambda: ek.fused_embedding_from_patches(net, patches, starts, n),
+    }
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0].strip())
     parser.add_argument("other", help="root of the other checkout")
@@ -109,16 +123,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     dev = torch.device("cuda")
     build.build_all(KERNELS)
     others = build_other(args.other, KERNELS)
-    net = SpeechEmbeddings(device=dev).net
-    rng = np.random.default_rng(SEED)
-    clips = np.clip(rng.normal(0.0, 0.05, (BATCH, CLIP)), -1.0, 1.0).astype(np.float32)
-    audio = torch.from_numpy(clips * 32767.0).to(dev)
-    starts = embedding_window_starts(CLIP)
-    patches, n = mk.mel_patches(audio)
-    runs = {
-        "mel_patches": lambda: mk.mel_patches(audio)[0],
-        "embedding_pool": lambda: ek.fused_embedding_from_patches(net, patches, starts, n),
-    }
+    runs = kernel_runs(dev)
     results = {}
     for name in KERNELS:
         r = compare(runs[name], name, others[name], PAIRS)

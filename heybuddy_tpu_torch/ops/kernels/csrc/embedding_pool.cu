@@ -1,5 +1,5 @@
 // Fused embedding kernel (K2) for Hopper, sm_90a: patch trunk -> banded
-// 4-head window pooling -> 96-d head, one clip per block.
+// 4-head window pooling -> 96-d head, several clips per block.
 //
 // Replaces heybuddy_tpu/ops/pallas/embedding_kernel.py::
 // fused_embedding_from_patches (its body is _trunk_pool_body): patches
@@ -7,14 +7,23 @@
 // rounding points and its layout are trunk_pool.cuh's, shared with K4.
 //
 // What bounds it: operations. Per clip of 35 real patches about 26.5 MFLOP
-// (the trunk is 22.4 of them) against 20 KB read and 6 KB written. This
-// first kernel does them as float32 FMAs on the CUDA cores, so its own
-// ceiling is the fp32 rate, 15x below the bf16 tensor-core rate the work
-// could use; mma.sync / wgmma tiles are the next step.
+// (the trunk is 22.4 of them) against 20 KB read and 6 KB written: the bf16
+// tensor-core rate bounds the function. Its products (trunk, pooling sums,
+// head) run as bf16 mma.sync (mma_sync.cuh), at most half of what the card's
+// wgmma reaches; the RMS, GELU, softmax and the epilogues stay float32 on
+// the CUDA cores and take the larger share of the time (PERF.md).
 //
-// Design: one block of 256 threads per clip. The trunk runs over chunks of 40
-// patch rows read from the patch tensor (the 35 real rows of a 1.44 s clip in
-// one chunk), then the pooling walks the windows (trunk_pool.cuh).
+// Design: a block of 256 threads takes the patch rows of `cpb` clips (2 at
+// 35 patches: 70 rows in a chunk of up to 80, five m16 tiles), so each trunk
+// weight tile it reads from L2 serves all of them, not one clip's 35 rows; a
+// clip longer than a chunk is walked in chunks of 80 rows. The trunk is
+// row-wise, so the rows of different clips share the products; the pooling
+// then runs per clip from the scratch (trunk_pool.cuh). `cpb` is chosen at
+// launch: as many clips as fill a chunk, but no more than spread the batch
+// over every block slot, so a small batch still occupies the card. A row's
+// result does not depend on the chunk it sits in. 111 KB of shared memory:
+// two blocks (16 warps) per SM, so one block's scalar phases (RMS, GELU,
+// softmax, epilogues) overlap the other's products.
 
 #include "trunk_pool.cuh"
 
@@ -22,12 +31,20 @@ namespace {
 
 using trunk::bf16;
 
+constexpr int RC = 80;   // patch rows per trunk chunk: 5 m16 tiles
+constexpr int WN = 8;    // 1 x 8 warps: a warp holds 5 m16 tiles x 24 columns
+constexpr int SMEM_BYTES = trunk::TrunkSmem<RC>::BYTES > trunk::POOL_SMEM_BYTES
+                               ? trunk::TrunkSmem<RC>::BYTES
+                               : trunk::POOL_SMEM_BYTES;  // 113920 B
+
 struct Args {
   const float* patches;   // (b, P, 128)
   float* out;             // (b, W, 96)
   bf16* feats_g;          // (b, P, 192) scratch
   float* scores_g;        // (b, P, 4) scratch
   trunk::Weights net;
+  int b;
+  int cpb;                // clips per block
   int p_pad;
   int num_patches;
   int n_windows;
@@ -36,27 +53,51 @@ struct Args {
 __global__ void __launch_bounds__(trunk::THREADS, 2) embedding_pool_kernel(const Args args) {
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  __shared__ float red_s[trunk::THREADS];
+  __shared__ float red_s[trunk::WARPS * trunk::HEADS];
   __shared__ float hmax_s[trunk::HEADS];
 
-  const int clip = blockIdx.x;
+  const int c0 = blockIdx.x * args.cpb;
+  const int clips = min(args.cpb, args.b - c0);
+  const int np = args.num_patches;
   const int P = args.p_pad;
-  const float* patches = args.patches + static_cast<size_t>(clip) * P * trunk::PD;
-  bf16* feats_g = args.feats_g + static_cast<size_t>(clip) * P * trunk::HID;
-  float* scores_g = args.scores_g + static_cast<size_t>(clip) * P * trunk::HEADS;
-
-  for (int r0 = 0; r0 < args.num_patches; r0 += trunk::RC) {
-    const int rows = min(trunk::RC, args.num_patches - r0);
-    trunk::trunk_chunk(
-        args.net, [&](int r, int c) { return patches[(r0 + r) * trunk::PD + c]; }, r0, rows,
-        feats_g, scores_g, smem);
+  const int total = clips * np;
+  // chunk row g of this block: clip c0 + g / np, patch g % np
+  auto scratch_row = [&](int g) {
+    const int k = g / np;
+    return (c0 + k) * P + (g - k * np);
+  };
+  for (int r0 = 0; r0 < total; r0 += RC) {
+    trunk::trunk_chunk<RC, WN>(
+        args.net,
+        [&](int r, int c) {
+          return args.patches[static_cast<size_t>(scratch_row(r0 + r)) * trunk::PD + c];
+        },
+        min(RC, total - r0), [&](int r) { return scratch_row(r0 + r); }, args.feats_g,
+        args.scores_g, smem);
   }
-  trunk::pool_head(args.net, feats_g, scores_g,
-                   args.out + static_cast<size_t>(clip) * args.n_windows * trunk::EMB,
-                   args.num_patches, args.n_windows, smem, red_s, hmax_s);
+  for (int k = 0; k < clips; ++k) {
+    const size_t clip = c0 + k;
+    trunk::pool_head(args.net, args.feats_g + clip * P * trunk::HID,
+                     args.scores_g + clip * P * trunk::HEADS,
+                     args.out + clip * args.n_windows * trunk::EMB, np, args.n_windows, smem,
+                     red_s, hmax_s);
+  }
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      count = 1;
+  }
+  return count;
 }
 
 }  // namespace
+
+extern "C" int embedding_pool_smem_bytes() { return SMEM_BYTES; }
 
 extern "C" int embedding_pool_launch(const void* patches, void* out, void* feats_g, void* scores_g,
                                      const void* wp, const void* bp, const void* upw, const void* upb,
@@ -65,8 +106,7 @@ extern "C" int embedding_pool_launch(const void* patches, void* out, void* feats
                                      int b, int p_pad, int num_patches, int n_windows, int n_blocks,
                                      void* stream) {
   cudaError_t err = cudaFuncSetAttribute(embedding_pool_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         trunk::SMEM_BYTES);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   Args args;
   args.patches = static_cast<const float*>(patches);
@@ -86,10 +126,15 @@ extern "C" int embedding_pool_launch(const void* patches, void* out, void* feats
   args.net.pos = static_cast<const bf16*>(pos);
   args.net.p0 = static_cast<const int*>(p0);
   args.net.n_blocks = n_blocks;
+  args.b = b;
+  const int fill = RC / num_patches > 1 ? RC / num_patches : 1;
+  const int slots = 2 * sm_count();  // blocks in flight: two per SM
+  const int spread = (b + slots - 1) / slots;
+  args.cpb = fill < spread ? fill : spread;
   args.p_pad = p_pad;
   args.num_patches = num_patches;
   args.n_windows = n_windows;
-  embedding_pool_kernel<<<b, trunk::THREADS, trunk::SMEM_BYTES,
-                          static_cast<cudaStream_t>(stream)>>>(args);
+  const int grid = (b + args.cpb - 1) / args.cpb;
+  embedding_pool_kernel<<<grid, trunk::THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
 }

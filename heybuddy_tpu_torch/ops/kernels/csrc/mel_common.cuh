@@ -11,23 +11,50 @@
 // weight). Then power = re^2 + im^2, mel = power @ fb (128, 32),
 // log(mel + 1e-6) / 10 + 2.
 //
-// Numerics: the DFT multiplies int16-range audio, so it is exact fp32 FMA on
-// the CUDA cores (no TF32, no tensor cores); compiled without fast math, with
-// the accurate logf.
+// Numerics: the DFT runs on the tensor cores (mma_sync.cuh) as a split
+// product (TERMS = 3). The audio x and the float32 basis b are split into
+// fp16 pairs, x = x_hi + x_lo and b = b_hi + b_lo (lo = fp16(v - hi), after
+// exact power-of-two scalings that keep both inside fp16's normal range), and
+//   spectrum = x_hi b_hi + x_hi b_lo + x_lo b_hi
+// with float32 accumulation. Each product of fp16 values is exact; a pair
+// carries 22 significant bits (an int16-range integer sample is exact in it)
+// and the dropped x_lo b_lo term is about 2^-22 of each product, so the
+// spectrum keeps float32-like accuracy. A bf16 pair carries only 16 bits:
+// on a tone with noise 60 dB below it, its error in the quiet bins moved the
+// log-mel by 2e-3, inside 5e-3 + 1e-4 |ref| but enough to move K4's
+// embeddings by a mean 1.2e-2 through the trunk's bf16 rounding points; the
+// fp16 pair moves the log-mel by 4e-5, as much as float32 itself (PERF.md).
+// This is not TF32 (whose one-term product keeps 10 bits). TERMS = 1 is the
+// bf16-DFT variant of the TPU kernel (dft_dtype=bfloat16): bf16(x) bf16(b)
+// alone. Power, filterbank and log stay float32 on the CUDA cores, compiled
+// without fast math, with the accurate logf.
 //
-// Layout of `logmel_chunk`: 256 threads compute one chunk of 48 frames. The
-// chunk's audio span (7920 samples, 31.7 KB) is loaded once into shared
-// memory with masked loads past t; the (400, 256) basis streams through
-// shared memory in 16-row tiles that every block reads from L2. Each thread
-// keeps a 6-frame x 8-column register tile (48 accumulators); a warp shares
-// its frames, so the audio reads are broadcasts and the basis reads are
-// conflict-free. Power then goes to shared memory (over the dead audio/basis
-// buffers) for the mel product against the filterbank in shared memory, and
-// each value goes to the caller's `store(frame_in_chunk, mel_bin, value)`.
+// Layout of `logmel_chunk`: 256 threads compute one chunk of 48 frames (three
+// m16 tiles). The chunk's audio goes to shared memory once as x_hi / x_lo
+// (16-bit) hop rows of 160 samples that start at tap 0 of the chunk's first
+// frame: frame f, tap k lies at hop row f + k / 160, column k % 160, so a
+// 16-tap k-step (160 % 16 == 0) is a plain 16 x 16 block of hop rows and
+// overlapping frames need no im2col. Rows are padded to 168 values so
+// ldmatrix is conflict-free. The basis's operands, split once beside the
+// float32 basis (the buffer `basis` points at), stream from L2 in 16-row
+// tiles of 16-bit hi / lo values by cp.async through a ring of STAGES slots,
+// STAGES - 1 k-steps ahead. 8 warps x 32 columns cover the 256 cos | sin
+// columns: 3 x 4 m16n8 tiles, 48 float32 accumulators per thread. A bin's re
+// and im land in different warps, so the sin warps write im^2 to shared
+// memory (over the dead audio / basis tiles) and the cos warps add re^2 in
+// place; the power rows then go through the mel product against the
+// filterbank, loaded into shared memory beside them with each mel bin's band
+// of non-zero bins, and each value to the caller's
+// `store(frame_in_chunk, mel_bin, value)`.
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_sync.cuh"
 
 namespace mel {
 
@@ -37,25 +64,55 @@ constexpr int TAPS = 400;    // rows [56, 456)
 constexpr int NBIN = 128;    // DFT bins kept (cos block, then sin block)
 constexpr int NCOL = 2 * NBIN;
 constexpr int NMEL = 32;
-constexpr int FCHUNK = 48;   // frames per chunk: 12 patches
-constexpr int KT = 16;       // basis rows per shared-memory tile
+constexpr int FCHUNK = 48;   // frames per chunk: 12 patches, 3 m16 tiles
+constexpr int KT = 16;       // basis rows per tile: one k-step
 constexpr int THREADS = 256;
-constexpr int ROWS_PER_THREAD = FCHUNK / 8;     // 6 frames (ty + 8 i)
-constexpr int COLS_PER_THREAD = NCOL / 32;      // 8 columns (tx + 32 j)
-constexpr int AUDIO_SPAN = HOP * (FCHUNK - 1) + TAPS;  // 7920 samples
+constexpr int WARPS = THREADS / 32;
+constexpr int HOPS = FCHUNK + (TAPS - 1) / HOP;   // 50 hop rows a chunk reads
+constexpr int LDX = HOP + 8;                      // hop row stride, 16-bit values
+constexpr int LDB = NCOL + 8;                     // basis tile row stride, 16-bit values
+constexpr int MT = FCHUNK / 16;                   // 3 m16 tiles
+constexpr int NT = NCOL / WARPS / 8;              // 4 n8 tiles per warp
+constexpr int KSTEPS = TAPS / KT;                 // 25
+constexpr int PLD = NBIN + 8;                     // power row stride: conflict-free fragment stores
+// the split DFT's exact power-of-two scalings: x 2^-8 keeps int16-range audio
+// (and up to 2^24) inside fp16's range, b 2^8 lifts the basis's small values
+// out of fp16's subnormals; their products are x b
+constexpr float X_SCALE = 1.0f / 256.0f;
+constexpr float B_SCALE = 256.0f;
+// The basis the kernels take is the float32 (TAPS, NCOL) matrix followed in
+// the same buffer by its operands, each (TAPS, NCOL) of 16-bit values: the
+// fp16 pair hi, lo of b B_SCALE, then bf16(b) (melspec_kernel.mel_constants).
+constexpr int OPS_HI = 0;
+constexpr int OPS_LO = TAPS * NCOL;
+constexpr int OPS_BF16 = 2 * TAPS * NCOL;
 
-// scratch of `logmel_chunk`, in floats
-constexpr int SMEM_AUDIO = 0;
-constexpr int SMEM_BASIS = SMEM_AUDIO + AUDIO_SPAN;
-constexpr int SMEM_MAIN = SMEM_BASIS + KT * NCOL;      // audio + basis tile
-constexpr int SMEM_POWER = 0;                          // aliases audio + basis
-constexpr int SMEM_FB = SMEM_MAIN;
-constexpr int SMEM_FLOATS = SMEM_FB + NBIN * NMEL;
-constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);  // 64448 B
+// The filterbank the kernels take is the float32 (NBIN, NMEL) matrix followed
+// in the same buffer by each mel bin's band, the first and the last bin its
+// filter is non-zero on, as NMEL int32 each (melspec_kernel.mel_constants).
+constexpr int FB_FLOATS = NBIN * NMEL + 2 * NMEL;
 
-static_assert(FCHUNK * NBIN <= SMEM_MAIN, "power tile must fit over audio + basis");
-static_assert(TAPS % KT == 0, "basis tiles must cover the taps exactly");
-static_assert((KT * NCOL) % (4 * THREADS) == 0, "basis tile loads as float4");
+// Basis tiles in flight: a ring of two, one k-step ahead. A deeper ring
+// measured no faster (PERF.md), and this one leaves room for three blocks on
+// an SM, which hides more latency.
+constexpr int STAGES = 2;
+
+// scratch of `logmel_chunk`, bytes; the power rows and the filterbank come
+// after the DFT, over its dead tiles
+constexpr int S_XHI = 0;                              // HOPS x LDX 16-bit
+constexpr int S_XLO = S_XHI + HOPS * LDX * 2;
+constexpr int S_BHI = S_XLO + HOPS * LDX * 2;         // STAGES x KT x LDB 16-bit
+constexpr int S_BLO = S_BHI + STAGES * KT * LDB * 2;
+constexpr int S_DFT_END = S_BLO + STAGES * KT * LDB * 2;
+constexpr int S_POWER = 0;                            // FCHUNK x PLD float
+constexpr int S_FB = S_POWER + FCHUNK * PLD * 4;      // FB_FLOATS float
+constexpr int S_TAIL_END = S_FB + FB_FLOATS * 4;
+constexpr size_t SMEM_BYTES = S_DFT_END > S_TAIL_END ? S_DFT_END : S_TAIL_END;  // 67392 B
+
+static_assert(HOP % 16 == 0, "a 16-tap k-step never crosses a hop row");
+static_assert(TAP0 % 4 == 0 && (HOPS * HOP) % 4 == 0, "audio loads in groups of four samples");
+static_assert(TAPS % KT == 0 && KT == 16, "one basis tile per k-step covers the taps exactly");
+static_assert((LDX * 2) % 16 == 0 && (LDB * 2) % 16 == 0, "ldmatrix rows are 16-byte aligned");
 
 // `span` samples of one clip from sample g0 on into shared memory, zero past t.
 __device__ __forceinline__ void load_audio(const float* __restrict__ audio_clip, int t, long g0,
@@ -67,25 +124,31 @@ __device__ __forceinline__ void load_audio(const float* __restrict__ audio_clip,
 }
 
 __device__ __forceinline__ void load_fb(const float* __restrict__ fb, float* fb_s) {
-  for (int i = threadIdx.x; i < NBIN * NMEL; i += THREADS) fb_s[i] = fb[i];
+  for (int i = threadIdx.x; i < FB_FLOATS; i += THREADS) fb_s[i] = fb[i];
 }
 
-// Frames f0 .. f0 + nf - 1 of a chunk whose power rows (nf x 128) are in
-// shared memory: store(f - f0, m, v) for every frame f < n_out, v the scaled
+// Frames f0 .. f0 + nf - 1 of a chunk whose power rows (nf x 128, row stride
+// LD) and filterbank (load_fb) are in shared memory: store(f - f0, m, v) for every frame f < n_out, v the scaled
 // log-mel when f < usable and 0 past it.
-template <typename Store>
+template <int LD = NBIN, typename Store>
 __device__ __forceinline__ void mel_log_store(const float* power_s, const float* fb_s, int nf,
                                               int f0, int usable, int n_out, Store store) {
+  static_assert(THREADS % NMEL == 0, "a thread keeps one mel bin");
+  // The filter of mel bin m is non-zero on bins lo..hi only. A product with
+  // one of its zeros adds exactly +0 to the non-negative power sum, so the
+  // sum over lo..hi in bin order has the bits of the sum over all 128 bins.
+  const int m = threadIdx.x % NMEL;
+  const int* band = reinterpret_cast<const int*>(fb_s + NBIN * NMEL);
+  const int lo = band[m];
+  const int hi = band[NMEL + m];
   for (int idx = threadIdx.x; idx < nf * NMEL; idx += THREADS) {
     const int fl = idx / NMEL;
-    const int m = idx % NMEL;
     const int f = f0 + fl;
     if (f >= n_out) continue;
     float value = 0.0f;
     if (f < usable) {
       float mel = 0.0f;
-#pragma unroll 8
-      for (int bin = 0; bin < NBIN; ++bin) mel = fmaf(power_s[fl * NBIN + bin], fb_s[bin * NMEL + m], mel);
+      for (int bin = lo; bin <= hi; ++bin) mel = fmaf(power_s[fl * LD + bin], fb_s[bin * NMEL + m], mel);
       value = logf(mel + 1e-6f) / 10.0f + 2.0f;
     }
     store(fl, m, value);
@@ -101,72 +164,169 @@ __device__ __forceinline__ void zero_chunk(int nf, int f0, int n_out, Store stor
   }
 }
 
+// The DFT's 16-bit operands of an audio sample x, as raw bits: for the split
+// DFT (TERMS 3) the fp16 pair hi = fp16(x X_SCALE), lo = fp16(x X_SCALE - hi);
+// for the bf16 DFT (TERMS 1) bf16(x) alone.
+template <int TERMS>
+__device__ __forceinline__ void operands(float x, uint16_t& hi, uint16_t& lo) {
+  if constexpr (TERMS == 3) {
+    const float v = x * X_SCALE;
+    const __half h = __float2half_rn(v);
+    hi = __half_as_ushort(h);
+    lo = __half_as_ushort(__float2half_rn(v - __half2float(h)));
+  } else {
+    hi = __bfloat16_as_ushort(__float2bfloat16(x));
+    lo = 0;
+  }
+}
+
+__device__ __forceinline__ uint32_t pack2(uint16_t a, uint16_t b) {
+  return static_cast<uint32_t>(a) | (static_cast<uint32_t>(b) << 16);  // a at the lower address
+}
+
 // Scaled log-mel of frames f0 .. f0 + 47 of one clip (t samples) through
-// store(), as mel_log_store says. `smem` holds SMEM_FLOATS floats; the
-// caller's block has THREADS threads. Starts with a barrier, so a caller may
-// run chunks back to back over the same scratch.
-template <typename Store>
+// store(), as mel_log_store says; TERMS is 3 (split DFT) or 1 (bf16 DFT).
+// `basis` is the buffer the OPS_ offsets describe; `smem` holds
+// SMEM_BYTES; the caller's block has THREADS threads. Starts
+// with a barrier, so a caller may run chunks back to back over the same
+// scratch.
+template <int TERMS, typename Store>
 __device__ __forceinline__ void logmel_chunk(const float* __restrict__ audio_clip, int t, int f0,
                                              int usable, int n_out, const float* __restrict__ basis,
-                                             const float* __restrict__ fb, float* smem, Store store) {
+                                             const float* __restrict__ fb, unsigned char* smem,
+                                             Store store) {
+  static_assert(TERMS == 1 || TERMS == 3, "split DFT (3 terms) or bf16 DFT (1 term)");
   if (f0 >= usable) {
     zero_chunk(FCHUNK, f0, n_out, store);
     return;
   }
-  float* audio_s = smem + SMEM_AUDIO;
-  float* basis_s = smem + SMEM_BASIS;
-  float* power_s = smem + SMEM_POWER;
-  float* fb_s = smem + SMEM_FB;
+  uint16_t* xhi_s = reinterpret_cast<uint16_t*>(smem + S_XHI);
+  uint16_t* xlo_s = reinterpret_cast<uint16_t*>(smem + S_XLO);
+  uint16_t* bhi_s = reinterpret_cast<uint16_t*>(smem + S_BHI);
+  uint16_t* blo_s = reinterpret_cast<uint16_t*>(smem + S_BLO);
+  float* power_s = reinterpret_cast<float*>(smem + S_POWER);
+  float* fb_s = reinterpret_cast<float*>(smem + S_FB);
+  const uint16_t* ops = reinterpret_cast<const uint16_t*>(basis + TAPS * NCOL);
+  const uint16_t* bhi_g = ops + (TERMS == 3 ? OPS_HI : OPS_BF16);
+  const uint16_t* blo_g = ops + OPS_LO;
   const int tid = threadIdx.x;
-  const int tx = tid & 31;
-  const int ty = tid >> 5;
+  const int warp = tid >> 5;
+
+  // basis tile s (rows 16 s .. 16 s + 15) into ring slot s % STAGES by
+  // cp.async, then close its group (empty past the last tile): group s holds
+  // tile s, so waiting for all but the newest STAGES - 2 groups finds tile s
+  constexpr int ROW_PIECES = NCOL / 8;  // 16-byte pieces per basis row
+  auto stage = [&](int s) {
+    if (s < KSTEPS) {
+      const int slot = (s % STAGES) * KT * LDB;
+      for (int p = tid; p < KT * ROW_PIECES; p += THREADS) {
+        const int r = p / ROW_PIECES;
+        const int c = (p - r * ROW_PIECES) * 8;
+        const int g = (s * KT + r) * NCOL + c;
+        mma::cp_async16(bhi_s + slot + r * LDB + c, bhi_g + g);
+        if constexpr (TERMS == 3) mma::cp_async16(blo_s + slot + r * LDB + c, blo_g + g);
+      }
+    }
+    mma::cp_async_commit();
+  };
 
   __syncthreads();  // the scratch may still be read by the previous chunk
-  load_audio(audio_clip, t, static_cast<long>(HOP) * f0 + TAP0, AUDIO_SPAN, audio_s);
-  load_fb(fb, fb_s);
-
-  float acc[ROWS_PER_THREAD][COLS_PER_THREAD];
 #pragma unroll
-  for (int i = 0; i < ROWS_PER_THREAD; ++i)
+  for (int s = 0; s < STAGES - 1; ++s) stage(s);
+  {
+    // four samples at a time (HOP % 4 == 0: a group stays in its hop row).
+    // g0 is a multiple of 4, so when t is too (and the clip's base is 16-byte
+    // aligned) a group lies wholly below t or wholly past it: one float4 load
+    const long g0 = static_cast<long>(HOP) * f0 + TAP0;
+    const bool vec = t % 4 == 0 && reinterpret_cast<uintptr_t>(audio_clip) % 16 == 0;
 #pragma unroll
-    for (int j = 0; j < COLS_PER_THREAD; ++j) acc[i][j] = 0.0f;
-
-  const float4* basis4 = reinterpret_cast<const float4*>(basis);
-  float4* basis_s4 = reinterpret_cast<float4*>(basis_s);
-  for (int k0 = 0; k0 < TAPS; k0 += KT) {
-    __syncthreads();  // previous tile consumed (and audio loaded on entry)
-    for (int i = tid; i < KT * NCOL / 4; i += THREADS)
-      basis_s4[i] = basis4[k0 * (NCOL / 4) + i];
-    __syncthreads();
+    for (int i = 4 * tid; i < HOPS * HOP; i += 4 * THREADS) {
+      const int r = i / HOP;
+      const long g = g0 + i;
+      float v[4];
+      if (vec) {
+        const float4 q = g < t ? __ldg(reinterpret_cast<const float4*>(audio_clip + g))
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        v[0] = q.x;
+        v[1] = q.y;
+        v[2] = q.z;
+        v[3] = q.w;
+      } else {
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      float a[ROWS_PER_THREAD];
-      float bv[COLS_PER_THREAD];
+        for (int e = 0; e < 4; ++e) v[e] = g + e < t ? audio_clip[g + e] : 0.0f;
+      }
+      uint16_t hi[4], lo[4];
 #pragma unroll
-      for (int i = 0; i < ROWS_PER_THREAD; ++i)
-        a[i] = audio_s[(ty + 8 * i) * HOP + k0 + kk];
-#pragma unroll
-      for (int j = 0; j < COLS_PER_THREAD; ++j) bv[j] = basis_s[kk * NCOL + tx + 32 * j];
-#pragma unroll
-      for (int i = 0; i < ROWS_PER_THREAD; ++i)
-#pragma unroll
-        for (int j = 0; j < COLS_PER_THREAD; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+      for (int e = 0; e < 4; ++e) operands<TERMS>(v[e], hi[e], lo[e]);
+      const int off = r * LDX + i - r * HOP;
+      *reinterpret_cast<uint2*>(xhi_s + off) = make_uint2(pack2(hi[0], hi[1]), pack2(hi[2], hi[3]));
+      if constexpr (TERMS == 3)
+        *reinterpret_cast<uint2*>(xlo_s + off) = make_uint2(pack2(lo[0], lo[1]), pack2(lo[2], lo[3]));
     }
   }
-  __syncthreads();  // audio and basis tiles dead: power goes over them
 
-  // columns tx + 32 j: j < 4 are cos bins tx + 32 j, j >= 4 the matching sin bins
+  float acc[MT][NT][4];
+  mma::zero(acc);
+  for (int s = 0; s < KSTEPS; ++s) {
+    mma::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile s (and the audio, on entry) visible; tile s - 1 consumed
+    stage(s + STAGES - 1);  // over tile s - 1
+    // taps 16 s .. 16 s + 15 of frame row f: hop row f + s / 10, columns 16 (s % 10) ..
+    const int a_off = (s / (HOP / KT)) * LDX + (s % (HOP / KT)) * KT;
+    const int b_off = (s % STAGES) * KT * LDB;
+    uint32_t bh[NT][2];
+    uint32_t bl[NT][2];
+    mma::load_b<NT>(bhi_s + b_off, LDB, warp * NT * 8, bh);
+    if constexpr (TERMS == 3) mma::load_b<NT>(blo_s + b_off, LDB, warp * NT * 8, bl);
 #pragma unroll
-  for (int i = 0; i < ROWS_PER_THREAD; ++i)
+    for (int i = 0; i < MT; ++i) {
+      uint32_t ah[4];
+      uint32_t al[4];
+      mma::ldmatrix_a(xhi_s + a_off + 16 * i * LDX, LDX, ah);
+      if constexpr (TERMS == 3) mma::ldmatrix_a(xlo_s + a_off + 16 * i * LDX, LDX, al);
 #pragma unroll
-    for (int j = 0; j < COLS_PER_THREAD / 2; ++j) {
-      const float re = acc[i][j];
-      const float im = acc[i][j + COLS_PER_THREAD / 2];
-      power_s[(ty + 8 * i) * NBIN + tx + 32 * j] = re * re + im * im;
+      for (int j = 0; j < NT; ++j) {
+        if constexpr (TERMS == 3) {
+          mma::mma_16816_f16(acc[i][j], ah, bh[j][0], bh[j][1]);
+          mma::mma_16816_f16(acc[i][j], ah, bl[j][0], bl[j][1]);
+          mma::mma_16816_f16(acc[i][j], al, bh[j][0], bh[j][1]);
+        } else {
+          mma::mma_16816(acc[i][j], ah, bh[j][0], bh[j][1]);
+        }
+      }
     }
-  __syncthreads();
+  }
+  __syncthreads();  // audio and basis tiles dead: power and filterbank go over them
+  load_fb(fb, fb_s);  // visible to mel_log_store after the power passes' barriers
 
-  mel_log_store(power_s, fb_s, FCHUNK, f0, usable, n_out, store);
+  // warps 0-3 hold the cos columns (re of bins 32 w ..), warps 4-7 the sin
+  // columns of the same bins: im^2 first, then re^2 + im^2 in place
+  const int half = warp >= WARPS / 2;
+  const int bin0 = (warp - half * WARPS / 2) * NT * 8;
+  for (int pass = 1; pass >= 0; --pass) {
+    if (half == pass) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float2* p = reinterpret_cast<float2*>(power_s + (16 * i + mma::frag_row(2 * h)) * PLD +
+                                                  bin0 + 8 * j + mma::frag_col(0));
+            const float v0 = acc[i][j][2 * h];
+            const float v1 = acc[i][j][2 * h + 1];
+            if (pass) {
+              *p = make_float2(__fmul_rn(v0, v0), __fmul_rn(v1, v1));
+            } else {
+              const float2 im2 = *p;
+              *p = make_float2(__fadd_rn(__fmul_rn(v0, v0), im2.x), __fadd_rn(__fmul_rn(v1, v1), im2.y));
+            }
+          }
+    }
+    __syncthreads();
+  }
+
+  mel_log_store<PLD>(power_s, fb_s, FCHUNK, f0, usable, n_out, store);
 }
 
 }  // namespace mel

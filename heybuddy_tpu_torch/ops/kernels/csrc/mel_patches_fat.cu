@@ -10,10 +10,11 @@
 //       160 j .. 160 j + 159 of the 512-point basis (rows 480..511 are zero),
 //   spectrum[f] = Z[f, 0:256] + Z[f + 1, 256:512] + Z[f + 2, 512:768],
 //
-// then the mel tail of mel_common.cuh (power, filterbank, log) shared with K1.
+// then the mel tail of mel_common.cuh (filterbank, log) shared with K1.
 // Every frame sums three 160-deep partials in the order B0, B1, B2, as the
-// Pallas kernel does; K1 sums one 400-deep product, so the two agree to fp32
-// rounding, not bit for bit.
+// Pallas kernel does, as exact float32 FMAs; K1 computes one 400-deep
+// split product (fp16 pairs) on the tensor cores, so the two agree within the
+// split's error, not bit for bit.
 //
 // What bounds it: the formulation's operations. Per frame 3 x 160 x 256 FMAs
 // (480 basis rows where K1 needs the 400 the window leaves non-zero) and
@@ -56,9 +57,9 @@ constexpr int S_HOPS = 0;                                 // 48 x 160
 constexpr int S_BASIS = S_HOPS + FAT_HOPS * HOP;          // KT x 256
 constexpr int S_POWER = 0;                                // 46 x 128 over hops + basis
 constexpr int S_SPEC = S_BASIS + KT * NCOL;               // 46 x 256
-constexpr int S_FB = S_SPEC + FAT_FRAMES * NCOL;          // 128 x 32
-constexpr int S_FLOATS = S_FB + NBIN * NMEL;
-constexpr size_t SMEM_BYTES = S_FLOATS * sizeof(float);  // 110592 B
+constexpr int S_FB = S_SPEC + FAT_FRAMES * NCOL;          // 128 x 32 and the bands
+constexpr int S_FLOATS = S_FB + mel::FB_FLOATS;
+constexpr size_t SMEM_BYTES = S_FLOATS * sizeof(float);  // 110848 B
 
 static_assert(FAT_HOPS % 8 == 0, "hop rows are 8 rows of threads");
 static_assert(FAT_FRAMES * NBIN <= S_SPEC, "power tile must fit over hops + basis");
@@ -151,6 +152,8 @@ mel_patches_fat_kernel(const float* __restrict__ audio, const float* __restrict_
 }
 
 }  // namespace
+
+extern "C" int mel_patches_fat_smem_bytes() { return static_cast<int>(SMEM_BYTES); }
 
 extern "C" int mel_patches_fat_launch(const void* audio, const void* basis, const void* fb,
                                       void* out, int b, int t, int usable, int p_pad,

@@ -29,7 +29,7 @@ from heybuddy_tpu_torch.ops.kernels.embedding_kernel import (
 )
 from heybuddy_tpu_torch.ops.kernels.melspec_kernel import (
     check_audio,
-    mel_constants,
+    kernel_constants,
     mel_patches_plain,
     patch_geometry,
 )
@@ -62,7 +62,7 @@ def fused_featurize(
         raise ValueError(f"net on {net.pos.device}, audio on {audio.device}")
     if audio.device.type == "cpu":
         return fused_featurize_plain(net, audio, starts)
-    taps, _, fb = mel_constants(audio.device)
+    taps, _, fb = kernel_constants(audio.device)
     return launch_trunk(
         "featurize", net, [audio.data_ptr(), taps.data_ptr(), fb.data_ptr()], [b, t],
         b, p_pad, num_patches, starts,

@@ -13,6 +13,18 @@ Counterparts of the JAX package's ``ops/pallas/melspec_kernel.py``:
 * ``mel_spectrogram(audio)`` is K3 (``mel_spectrogram_pallas``): (b, t) ->
   (b, frames, 32), every frame, the contract of the JAX package's XLA
   ``ops/melspec.py::mel_spectrogram``.
+* ``dft_dtype=torch.bfloat16`` (K1's chunked mode and K3) is the TPU kernels'
+  ``dft_dtype=bfloat16``: audio and basis rounded to bf16 before the DFT
+  product, float32 accumulation. The JAX suite bounds it at 1e-2 from the
+  float32 mel.
+
+On the card K1 and K3 compute the DFT as a split tensor-core product of
+fp16 pairs (``csrc/mel_common.cuh``), within 5e-3 + 1e-4 |ref| of the
+float32 plain version; K1b keeps an exact float32 DFT. The kernels read the
+basis's split and the filterbank's bands from behind the float32 constants
+(``mel_constants``), so their C entries take the same pointers as before;
+each wrapper raises unless the buffers it passes hold those bytes
+(``check_constants``).
 
 Unlike the Pallas kernels nothing pads the batch. On a CUDA tensor each
 wrapper launches its hand-written kernel (``csrc/mel_patches.cu``,
@@ -49,6 +61,7 @@ __all__ = [
     "mel_spectrogram_plain",
     "patch_geometry",
     "DFT_MODES",
+    "DFT_DTYPES",
     "PATCH_FRAMES",
 ]
 
@@ -58,6 +71,7 @@ TAP0 = (MEL_N_FFT - MEL_WIN_LENGTH) // 2  # 56: the Hann window's first row
 TAPS = MEL_WIN_LENGTH  # 400 rows of the basis are non-zero
 HOP_BLOCKS = 3  # hop-aligned basis blocks with a non-zero row (rows 0..479)
 DFT_MODES = ("chunked", "fat")
+DFT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def patch_geometry(t: int) -> Tuple[int, int, int]:
@@ -92,24 +106,105 @@ def _numpy_constants() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     )
 
 
+# the split DFT's power-of-two scaling of the basis (csrc/mel_common.cuh B_SCALE)
+SPLIT_BASIS_SCALE = 256.0
+
+
+def _with_operands(taps: torch.Tensor) -> torch.Tensor:
+    """
+    One float32 buffer that holds ``taps`` (400, 256) and behind it the DFT
+    operands of K1, K3 and K4, each (400, 256) of 16-bit values: the fp16 pair
+    hi = fp16(b * 256), lo = fp16(b * 256 - hi), then bf16(b) for the bf16 DFT
+    (``csrc/mel_common.cuh`` OPS_*). Returns the (400, 256) float32 view of
+    its head, whose data pointer is the buffer's.
+    """
+    scaled = taps * SPLIT_BASIS_SCALE  # exact: a power of two
+    hi = scaled.half()
+    lo = (scaled - hi.float()).half()
+    raw = [t.contiguous().view(torch.uint8).reshape(-1) for t in (taps, hi, lo, taps.bfloat16())]
+    return torch.cat(raw).view(torch.float32)[: taps.numel()].view(taps.shape)
+
+
+def _with_bands(fb: torch.Tensor) -> torch.Tensor:
+    """
+    One float32 buffer that holds the filterbank ``fb`` (128, 32) and behind it
+    each mel bin's band as int32: the first bin its filter is non-zero on (32
+    values), then the last (``csrc/mel_common.cuh`` FB_FLOATS). Returns the
+    (128, 32) view of its head.
+    """
+    nz = fb != 0
+    bins = torch.arange(fb.shape[0], device=fb.device)[:, None]
+    lo = torch.where(nz, bins, fb.shape[0]).amin(dim=0).int()
+    hi = torch.where(nz, bins, -1).amax(dim=0).int()
+    raw = [t.contiguous().view(torch.uint8).reshape(-1) for t in (fb, lo, hi)]
+    return torch.cat(raw).view(torch.float32)[: fb.numel()].view(fb.shape)
+
+
 @functools.lru_cache(maxsize=None)
 def mel_constants(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The (taps, hop blocks, filterbank) constants the mel kernels read, on ``device``."""
-    return tuple(torch.from_numpy(c).to(device) for c in _numpy_constants())
+    """
+    The (taps, hop blocks, filterbank) constants the mel kernels read, on
+    ``device``; ``taps`` heads a buffer that also holds its DFT operands, and
+    ``fb`` one that also holds its bands.
+    """
+    taps, blocks, fb = (torch.from_numpy(c).to(device) for c in _numpy_constants())
+    return _with_operands(taps), blocks, _with_bands(fb)
+
+
+# bytes the kernels read from the buffers that ``taps`` and ``fb`` head: the
+# float32 taps and three 16-bit operands (``csrc/mel_common.cuh`` OPS_*); the
+# float32 filterbank and two int32 bands (FB_FLOATS)
+OPERAND_BYTES = TAPS * 2 * N_FREQ_PAD * (4 + 3 * 2)
+BAND_BYTES = (N_FREQ_PAD + 2) * MEL_BINS * 4
+
+
+def check_constants(taps: torch.Tensor, fb: torch.Tensor) -> None:
+    """
+    Raise unless ``taps`` and ``fb`` head buffers that hold what the kernels
+    read behind them (``mel_constants``'s own): a copy of either, made with
+    ``clone``, ``contiguous`` or ``to``, ends at its last float32 value.
+    """
+    for what, t, need in (("taps", taps, OPERAND_BYTES), ("fb", fb, BAND_BYTES)):
+        held = t.untyped_storage().nbytes() - t.storage_offset() * t.element_size()
+        if t.dtype != torch.float32 or not t.is_contiguous() or held < need:
+            raise ValueError(
+                f"the mel kernels read {need} B from {what}'s buffer, which holds {held}: "
+                "pass the tensors of mel_constants, not copies"
+            )
+
+
+def kernel_constants(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``mel_constants(device)`` for a launch, checked by ``check_constants``."""
+    taps, blocks, fb = mel_constants(device)
+    check_constants(taps, fb)
+    return taps, blocks, fb
 
 
 def _mel_tail(spectrum: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
-    """(..., 256) cos|sin spectrum -> power -> mel -> scaled log."""
+    """(..., 256) cos|sin spectrum -> power -> mel -> scaled log, in the spectrum's type."""
     re, im = spectrum[..., :N_FREQ_PAD], spectrum[..., N_FREQ_PAD:]
-    mel = torch.matmul(re * re + im * im, fb)
+    mel = torch.matmul(re * re + im * im, fb.to(spectrum.dtype))
     return torch.log(mel + MEL_LOG_EPS) / MEL_SCALE_DIV + MEL_SCALE_ADD
 
 
-def _logmel_taps(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
-    """The first ``n_frames`` frames by the 400-tap DFT of K1, K3 and K4."""
+def _logmel_taps(
+    audio: torch.Tensor,
+    n_frames: int,
+    dft_dtype: torch.dtype = torch.float32,
+    accumulate: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """
+    The first ``n_frames`` frames by the 400-tap DFT of K1, K3 and K4; with
+    ``dft_dtype=torch.bfloat16`` the frames and the basis are rounded to bf16
+    first and multiplied in float32 (each product exact). ``accumulate=
+    torch.float64`` computes the float32 operands' DFT and tail in double
+    precision (a float32 result).
+    """
     taps, _, fb = mel_constants(audio.device)
     frames = audio.unfold(-1, MEL_N_FFT, MEL_HOP_LENGTH)[:, :n_frames, TAP0 : TAP0 + TAPS]
-    return _mel_tail(torch.matmul(frames, taps), fb)
+    if dft_dtype == torch.bfloat16:
+        frames, taps = frames.bfloat16().float(), taps.bfloat16().float()
+    return _mel_tail(torch.matmul(frames.to(accumulate), taps.to(accumulate)), fb).float()
 
 
 def _logmel_hop_blocks(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
@@ -126,20 +221,32 @@ def _logmel_hop_blocks(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
     return _mel_tail(spectrum, fb)
 
 
-def mel_patches_plain(audio: torch.Tensor, dft_mode: str = "chunked") -> Tuple[torch.Tensor, int]:
-    """The kernel's arithmetic in plain PyTorch (fp32 throughout)."""
+def mel_patches_plain(
+    audio: torch.Tensor,
+    dft_mode: str = "chunked",
+    dft_dtype: torch.dtype = torch.float32,
+    accumulate: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, int]:
+    """
+    The kernel's function in plain PyTorch (fp32 throughout, or a bf16 DFT).
+    ``accumulate=torch.float64`` (chunked mode) computes the DFT and its tail
+    in double precision: the chip check uses it to measure how far float32
+    rounding of the mel alone moves what the trunk makes of it.
+    """
     b, t = audio.shape
     usable, num_patches, p_pad = patch_geometry(t)
-    logmel_fn = _logmel_hop_blocks if dft_mode == "fat" else _logmel_taps
-    logmel = logmel_fn(audio, usable)
+    if dft_mode == "fat":
+        logmel = _logmel_hop_blocks(audio, usable)
+    else:
+        logmel = _logmel_taps(audio, usable, dft_dtype, accumulate)
     out = audio.new_zeros((b, p_pad, PATCH_FRAMES * MEL_BINS))
     out[:, :num_patches] = logmel.reshape(b, num_patches, PATCH_FRAMES * MEL_BINS)
     return out, num_patches
 
 
-def mel_spectrogram_plain(audio: torch.Tensor) -> torch.Tensor:
-    """K3's arithmetic in plain PyTorch (fp32 throughout): (b, frames, 32)."""
-    return _logmel_taps(audio, num_frames(audio.shape[1]))
+def mel_spectrogram_plain(audio: torch.Tensor, dft_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K3's function in plain PyTorch (fp32 throughout, or a bf16 DFT): (b, frames, 32)."""
+    return _logmel_taps(audio, num_frames(audio.shape[1]), dft_dtype)
 
 
 def check_audio(audio: torch.Tensor, what: str) -> None:
@@ -152,51 +259,67 @@ def check_audio(audio: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: unsupported device {audio.device}")
 
 
-def mel_patches(audio: torch.Tensor, dft_mode: str = "chunked") -> Tuple[torch.Tensor, int]:
+def check_dft_dtype(dft_dtype: torch.dtype) -> None:
+    if dft_dtype not in DFT_DTYPES:
+        raise ValueError(f"unknown dft_dtype {dft_dtype!r}; expected one of {DFT_DTYPES}")
+
+
+def mel_patches(
+    audio: torch.Tensor, dft_mode: str = "chunked", dft_dtype: torch.dtype = torch.float32
+) -> Tuple[torch.Tensor, int]:
     """
     (b, t) float32 int16-range audio -> ((b, p_pad, 128) patches, num_patches).
-    ``dft_mode`` "chunked" is K1, "fat" K1b. Launches the CUDA kernel for a
-    CUDA tensor, the plain version for a CPU one.
+    ``dft_mode`` "chunked" is K1, "fat" K1b; ``dft_dtype=torch.bfloat16`` (chunked
+    only) the bf16-DFT variant. Launches the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU one.
     """
     if dft_mode not in DFT_MODES:
         raise ValueError(f"unknown dft_mode {dft_mode!r}; expected one of {DFT_MODES}")
+    check_dft_dtype(dft_dtype)
+    if dft_mode == "fat" and dft_dtype != torch.float32:
+        raise ValueError("the hop-block mode (dft_mode='fat') takes dft_dtype=torch.float32 only")
     check_audio(audio, "mel_patches")
     b, t = audio.shape
     usable, num_patches, p_pad = patch_geometry(t)
     if num_patches < 1 or b < 1:
         raise ValueError(f"audio of shape {tuple(audio.shape)} holds no whole patch")
     if audio.device.type == "cpu":
-        return mel_patches_plain(audio, dft_mode)
-    taps, blocks, fb = mel_constants(audio.device)
+        return mel_patches_plain(audio, dft_mode, dft_dtype)
+    taps, blocks, fb = kernel_constants(audio.device)
     basis = blocks if dft_mode == "fat" else taps
+    name = "mel_patches_fat" if dft_mode == "fat" else "mel_patches"
     out = torch.empty((b, p_pad, PATCH_FRAMES * MEL_BINS), device=audio.device, dtype=torch.float32)
     build.launch(
-        "mel_patches_fat" if dft_mode == "fat" else "mel_patches",
+        name,
         audio.device,
         [audio.data_ptr(), basis.data_ptr(), fb.data_ptr(), out.data_ptr()],
         [b, t, usable, p_pad],
+        entry="mel_patches_bf16" if dft_dtype == torch.bfloat16 else name,
     )
     return out, num_patches
 
 
-def mel_spectrogram(audio: torch.Tensor) -> torch.Tensor:
+def mel_spectrogram(audio: torch.Tensor, dft_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """
-    (b, t) float32 int16-range audio -> (b, frames, 32) scaled log-mel, K3.
-    Launches the CUDA kernel for a CUDA tensor, the plain version for a CPU one.
+    (b, t) float32 int16-range audio -> (b, frames, 32) scaled log-mel, K3
+    (``dft_dtype=torch.bfloat16``: its bf16-DFT variant). Launches the CUDA
+    kernel for a CUDA tensor, the plain version for a CPU one.
     """
+    check_dft_dtype(dft_dtype)
     check_audio(audio, "mel_spectrogram")
     b, t = audio.shape
     frames = num_frames(t)
     if frames < 1 or b < 1:
         raise ValueError(f"audio of shape {tuple(audio.shape)} holds no whole frame")
     if audio.device.type == "cpu":
-        return mel_spectrogram_plain(audio)
-    taps, _, fb = mel_constants(audio.device)
+        return mel_spectrogram_plain(audio, dft_dtype)
+    taps, _, fb = kernel_constants(audio.device)
     out = torch.empty((b, frames, MEL_BINS), device=audio.device, dtype=torch.float32)
     build.launch(
         "mel_spectrogram",
         audio.device,
         [audio.data_ptr(), taps.data_ptr(), fb.data_ptr(), out.data_ptr()],
         [b, t, frames],
+        entry="mel_spectrogram_bf16" if dft_dtype == torch.bfloat16 else "mel_spectrogram",
     )
     return out
