@@ -14,10 +14,16 @@ each with the launch counters set to 0 just before it and read just after:
 ``featurize_batch`` in each pooling formulation on 2048 clips (``SpeechEmbeddings``
 for "fused", with ``return_spectrograms`` too), the hop-block mel path, the
 spectrogram-layout embedding entry, ``extract`` and ``predict`` through the CLI
-entry. It checks what each path returns, times kernels and plain versions
-with CUDA events, prints one JSON line of kernel numbers and ends with one
-JSON line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
-script exits non-zero; it also fails without a CUDA device.
+entry, and the training path: feature caches built on the card through
+``featurize_batch`` ("fused", K1 -> K2) from seeded synthetic clips, ``train``
+through the CLI entry (the default head at full width, then a short
+``--transformer`` run), a short trajectory of each head on the card against
+the CPU (and once more with TF32 on, which the limits must reject), one
+fired transformer step on the card against the CPU, ``convert`` run by the numpy ONNX runner against the card, and ``predict``
+with the new checkpoint. It checks what each path returns, times kernels and
+plain versions with CUDA events, prints one JSON line of kernel numbers and
+ends with one JSON line ``{"ok": true, "device": {...}}``. Any failed check
+raises, so the script exits non-zero; it also fails without a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import contextlib
 import glob
 import io
 import json
+import logging
 import os
 import re
 import shutil
@@ -34,16 +41,32 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from heybuddy_tpu_torch.cli import main as cli_main
-from heybuddy_tpu_torch.constants import MEL_N_FFT
+from heybuddy_tpu_torch.constants import (
+    DEFAULT_ADVERSARIAL_BATCH_SIZE,
+    DEFAULT_NEGATIVE_BATCH_SIZE,
+    DEFAULT_POSITIVE_BATCH_SIZE,
+    MEL_N_FFT,
+)
+from heybuddy_tpu_torch.convert import wakeword_params_to_numpy
 from heybuddy_tpu_torch.data.extract import LabeledFeatureExtractor
+from heybuddy_tpu_torch.data.precalculated import PrecalculatedDatasetIterator
+from heybuddy_tpu_torch.data.space import active_space, write_space_sidecar
+from heybuddy_tpu_torch.data.training import WakeWordTrainingDatasetIterator
+from heybuddy_tpu_torch.export.onnx_numpy import OnnxRunner
 from heybuddy_tpu_torch.models.featurizer import SpeechEmbeddings, featurize_batch, get_speech_embeddings
-from heybuddy_tpu_torch.models.wakeword import load_model
+from heybuddy_tpu_torch.models.wakeword import (
+    WakeWordMLPModel,
+    WakeWordTransformerModel,
+    load_model,
+    read_checkpoint,
+)
+from heybuddy_tpu_torch.training.trainer import WakeWordTrainer
 from heybuddy_tpu_torch.ops.kernels import build
 from heybuddy_tpu_torch.ops.kernels import embedding_kernel as ek
 from heybuddy_tpu_torch.ops.kernels import featurize_kernel as fk
@@ -54,6 +77,7 @@ from heybuddy_tpu_torch.text.tokens import BERTTokenizer
 from heybuddy_tpu_torch.utils.audio_io import write_wav
 from heybuddy_tpu_torch.utils.codecs import read_wav_any
 from heybuddy_tpu_torch.utils.cuda_timing import cuda_ms, nvidia_smi_line
+from heybuddy_tpu_torch.utils.log import logger
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "reports", "quality-v26-embedv8.npz")
@@ -118,6 +142,49 @@ XLA_FORM_ATOL, XLA_FORM_MEAN = 0.25, 5e-3
 #     computes one clip (K1 one chunk of one clip), so a clip's features do
 #     not depend on the batch around it and must be equal bit for bit.
 EXTRACT_ATOL = 0.0
+
+# The train phase. Caches: the default composition's sources at a size that
+# builds in seconds (the defaults ask for 100,000 positives and adversarials
+# and a hosted 25 GB negative set); batches 50 / 50 / 1000, accumulation 128
+# and 3 stages as the defaults; the steps cut from 5,000 to TRAIN_STEPS (the
+# stages run 1x, 2x and 4x that); no testing sets.
+TRAIN_PHRASE = "hey buddy"
+TRAIN_CACHES = {  # name: (rows, kind, labeled)
+    "hey-buddy": (4096, "positive", False),
+    "hey-buddy-adversarial": (4096, "adversarial", False),
+    "training-medium": (65536, "negative", True),
+    "hey-buddy-testing-validation": (1024, "positive", False),
+    "validation": (8192, "negative", True),
+}
+TRAIN_STEPS = 1000
+TRANSFORMER_STEPS = 1000
+TRAJECTORY_STEPS = 30
+PROFILE_STEPS = 100  # train steps traced for the device's busy share
+# the perceptron's trajectory on the card against the CPU's (float32 both,
+# TF32 off; the same initial parameters and index draws): each limit lies
+# between the sound run and the same run with TF32 on, which fails all four
+# (PERF.md: loss 3.9e-7 and 3.7e-4, rates 0 and 9.5e-4, parameters
+# 1.3e-7 and 1.5e-4 at most, 100% and 89.9% within 1e-5 + 1e-4 |x|): the
+# loss to 1e-5 relative; recall, false-positive and hard-example rates to
+# 5e-4 (no prediction of the ~1000 each counts crosses a threshold in one and
+# not the other); the parameters 99% within 1e-5 + 1e-4 |x| and every one
+# within 5e-6
+TRAJ_LOSS_RTOL, TRAJ_RATE_ATOL, TRAJ_PARAM_SHARE, TRAJ_PARAM_MAX = 1e-5, 5e-4, 0.99, 5e-6
+# the transformer's trajectory: its fired steps and its loss only (its
+# parameters move as far from 1e-7 of rounding in the initial ones)
+TRAJ_T_LOSS_RTOL = 1e-3
+# one fired step of the transformer from the seed's initial trunk with a
+# seeded random final layer: the loss (relative) and the gradient
+# (|g_card - g_cpu| / |g_cpu|). Over 16 final-layer seeds the sound step
+# reads loss <= 1.1e-7 and gradient 8.4e-7 - 3.1e-6 (bit-equal when run
+# twice), the step with TF32 on loss 1.0e-6 - 1.6e-5 and gradient 5.8e-3 -
+# 6.2e-2 (PERF.md): the gradient's limit lies 32x above the one and
+# 58x below the other
+STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-6, 1e-4
+# the transformer's trained checkpoint, scored on the card against the CPU
+SCORE_TRAINED_ATOL = 1e-5
+# convert's ONNX head run by the numpy runner against the model on the card
+ONNX_ATOL = 1e-5
 
 
 def check(cond: bool, what: str) -> None:
@@ -333,6 +400,401 @@ def extract_phase(featurizer: SpeechEmbeddings, rng: np.random.Generator, tmp: s
             "extract_clips_per_s": data.shape[0] / wall, "launches": launches}
 
 
+def synth_clips(kind: str, n: int, gen: torch.Generator, dev: torch.device, samples: int = CLIP,
+                start_s: Tuple[float, float] = (0.1, 0.7)) -> torch.Tensor:
+    """
+    (n, samples) seeded synthetic clips in [-1, 1], made on ``dev``. A
+    "positive" is a 600 Hz tone of 0.25 s, then after 0.05 s a 900 -> 1300 Hz
+    chirp of 0.35 s, at a random start, level and pitch (+-3%) over faint noise;
+    an "adversarial" is the same with the chirp reversed (1300 -> 900 Hz); a
+    "negative" is white-to-brown noise at a random level, half of them with a
+    steady tone of random pitch.
+    """
+    t = torch.arange(samples, device=dev, dtype=torch.float32) / 16000.0
+
+    def u(lo: float, hi: float) -> torch.Tensor:
+        return lo + (hi - lo) * torch.rand(n, 1, generator=gen, device=dev)
+
+    white = torch.randn(n, samples, generator=gen, device=dev)
+    if kind == "negative":
+        brown = torch.cumsum(white, dim=1)
+        brown = (brown - brown.mean(1, keepdim=True)) / brown.std(1, keepdim=True)
+        mix = u(0.0, 1.0)
+        tone = torch.sin(2 * np.pi * u(100.0, 2000.0) * t + u(0.0, 6.3)) * u(0.05, 0.4)
+        has_tone = (torch.rand(n, 1, generator=gen, device=dev) < 0.5).float()
+        return ((mix * white + (1 - mix) * brown) * u(0.01, 0.3) + has_tone * tone).clamp(-1, 1)
+    pitch = u(0.97, 1.03)
+    start = u(*start_s)
+    tau1, tau2 = t - start, t - start - 0.3
+    f2a, f2b = (900.0, 1300.0) if kind == "positive" else (1300.0, 900.0)
+    first = torch.sin(2 * np.pi * 600.0 * pitch * tau1) * ((tau1 >= 0) & (tau1 < 0.25))
+    chirp = torch.sin(2 * np.pi * pitch * (f2a * tau2 + (f2b - f2a) * tau2 ** 2 / 0.7))
+    second = chirp * ((tau2 >= 0) & (tau2 < 0.35))
+    return (u(0.15, 0.5) * (first + second) + white * u(0.002, 0.02)).clamp(-1, 1)
+
+
+def build_caches(net, dev: torch.device, directory: str, gen: torch.Generator) -> Dict[str, np.ndarray]:
+    """Every cache of TRAIN_CACHES featurized on the card (K1 -> K2) with its
+    space sidecar; labeled caches get a token row of a random text, one text
+    in 16 holding the phrase's "hey" (the exclude filter drops those rows)."""
+    tokenizer = BERTTokenizer()
+    words = ["alpha", "river", "stone", "quiet", "morning", "paper", "green", "window", "table", "seven"]
+    texts = [" ".join(words[(i * 7 + k) % len(words)] for k in range(3)) for i in range(15)] + ["hey there"]
+    token_table = np.stack([tokenizer(text) for text in texts]).astype(np.float32)
+    space = active_space(device=dev)
+    out = {}
+    for name, (rows, kind, labeled) in TRAIN_CACHES.items():
+        feats = np.empty((rows, 17 if labeled else 16, 96), np.float32)
+        for i in range(0, rows, BATCH):
+            n = min(BATCH, rows - i)
+            audio = synth_clips(kind, n, gen, dev) * 32767.0
+            feats[i : i + n, :16] = featurize_batch(net, audio).cpu().numpy()
+        if labeled:
+            pick = torch.randint(0, len(texts), (rows,), generator=gen, device=dev).cpu().numpy()
+            feats[:, 16] = token_table[pick]
+        check(bool(np.isfinite(feats).all()), f"cache {name} not finite")
+        path = os.path.join(directory, f"{name}.npy")
+        np.save(path, feats)
+        write_space_sidecar(path, space)
+        out[name] = feats
+    return out
+
+
+def trajectory_iterator(directory: str) -> WakeWordTrainingDatasetIterator:
+    """The default composition over the caches, with fixed seeds (the hosted
+    set's own iterator draws an unseeded shuffle)."""
+    def cache(name: str, seed: int, **kw) -> PrecalculatedDatasetIterator:
+        return PrecalculatedDatasetIterator(name, directory=directory, seed=seed, **kw)
+
+    return WakeWordTrainingDatasetIterator(
+        num_batch_threads=1,
+        positive=[(cache("hey-buddy", 1), 50)],
+        negative=[(cache("hey-buddy-adversarial", 2), 50),
+                  (cache("training-medium", 3, labeled=True, exclude_phrase=TRAIN_PHRASE), 1000)],
+    )
+
+
+def trajectory_run(architecture: str, device: torch.device, directory: str, ckpt_dir: str,
+                   tf32: bool = False, perturb: bool = False, params=None, steps: int = TRAJECTORY_STEPS) -> Dict:
+    """``steps`` steps of ``architecture``, dropout 0, on the default
+    composition, from ``params`` or else the seed's initial parameters (the
+    model is initialised on the host, then moved); ``tf32`` lets the matmuls
+    run in TF32; ``perturb`` scales every initial parameter by 1 + 1e-7 n
+    (n standard normal, seeded). Returns the history, the flat parameter
+    buffer before and after, the gradient of the first fired step (Adam's
+    first moment over 1 - b1 after one step), the fired-step count, and the
+    trainer with its iterator."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        trainer = WakeWordTrainer(checkpoint_dir=ckpt_dir, device=device, architecture=architecture,
+                                  seed=SEED, dropout=0.0, params=params)
+        flat = trainer._adam.flat
+        init = flat.cpu().numpy().copy()
+        if perturb:
+            noise = np.random.default_rng(SEED).standard_normal(flat.numel()).astype(np.float32)
+            flat.mul_(torch.from_numpy(1 + 1e-7 * noise).to(device))
+        iterator = trajectory_iterator(directory)
+        history = trainer.train_epoch(iterator, num_steps=steps, validation_steps=10 ** 6, checkpoint_steps=10 ** 6)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return {"history": history, "init": init, "params": flat.cpu().numpy(),
+            "grad": trainer._adam.mu.cpu().numpy() / (1 - trainer._adam.b1),
+            "fired": int(trainer._adam.count.item()), "trainer": trainer, "iterator": iterator}
+
+
+def trajectory_gap(run: Dict, ref: Dict) -> Dict:
+    """How far one trajectory ended from another: the loss (relative), the
+    rates, the parameters (max and the share within 1e-5 + 1e-4 |x|), the
+    fired-step counts."""
+    got, want = run["history"], ref["history"]
+    perr = np.abs(run["params"] - ref["params"])
+    return {
+        "loss_rel": float(np.max(np.abs(got["loss"] - want["loss"]) / np.abs(want["loss"]))),
+        "rate_err": max(float(np.max(np.abs(got[k] - want[k])))
+                        for k in ("recall", "false_positive_rate", "high_loss_rate")),
+        "param_max": float(perr.max()),
+        "param_share": float(np.mean(perr <= 1e-5 + 1e-4 * np.abs(ref["params"]))),
+        "fired": [run["fired"], ref["fired"]],
+    }
+
+
+def trajectory_within(gap: Dict) -> bool:
+    return (gap["loss_rel"] <= TRAJ_LOSS_RTOL and gap["rate_err"] <= TRAJ_RATE_ATOL
+            and gap["param_max"] <= TRAJ_PARAM_MAX and gap["param_share"] >= TRAJ_PARAM_SHARE
+            and gap["fired"][0] == gap["fired"][1] > 0)
+
+
+def step_gap(run: Dict, ref: Dict) -> Dict:
+    """One fired step from one state: the loss (relative) and the gradient
+    (the norm of the difference over the reference's norm)."""
+    return {
+        "loss_rel": float(abs(run["history"]["loss"][0] - ref["history"]["loss"][0]) / ref["history"]["loss"][0]),
+        "grad_rel": float(np.linalg.norm(run["grad"] - ref["grad"]) / np.linalg.norm(ref["grad"])),
+        "fired": [run["fired"], ref["fired"]],
+    }
+
+
+def step_within(gap: Dict) -> bool:
+    return gap["loss_rel"] <= STEP_LOSS_RTOL and gap["grad_rel"] <= STEP_GRAD_RTOL and gap["fired"] == [1, 1]
+
+
+class StageLog(logging.Handler):
+    """The trainer's own log records of one ``train`` run: each stage's step
+    count, its seconds from the stage's header to its "finished" record, and
+    the loss at every logged step."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.INFO)
+        self.starts: List[Tuple[float, int]] = []
+        self.ends: List[float] = []
+        self.losses: List[float] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        msg = record.getMessage()
+        if m := re.match(r"=== Stage \d+/\d+: (\d+) steps", msg):
+            self.starts.append((record.created, int(m[1])))
+        elif re.match(r"Training Stage \d+ finished", msg):
+            self.ends.append(record.created)
+        elif m := re.match(r"Training Stage \d+ step \d+/\d+: loss=(\S+) ", msg):
+            self.losses.append(float(m[1]))
+
+    def steps(self) -> List[int]:
+        return [n for _, n in self.starts]
+
+    def seconds(self) -> List[float]:
+        return [end - start for (start, _), end in zip(self.starts, self.ends)]
+
+
+def train_phase(net, dev: torch.device, tmp: str) -> Dict:
+    """Caches on the card, ``train`` (default head, then --transformer) through
+    the CLI entry, the trajectory on the card against the CPU, ``convert`` ->
+    the numpy runner against the card, and ``predict`` with the checkpoint."""
+    data_dir = os.path.join(tmp, "train-data")
+    os.makedirs(data_dir)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    caches, launches = run_path("train_cache", lambda: build_caches(net, dev, data_dir, gen),
+                                ("mel_patches", "embedding_pool"))
+    build_s = time.perf_counter() - t0
+    n_clips = sum(rows for rows, _, _ in TRAIN_CACHES.values())
+    print(f"train caches: {n_clips} clips featurized on the card in {build_s:.2f} s (host clock, "
+          f"synthesis and writing included); launches {launches}; "
+          f"{', '.join(f'{k} {v.shape}' for k, v in caches.items())}")
+    expected = sum(-(-rows // BATCH) for rows, _, _ in TRAIN_CACHES.values())
+    check(launches == {"mel_patches": expected, "embedding_pool": expected},
+          f"cache build launched {launches}, expected {expected} of K1 and of K2")
+
+    saved_env = {k: os.environ.get(k) for k in ("HEYBUDDY_DATASET_DIR", "HEYBUDDY_OFFLINE")}
+    os.environ["HEYBUDDY_DATASET_DIR"] = data_dir
+    os.environ["HEYBUDDY_OFFLINE"] = "1"  # the hosted names are local files: never download
+    rows = {name: str(n) for name, (n, _, _) in TRAIN_CACHES.items()}
+    common = ["--positive-samples", rows["hey-buddy"], "--adversarial-samples", rows["hey-buddy-adversarial"],
+              "--validation-samples", rows["hey-buddy-testing-validation"],
+              "--testing-positive-samples", "0", "--testing-adversarial-samples", "0",
+              "--num-batch-threads", "1", "--device", dev.type]
+    ckpt, ckpt_t = os.path.join(tmp, "ckpt"), os.path.join(tmp, "ckpt-transformer")
+    logs = {"perceptron": StageLog(), "transformer": StageLog()}
+    try:
+        for label, argv in (
+            ("perceptron", ["--steps", str(TRAIN_STEPS), "--checkpoint-steps", "1000", "--checkpoint-dir", ckpt]),
+            ("transformer", ["--transformer", "--steps", str(TRANSFORMER_STEPS), "--stages", "1",
+                             "--checkpoint-dir", ckpt_t]),
+        ):
+            out = io.StringIO()
+            logger.addHandler(logs[label])
+            try:
+                with contextlib.redirect_stdout(out):
+                    rc, _ = run_path(f"train_{label}", lambda: cli_main(["train", TRAIN_PHRASE, *common, *argv]), ())
+            finally:
+                logger.removeHandler(logs[label])
+            check(rc == 0, f"train ({label}) failed")
+            print(f"path train (cli, {label}): no kernel launches (cached features); {out.getvalue().strip()!r}")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    expected_steps = [TRAIN_STEPS]
+    for _ in range(2):  # the trainer's rule: x2 per stage, at least the validation interval
+        expected_steps.append(max(250, expected_steps[-1] * 2))
+    for label, steps in (("perceptron", expected_steps), ("transformer", [TRANSFORMER_STEPS])):
+        check(logs[label].steps() == steps and len(logs[label].seconds()) == len(steps),
+              f"{label} stages {logs[label].steps()}, expected {steps}, all finished")
+    # the loss logged every 1/20 of a stage: the perceptron's falls to under
+    # half; the transformer (its final layer zero-initialised, softmax scale
+    # 1.0) learns slowly in a short run: its loss must fall, by any margin
+    for label, ratio in (("perceptron", 0.5), ("transformer", 1.0)):
+        series = np.array(logs[label].losses)
+        head, tail = float(series[:3].mean()), float(series[-3:].mean())
+        print(f"train {label}: loss logged at {len(series)} steps, mean of the first 3 {head:.5f}, of "
+              f"the last 3 {tail:.5f} (must be under {ratio} x the first)")
+        check(np.isfinite(series).all() and tail < ratio * head, f"{label} loss did not fall")
+    stage_s = logs["perceptron"].seconds() + logs["transformer"].seconds()
+    rows = DEFAULT_POSITIVE_BATCH_SIZE + DEFAULT_ADVERSARIAL_BATCH_SIZE + DEFAULT_NEGATIVE_BATCH_SIZE
+    steps_per_s = TRAIN_STEPS / stage_s[0]
+    print(f"train stage 1 (perceptron, {rows} rows a step, device-resident, its "
+          f"{TRAIN_STEPS // 250} evals included; host clock, from the trainer's log records): "
+          f"{stage_s[0]:.3f} s for {TRAIN_STEPS} steps = {steps_per_s:.1f} steps/s, "
+          f"{steps_per_s * rows:.0f} examples/s; stages {[round(s, 3) for s in stage_s]} s")
+
+    final = os.path.join(ckpt, "hey-buddy_final.npz")
+    model = load_model(final, device=dev)
+    model_t = load_model(os.path.join(ckpt_t, "hey-buddy_final.npz"), device=dev)
+    check(isinstance(model, WakeWordMLPModel) and isinstance(model_t, WakeWordTransformerModel),
+          "final checkpoints")
+    held_pos, held_neg = caches["hey-buddy-testing-validation"][:512], caches["validation"][:512, :16]
+    held = np.concatenate([held_pos, held_neg])
+    # the perceptron must separate held-out positives from negatives. The
+    # transformer scores every clip of these caches alike (JAX's head does
+    # too: tests/test_torch_transformer_head.py, run as a script), so its
+    # trained checkpoint is held to the CPU's scores instead
+    for label, m in (("perceptron", model), ("transformer", model_t)):
+        pos, neg = m.scores(held_pos), m.scores(held_neg)
+        print(f"train {label}: held-out positives scored {pos.mean():.4f} (recall {np.mean(pos > 0.5):.4f}), "
+              f"negatives {neg.mean():.4f} (false accepts {np.mean(neg > 0.5):.4f}); all scores "
+              f"{np.concatenate([pos, neg]).min():.6f}-{np.concatenate([pos, neg]).max():.6f}")
+        check(bool(np.isfinite(pos).all() and np.isfinite(neg).all()), f"{label} scores not finite")
+    check(model.scores(held_pos).mean() > model.scores(held_neg).mean() + 0.5,
+          "perceptron does not separate held-out positives from negatives")
+    t_err = float(np.abs(model_t.scores(held) - load_model(os.path.join(ckpt_t, "hey-buddy_final.npz"),
+                                                          device="cpu").scores(held)).max())
+    print(f"train transformer: its checkpoint's scores on the card vs the CPU, {len(held)} held-out rows: "
+          f"max |d| {t_err:.3e} (limit {SCORE_TRAINED_ATOL})")
+    check(t_err <= SCORE_TRAINED_ATOL, "the transformer's scores on the card disagree with the CPU's")
+
+    # Each head's trajectory on the card against the CPU, from one initial
+    # parameter set and one index stream, then the card's once more with TF32
+    # on, and the CPU's from initial parameters perturbed by 1e-7 relative (a
+    # control: how far float32 rounding alone carries the trajectory). The
+    # transformer's control moves its parameters as far as the card does: its
+    # final layer starts at zero and stays near it, so the max over its 96
+    # channels picks among near-equal logits, and rounding decides which
+    # channel the gradient flows back through. Its forward and backward are
+    # held on one fired step instead, from the seed's initial trunk with a
+    # seeded random final layer, with TF32 on as the control there too. Not
+    # from the trained trunk: `train` shuffles its caches without a seed (as
+    # JAX's does), so that trunk differs from run to run, and with it how far
+    # rounding carries its gradient (1.2e-5 - 9.1e-4 over three trunks of one
+    # run, PERF.md). The checks come after convert and predict.
+    gaps: Dict[str, Dict] = {}
+    cpu = torch.device("cpu")
+    trained = read_checkpoint(os.path.join(ckpt_t, "hey-buddy_final.npz"))[1]
+    print(f"train transformer: its final layer after {TRANSFORMER_STEPS} steps: |w| at most "
+          f"{np.abs(trained['final']['fc']['w']).max():.3e}, bias {float(trained['final']['fc']['b'][0]):.5f}")
+    stepped = wakeword_params_to_numpy(WakeWordTrainer(
+        checkpoint_dir=os.path.join(tmp, "traj-init"), device=cpu, architecture="transformer", seed=SEED,
+        dropout=0.0).model)
+    fc = stepped["final"]["fc"]
+    fc["w"] = np.random.default_rng(SEED).normal(0.0, 0.1, fc["w"].shape).astype(np.float32)
+    for arch, params, steps, keys in (
+        ("perceptron", None, TRAJECTORY_STEPS, ("card", "card_tf32", "cpu_perturbed")),
+        ("transformer", None, TRAJECTORY_STEPS, ("card", "card_tf32", "cpu_perturbed")),
+        ("transformer_trained", trained, 1, ("card",)),  # printed, not held: the near-tied max
+        ("transformer_step", stepped, 1, ("card", "card_tf32")),
+    ):
+        runs = {key: trajectory_run(arch.split("_")[0], dev if key.startswith("card") else cpu, data_dir,
+                                    os.path.join(tmp, f"traj-{arch}-{key}"), tf32=key == "card_tf32",
+                                    perturb=key == "cpu_perturbed", params=params, steps=steps)
+                for key in ("cpu",) + keys}
+        check(all(np.array_equal(r["init"], runs["cpu"]["init"]) for r in runs.values()),
+              f"{arch}: the runs start from different parameters")
+        for key in keys:
+            if steps == 1:
+                gap = gaps[f"{arch}_{key}"] = step_gap(runs[key], runs["cpu"])
+                start = "the trained checkpoint" if params is trained else "the initial trunk, a random final layer"
+                print(f"train step {arch} {key} vs CPU, one fired step from {start}, dropout 0: loss rel "
+                      f"{gap['loss_rel']:.3e} (limit {STEP_LOSS_RTOL}); gradient |d| / |g| {gap['grad_rel']:.3e} "
+                      f"(limit {STEP_GRAD_RTOL}); fired {gap['fired']}; within the limits: {step_within(gap)}")
+                continue
+            gap = gaps[f"{arch}_{key}"] = trajectory_gap(runs[key], runs["cpu"])
+            print(f"trajectory {arch} {key} vs CPU, {steps} steps, dropout 0: loss max rel "
+                  f"{gap['loss_rel']:.3e} (limit {TRAJ_LOSS_RTOL}); rates max |d| {gap['rate_err']:.3e} (limit "
+                  f"{TRAJ_RATE_ATOL}); params max |d| {gap['param_max']:.3e} (limit {TRAJ_PARAM_MAX}), "
+                  f"{gap['param_share']:.4f} within 1e-5 + 1e-4 |x| (limit {TRAJ_PARAM_SHARE}); fired steps "
+                  f"{gap['fired']}; loss {runs['cpu']['history']['loss'][0]:.5f} -> "
+                  f"{runs['cpu']['history']['loss'][-1]:.5f}; within the limits: {trajectory_within(gap)}")
+        if arch == "perceptron":
+            card = runs["card"]
+            busy = device_busy(lambda: card["trainer"].train_epoch(
+                card["iterator"], num_steps=PROFILE_STEPS, validation_steps=10 ** 6, checkpoint_steps=10 ** 6))
+    share_txt = "not measured (no device events in the trace)" if busy["busy_ms"] is None else (
+        f"{busy['busy_ms']:.2f} ms of kernels ({busy['kernels']}, {busy['kernels'] / PROFILE_STEPS:.0f} a step) in "
+        f"{busy['wall_ms']:.2f} ms: device busy {busy['busy_ms'] / busy['wall_ms']:.4f}")
+    print(f"train steps under torch.profiler ({PROFILE_STEPS} device-resident steps of {rows} rows, default "
+          f"head): {share_txt}")
+
+    # convert -> the numpy ONNX runner, against the model on the card
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        check(cli_main(["convert", final]) == 0, "convert failed")
+    onnx_path = os.path.splitext(final)[0] + ".onnx"
+    x = np.concatenate([held_pos[:128], held_neg[:128]])
+    onnx_scores = OnnxRunner.from_file(onnx_path)(input=x)["output"].reshape(-1)
+    onnx_err = float(np.abs(onnx_scores - model.scores(x)).max())
+    print(f"convert: {out.getvalue().strip()!r}; numpy runner vs the card on 256 rows max |d| "
+          f"{onnx_err:.3e} (limit {ONNX_ATOL})")
+    check(onnx_err <= ONNX_ATOL, "the ONNX head disagrees with the model on the card")
+
+    # predict with the new checkpoint: the positive pattern fires
+    wav_gen = torch.Generator().manual_seed(SEED + 1)
+    wav = os.path.join(tmp, "positive.wav")
+    write_wav(wav, synth_clips("positive", 1, wav_gen, torch.device("cpu"), 56000, (1.2, 1.2))[0].numpy())
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, predict_launches = run_path("train_predict", lambda: cli_main(["predict", final, wav, "--device", dev.type]),
+                                        ("mel_patches", "embedding_pool"))
+    said = out.getvalue().strip()
+    print(f"path predict (cli, the new checkpoint, 3.5 s positive-pattern wav): launches {predict_launches}; "
+          f"{said!r}")
+    check(rc == 0 and "Wake word detected at" in said, "predict did not fire on the positive pattern")
+    noise_wav = os.path.join(tmp, "negative.wav")
+    write_wav(noise_wav, synth_clips("negative", 1, wav_gen, torch.device("cpu"), 56000)[0].numpy())
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_main(["predict", final, noise_wav, "--device", dev.type])
+    print(f"predict on a negative-pattern wav (not checked): {out.getvalue().strip()!r}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["predict", os.path.join(ckpt_t, "hey-buddy_final.npz"), wav, "--device", dev.type])
+    print(f"predict with the transformer checkpoint on the positive-pattern wav: {out.getvalue().strip()!r}")
+    check(rc == 0, "predict with the transformer checkpoint failed")
+
+    check(trajectory_within(gaps["perceptron_card"]), "perceptron trajectory card vs CPU")
+    check(not trajectory_within(gaps["perceptron_card_tf32"]),
+          "perceptron: the trajectory with TF32 on passes the limits, which then cannot tell the precision")
+    t_gap = gaps["transformer_card"]
+    check(t_gap["fired"][0] == t_gap["fired"][1] > 0 and t_gap["loss_rel"] <= TRAJ_T_LOSS_RTOL,
+          "transformer trajectory card vs CPU: fired steps or loss")
+    check(step_within(gaps["transformer_step_card"]), "transformer step card vs CPU")
+    check(not step_within(gaps["transformer_step_card_tf32"]),
+          "transformer: the step with TF32 on passes the limits, which then cannot tell the precision")
+    return {"train_cache": launches, "train_predict": predict_launches,
+            "summary": {"cache_clips": n_clips, "cache_s": build_s, "stage1_steps_per_s": steps_per_s,
+                        "stage1_examples_per_s": steps_per_s * rows, "stage_s": stage_s,
+                        "trajectory": gaps, "transformer_score_err": t_err,
+                        "profiled_steps": PROFILE_STEPS, **{f"profiled_{k}": v for k, v in busy.items()},
+                        "onnx_err": onnx_err}}
+
+
+def device_busy(fn: Callable[[], object]) -> Dict[str, float]:
+    """Host-clock ms of ``fn`` under ``torch.profiler`` and the ms its CUDA
+    kernels ran (None when the trace holds no device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 if kernels else None
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels": len(kernels)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -507,6 +969,9 @@ def main() -> int:
         windows = load_model(CHECKPOINT, device="cpu").timecode_windows(wav)
         s_gpu = np.array(load_model(CHECKPOINT, device=dev).predict(windows, return_scores=True))
         s_cpu = np.array(load_model(CHECKPOINT, device="cpu").predict(windows, return_scores=True))
+        # ---- the training path: caches on the card, train, convert, predict ----------------
+        train = train_phase(net, dev, tmp)
+        paths["train_cache"], paths["train_predict"] = train["train_cache"], train["train_predict"]
     score_err = float(np.abs(s_gpu - s_cpu).max())
     print(f"predict scores card {np.round(s_gpu, 4).tolist()} vs plain path "
           f"{np.round(s_cpu, 4).tolist()}: max |d| {score_err:.3e}")
@@ -635,7 +1100,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "paths": paths, "featurize_ms": fused_ms,
                       "mega_ms": mega_ms, "mega_wins": mega_wins, "clips_per_s": BATCH / fused_ms * 1e3,
                       "call_ms": call_ms, "predict_ms": predict_s * 1e3, "batch": BATCH,
-                      **extract}))
+                      "train": train["summary"], **extract}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,23 @@
 """
 Command line of the port (argparse):
 
+    python -m heybuddy_tpu_torch train PHRASE [the JAX command's options] [--device cuda|cpu]
+    python -m heybuddy_tpu_torch convert CHECKPOINT [OUTPUT] [--opset-version 19]
     python -m heybuddy_tpu_torch predict CHECKPOINT AUDIO [--threshold T] [--device cuda|cpu]
     python -m heybuddy_tpu_torch extract NAME SOURCE [--local-files] [--directory D]
         [--samples-per-file N] [--process-batch-size N] [--tokenizer-max-length N]
         [--hours H] [--device cuda|cpu] [Hugging Face dataset options]
+
+``train`` trains a wake-word head for PHRASE from the feature caches in
+``$HEYBUDDY_DATASET_DIR`` with the JAX ``heybuddy train``'s options, names and
+defaults, writes checkpoints to ``--checkpoint-dir`` and prints "Training
+complete; final checkpoint: DIR/NAME_final.npz". A cache that is missing or
+short raises (feature generation is not ported); the augmentation, TTS and
+adversarial-text options are accepted and passed on, as the JAX command does,
+and matter only to that generation. The multi-device ``--mesh`` option is not
+ported. ``convert`` writes a perceptron checkpoint as the ONNX head the
+browser runtime loads (default OUTPUT: the checkpoint's path with ``.onnx``)
+and prints "Wrote OUTPUT"; it reads the npz's numpy arrays and needs no device.
 
 ``predict`` prints the wake-word timecodes found in AUDIO (a WAV file), one
 line each, or "No wake words detected.", as the JAX package's ``heybuddy
@@ -19,9 +32,12 @@ from __future__ import annotations
 
 import argparse
 import glob
+import logging
+import os
 import sys
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
+from heybuddy_tpu_torch import constants as C
 from heybuddy_tpu_torch.constants import DEFAULT_ACTIVATION_THRESHOLD
 
 __all__ = ["main", "build_parser"]
@@ -60,7 +76,103 @@ def build_parser() -> argparse.ArgumentParser:
     extract.add_argument("--trust-remote-code", action=argparse.BooleanOptionalAction,
                          default=False)
     extract.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    convert = commands.add_parser("convert", help="write a checkpoint as ONNX for the browser runtime")
+    convert.add_argument("checkpoint", help="wake-word checkpoint (.npz)")
+    convert.add_argument("output", nargs="?", default=None, help="output .onnx path")
+    convert.add_argument("--opset-version", type=int, default=19)
+    _add_train_parser(commands)
     return parser
+
+
+# (option, type, default) of train's augmentation options, in the JAX command's order
+_AUGMENT_OPTIONS = (
+    ("seven-band-prob", float, C.DEFAULT_AUGMENT_SEVEN_BAND_PROB),
+    ("seven-band-gain-db", float, C.DEFAULT_AUGMENT_SEVEN_BAND_GAIN_DB),
+    ("tanh-distortion-prob", float, C.DEFAULT_AUGMENT_TANH_DISTORTION_PROB),
+    ("tanh-distortion-min", float, C.DEFAULT_AUGMENT_TANH_MIN_DISTORTION),
+    ("tanh-distortion-max", float, C.DEFAULT_AUGMENT_TANH_MAX_DISTORTION),
+    ("pitch-shift-prob", float, C.DEFAULT_AUGMENT_PITCH_SHIFT_PROB),
+    ("pitch-shift-semitones", int, C.DEFAULT_AUGMENT_PITCH_SHIFT_SEMITONES),
+    ("band-stop-prob", float, C.DEFAULT_AUGMENT_BAND_STOP_PROB),
+    ("colored-noise-prob", float, C.DEFAULT_AUGMENT_COLORED_NOISE_PROB),
+    ("colored-noise-min-snr-db", float, C.DEFAULT_AUGMENT_COLORED_NOISE_MIN_SNR_DB),
+    ("colored-noise-max-snr-db", float, C.DEFAULT_AUGMENT_COLORED_NOISE_MAX_SNR_DB),
+    ("colored-noise-min-f-decay", float, C.DEFAULT_AUGMENT_COLORED_NOISE_MIN_F_DECAY),
+    ("colored-noise-max-f-decay", float, C.DEFAULT_AUGMENT_COLORED_NOISE_MAX_F_DECAY),
+    ("background-noise-prob", float, C.DEFAULT_AUGMENT_BACKGROUND_NOISE_PROB),
+    ("background-noise-min-snr-db", float, C.DEFAULT_AUGMENT_BACKGROUND_NOISE_MIN_SNR_DB),
+    ("background-noise-max-snr-db", float, C.DEFAULT_AUGMENT_BACKGROUND_NOISE_MAX_SNR_DB),
+    ("gain-prob", float, C.DEFAULT_AUGMENT_GAIN_PROB),
+    ("reverb-prob", float, C.DEFAULT_AUGMENT_REVERB_PROB),
+)
+
+
+def _add_train_parser(commands: Any) -> None:
+    train = commands.add_parser("train", help="train a wake-word model for PHRASE from cached features")
+    add = train.add_argument
+    add("phrase")
+    add("--additional-phrase", action="append", default=[])
+    add("--wandb-entity", default=None)
+    add("--perceptron", dest="architecture", action="store_const", const="perceptron",
+        default=C.DEFAULT_ARCHITECTURE)
+    add("--transformer", dest="architecture", action="store_const", const="transformer")
+    add("--use-half-layers", action=argparse.BooleanOptionalAction, default=C.DEFAULT_USE_HALF_LAYERS)
+    add("--use-gating", action=argparse.BooleanOptionalAction, default=C.DEFAULT_USE_GATING)
+    add("--layer-dim", type=int, default=C.DEFAULT_LAYER_DIM)
+    add("--num-layers", type=int, default=C.DEFAULT_LAYERS)
+    add("--num-heads", type=int, default=C.DEFAULT_HEADS)
+    add("--steps", type=int, default=C.DEFAULT_STEPS)
+    add("--stages", type=int, default=C.DEFAULT_STAGES)
+    add("--threshold", type=float, default=DEFAULT_ACTIVATION_THRESHOLD)
+    add("--learning-rate", type=float, default=C.DEFAULT_LEARNING_RATE)
+    add("--high-loss-threshold", type=float, default=C.DEFAULT_HIGH_LOSS_THRESHOLD)
+    add("--target-false-positive-rate", type=float, default=C.DEFAULT_TARGET_FALSE_POSITIVE_RATE)
+    add("--validation-gate-consecutive", type=int, default=1,
+        help="count a stream-window validation false accept only after this many consecutive windows")
+    add("--dynamic-negative-weight", action=argparse.BooleanOptionalAction, default=True)
+    add("--negative-weight", type=float, default=C.DEFAULT_NEGATIVE_WEIGHT)
+    add("--training-large-default-dataset", dest="training_default_size", action="store_const", const="large",
+        default="medium")
+    add("--training-medium-default-dataset", dest="training_default_size", action="store_const",
+        const="medium")
+    add("--training-no-default-dataset", dest="training_default_size", action="store_const", const="none")
+    add("--training-dataset", default=None, help="an extra negative feature .npy")
+    add("--augment-phrase-prob", type=float, default=C.DEFAULT_AUGMENT_PHRASE_PROB)
+    for option, kind, default in _AUGMENT_OPTIONS:
+        add(f"--augmentation-{option}", type=kind, default=default)
+    add("--logging-steps", type=int, default=C.DEFAULT_LOGGING_STEPS)
+    add("--validation-steps", type=int, default=C.DEFAULT_VALIDATION_STEPS)
+    add("--checkpoint-steps", type=int, default=C.DEFAULT_CHECKPOINT_STEPS)
+    add("--positive-samples", type=int, default=C.DEFAULT_POSITIVE_SAMPLES)
+    add("--adversarial-samples", type=int, default=C.DEFAULT_ADVERSARIAL_SAMPLES)
+    add("--adversarial-phrases", type=int, default=C.DEFAULT_ADVERSARIAL_PHRASES)
+    add("--adversarial-phrase-custom", action="append", default=[])
+    add("--prefix-negative-phrases", type=int, default=0)
+    add("--collision-swap-phrases", type=int, default=0)
+    add("--collision-swap-depth", type=int, default=1)
+    add("--positive-batch-size", type=int, default=C.DEFAULT_POSITIVE_BATCH_SIZE)
+    add("--negative-batch-size", type=int, default=C.DEFAULT_NEGATIVE_BATCH_SIZE)
+    add("--synthetic-negative-samples", type=int, default=0)
+    add("--partial-samples", type=int, default=0)
+    add("--partial-batch-size", type=int, default=C.DEFAULT_PARTIAL_BATCH_SIZE)
+    add("--stream-negative-samples", type=int, default=0)
+    add("--collision-negative-samples", type=int, default=0)
+    add("--clean-positive-samples", type=int, default=0)
+    add("--reverb-positive-samples", type=int, default=0)
+    add("--adversarial-batch-size", type=int, default=C.DEFAULT_ADVERSARIAL_BATCH_SIZE)
+    add("--num-batch-threads", type=int, default=C.DEFAULT_BATCH_THREADS)
+    add("--validation-positive-batch-size", type=int, default=C.DEFAULT_VALIDATION_POSITIVE_BATCH_SIZE)
+    add("--validation-negative-batch-size", type=int, default=C.DEFAULT_VALIDATION_NEGATIVE_BATCH_SIZE)
+    add("--validation-samples", type=int, default=C.DEFAULT_VALIDATION_SAMPLES)
+    add("--validation-stream-negative-samples", type=int, default=0)
+    add("--testing-positive-samples", type=int, default=C.DEFAULT_TESTING_POSITIVE_SAMPLES)
+    add("--testing-adversarial-samples", type=int, default=C.DEFAULT_TESTING_ADVERSARIAL_SAMPLES)
+    add("--checkpoint-dir", default="./checkpoints")
+    add("--tts-backend", choices=["vits", "formant", "formant-device"], default=None)
+    add("--resume", action=argparse.BooleanOptionalAction, default=False)
+    add("--debug", action=argparse.BooleanOptionalAction, default=False)
+    add("--device", default="cuda", help="cuda (default) or cpu")
 
 
 def _predict(args: argparse.Namespace) -> int:
@@ -76,12 +188,8 @@ def _predict(args: argparse.Namespace) -> int:
 
 
 def _extract(args: argparse.Namespace) -> int:
-    from heybuddy_tpu_torch.data.extract import (
-        LabeledFeatureExtractor,
-        get_default_dataset_dir,
-        iter_hf_dataset,
-        iter_wav_files,
-    )
+    from heybuddy_tpu_torch.data.extract import LabeledFeatureExtractor, iter_hf_dataset, iter_wav_files
+    from heybuddy_tpu_torch.data.precalculated import get_default_dataset_dir
 
     extractor = LabeledFeatureExtractor(
         directory=args.directory or get_default_dataset_dir(),
@@ -112,10 +220,143 @@ def _extract(args: argparse.Namespace) -> int:
     return 0
 
 
+def _train(args: argparse.Namespace) -> int:
+    from heybuddy_tpu_torch.data.precalculated import PrecalculatedDatasetIterator
+    from heybuddy_tpu_torch.data.training import WakeWordTrainingDatasetIterator
+    from heybuddy_tpu_torch.training.trainer import WakeWordTrainer
+    from heybuddy_tpu_torch.utils.log import logger
+
+    if args.debug:
+        logger.setLevel(logging.DEBUG)
+    if args.prefix_negative_phrases or args.collision_swap_phrases:
+        raise NotImplementedError(
+            "--prefix-negative-phrases / --collision-swap-phrases derive adversarial texts for "
+            "feature generation, which is not ported yet"
+        )
+    phrase = args.phrase
+    phrases = [phrase] + list(args.additional_phrase)
+    phrase_arg: Any = phrases if len(phrases) > 1 else phrase
+    augment_config = {
+        option.replace("-", "_"): getattr(args, f"augmentation_{option.replace('-', '_')}")
+        for option, _, _ in _AUGMENT_OPTIONS
+    }
+    feature_kwargs: Dict[str, Any] = dict(
+        augment_config=augment_config,
+        phrase_augment_prob=args.augment_phrase_prob,
+        custom_adversarial_texts=list(args.adversarial_phrase_custom) or None,
+        tts_backend=args.tts_backend,
+        device=args.device,
+    )
+    # no hosted negative set at all with --training-no-default-dataset, even
+    # when a --training-dataset is given (it is appended below)
+    negative_batch_size = 0 if args.training_default_size == "none" else args.negative_batch_size
+    training = WakeWordTrainingDatasetIterator.default(
+        phrase_arg,
+        positive_samples=args.positive_samples,
+        adversarial_samples=args.adversarial_samples,
+        adversarial_phrases=args.adversarial_phrases,
+        positive_batch_size=args.positive_batch_size,
+        adversarial_batch_size=args.adversarial_batch_size,
+        negative_batch_size=negative_batch_size,
+        partial_samples=args.partial_samples,
+        partial_batch_size=args.partial_batch_size,
+        stream_negative_samples=args.stream_negative_samples,
+        collision_negative_samples=args.collision_negative_samples,
+        clean_positive_samples=args.clean_positive_samples,
+        reverb_positive_samples=args.reverb_positive_samples,
+        num_batch_threads=args.num_batch_threads,
+        large_negative_dataset=args.training_default_size == "large",
+        synthetic_negative_samples=args.synthetic_negative_samples,
+        **feature_kwargs,
+    )
+    if args.training_dataset is not None:
+        import numpy as np
+
+        if not os.path.isfile(args.training_dataset):
+            raise FileNotFoundError(f"--training-dataset {args.training_dataset} does not exist")
+        custom = PrecalculatedDatasetIterator(
+            os.path.splitext(os.path.basename(args.training_dataset))[0],
+            directory=os.path.dirname(os.path.abspath(args.training_dataset)),
+            labeled=np.load(args.training_dataset, mmap_mode="r").shape[1] == 17,
+            exclude_phrase=phrase,
+        )
+        training.negative.append((custom, C.DEFAULT_NEGATIVE_BATCH_SIZE))
+
+    validation = None
+    if args.validation_samples > 0:
+        validation = WakeWordTrainingDatasetIterator.validation(
+            phrase_arg,
+            validation_samples=args.validation_samples,
+            positive_batch_size=args.validation_positive_batch_size,
+            negative_batch_size=args.validation_negative_batch_size,
+            stream_negative_samples=args.validation_stream_negative_samples,
+            **feature_kwargs,
+        )
+    testing = None
+    if args.testing_positive_samples > 0 or args.testing_adversarial_samples > 0:
+        testing = WakeWordTrainingDatasetIterator.testing(
+            phrase_arg,
+            positive_samples=args.testing_positive_samples,
+            adversarial_samples=args.testing_adversarial_samples,
+            **feature_kwargs,
+        )
+
+    trainer = WakeWordTrainer(
+        checkpoint_dir=args.checkpoint_dir,
+        learning_rate=args.learning_rate,
+        architecture=args.architecture,
+        layer_dim=args.layer_dim,
+        num_layers=args.num_layers,
+        num_heads=args.num_heads,
+        use_gating=args.use_gating,
+        use_half_layers=args.use_half_layers,
+        device=args.device,
+    )
+    name = "-".join(phrase.split())
+    if args.resume:
+        trainer.resume(name)
+    trainer(
+        training,
+        validation=validation,
+        testing=testing,
+        num_steps=args.steps,
+        num_stages=args.stages,
+        max_negative_weight=args.negative_weight,
+        logging_steps=args.logging_steps,
+        validation_steps=args.validation_steps,
+        checkpoint_steps=args.checkpoint_steps,
+        target_false_positive_rate=args.target_false_positive_rate,
+        validation_gate_consecutive=args.validation_gate_consecutive,
+        dynamic_negative_weight=args.dynamic_negative_weight,
+        learning_rate=args.learning_rate,
+        high_loss_threshold=args.high_loss_threshold,
+        activation_threshold=args.threshold,
+        wandb_entity=args.wandb_entity,
+        name=name,
+    )
+    print(f"Training complete; final checkpoint: {trainer.checkpoint_dir}/{name}_final.npz")
+    return 0
+
+
+def _convert(args: argparse.Namespace) -> int:
+    from heybuddy_tpu_torch.export.onnx_export import export_mlp_model
+    from heybuddy_tpu_torch.models.wakeword import read_checkpoint
+
+    config, params = read_checkpoint(args.checkpoint)
+    if config["architecture"] != "perceptron":
+        raise NotImplementedError(
+            "ONNX export currently supports the perceptron architecture; "
+            "use architecture='perceptron' for browser deployment."
+        )
+    output = args.output or os.path.splitext(args.checkpoint)[0] + ".onnx"
+    export_mlp_model(params, config, output, opset_version=args.opset_version)
+    print(f"Wrote {output}")
+    return 0
+
+
+_COMMANDS = {"train": _train, "convert": _convert, "predict": _predict, "extract": _extract}
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
-    if args.command == "predict":
-        return _predict(args)
-    if args.command == "extract":
-        return _extract(args)
-    raise AssertionError(args.command)
+    return _COMMANDS[args.command](args)

@@ -1,10 +1,12 @@
 """
-Constants of the serving path (featurization and the wake-word head).
+Constants of the port: featurization, the wake-word head and its training.
 
 A copy of the values in the JAX package's ``constants.py`` that this package
-uses: the audio/feature contract, the mel geometry, the embedding windows and
-the default activation threshold. The port keeps its own copy so that it never
-imports the JAX package.
+uses: the audio/feature contract, the mel geometry, the embedding windows,
+the default activation threshold, the model, training and dataset defaults,
+the augmentation defaults of ``train`` and the TTS provenance tags (the JAX
+package keeps the last three in its TTS modules). The port keeps its own copy
+so that it never imports the JAX package.
 """
 
 # --- audio / feature contract -------------------------------------------------
@@ -36,3 +38,74 @@ AUDIO_WINDOW_STRIDE = 1920
 FEATURE_FRAMES = 16
 
 DEFAULT_ACTIVATION_THRESHOLD = 0.50
+
+# --- model defaults -----------------------------------------------------------
+DEFAULT_ARCHITECTURE = "perceptron"
+DEFAULT_USE_GATING = True
+DEFAULT_USE_HALF_LAYERS = False
+DEFAULT_LAYER_DIM = 96
+DEFAULT_LAYERS = 2
+DEFAULT_HEADS = 1
+
+# --- training schedule --------------------------------------------------------
+DEFAULT_STEPS = 5000
+DEFAULT_WARMUP_STEPS = int(DEFAULT_STEPS / 5.0)
+DEFAULT_HOLD_STEPS = int(DEFAULT_STEPS / 3.0)
+DEFAULT_STAGES = 3
+DEFAULT_TARGET_FALSE_POSITIVE_RATE = 1.5  # per hour
+DEFAULT_DYNAMIC_NEGATIVE_WEIGHT = True
+DEFAULT_NEGATIVE_WEIGHT_ADJUST_RATIO = 2.0
+DEFAULT_STEP_ADJUST_RATIO = 2.0
+DEFAULT_BATCH_SIZE_ADJUST_RATIO = 0.5
+DEFAULT_LEARNING_RATE_ADJUST_RATIO = 0.5
+DEFAULT_LEARNING_RATE = 0.001
+DEFAULT_NEGATIVE_WEIGHT = 1.0
+DEFAULT_HIGH_LOSS_THRESHOLD = 0.0001
+DEFAULT_LOGGING_STEPS = 1
+DEFAULT_VALIDATION_STEPS = 250
+DEFAULT_CHECKPOINT_STEPS = 5000
+DEFAULT_ACCUMULATION_TARGET = 128  # optimizer steps fire once >=128 hard examples
+
+# --- data scale ---------------------------------------------------------------
+DEFAULT_POSITIVE_SAMPLES = 100000
+DEFAULT_POSITIVE_BATCH_SIZE = 50
+DEFAULT_ADVERSARIAL_SAMPLES = 100000
+DEFAULT_ADVERSARIAL_BATCH_SIZE = 50
+DEFAULT_ADVERSARIAL_PHRASES = 250
+DEFAULT_NEGATIVE_BATCH_SIZE = 1000
+DEFAULT_BATCH_THREADS = 12
+DEFAULT_VALIDATION_NEGATIVE_BATCH_SIZE = 1000
+DEFAULT_VALIDATION_POSITIVE_BATCH_SIZE = 50
+DEFAULT_VALIDATION_SAMPLES = 25000
+DEFAULT_TESTING_POSITIVE_SAMPLES = 25000
+DEFAULT_TESTING_ADVERSARIAL_SAMPLES = 25000
+DEFAULT_PARTIAL_BATCH_SIZE = 25
+# the runtime's window stride in samples (0.12 s): stream-window caches hold
+# their rows in temporal order at this stride
+RUNTIME_WINDOW_STRIDE = 1920
+
+# --- the augmentation options of `train` (they matter only to generation) -----
+DEFAULT_AUGMENT_SEVEN_BAND_PROB = 0.25
+DEFAULT_AUGMENT_SEVEN_BAND_GAIN_DB = 6.0
+DEFAULT_AUGMENT_TANH_DISTORTION_PROB = 0.25
+DEFAULT_AUGMENT_TANH_MIN_DISTORTION = 1e-4
+DEFAULT_AUGMENT_TANH_MAX_DISTORTION = 0.1
+DEFAULT_AUGMENT_PITCH_SHIFT_PROB = 0.25
+DEFAULT_AUGMENT_PITCH_SHIFT_SEMITONES = 3
+DEFAULT_AUGMENT_BAND_STOP_PROB = 0.25
+DEFAULT_AUGMENT_COLORED_NOISE_PROB = 0.25
+DEFAULT_AUGMENT_COLORED_NOISE_MIN_SNR_DB = 10.0
+DEFAULT_AUGMENT_COLORED_NOISE_MAX_SNR_DB = 30.0
+DEFAULT_AUGMENT_COLORED_NOISE_MIN_F_DECAY = -1.0
+DEFAULT_AUGMENT_COLORED_NOISE_MAX_F_DECAY = 2.0
+DEFAULT_AUGMENT_BACKGROUND_NOISE_PROB = 0.75
+DEFAULT_AUGMENT_BACKGROUND_NOISE_MIN_SNR_DB = -10.0
+DEFAULT_AUGMENT_BACKGROUND_NOISE_MAX_SNR_DB = 15.0
+DEFAULT_AUGMENT_GAIN_PROB = 1.0
+DEFAULT_AUGMENT_REVERB_PROB = 0.75
+DEFAULT_AUGMENT_PHRASE_PROB = 0.75
+
+# --- provenance tags of synthesized caches (the feature-space sidecar's "tts") -
+FORMANT_VERSION = 2
+SAMPLING_VERSION = 2
+DEVICE_FORMANT_VERSION = 1

@@ -1,12 +1,14 @@
 """
-Weight bridge: the JAX package's parameter trees, as numpy arrays, into the
-port's modules.
+Weight bridge between the JAX package's parameter trees, as numpy arrays, and
+the port's modules, both ways.
 
 Both packages keep parameters in the same tree (dense weights stored
 (in, out), lists for repeated blocks), and the port's module attribute names
 follow it, so the flat key ``trunk/0/up/w`` is the state-dict key
 ``trunk.0.up.w``. With the same arrays in, both packages compute the same
-function, which is what the parity tests rely on.
+function, which is what the parity tests rely on. The reverse bridge gives a module's
+parameters back as that tree; checkpoints and the ONNX exporter are written
+from it.
 """
 
 from __future__ import annotations
@@ -15,10 +17,26 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch import nn
 
-from heybuddy_tpu_torch.models.embedding_net import EmbeddingNet, EmbeddingNetConfig, flatten_params
+from heybuddy_tpu_torch.models.embedding_net import (
+    EmbeddingNet,
+    EmbeddingNetConfig,
+    flatten_params,
+    unflatten_params,
+)
 
-__all__ = ["state_from_numpy", "embedding_params_from_numpy", "wakeword_params_from_numpy"]
+__all__ = [
+    "state_from_numpy",
+    "embedding_params_from_numpy",
+    "wakeword_params_from_numpy",
+    "wakeword_params_to_numpy",
+    "restore_empty_lists",
+]
+
+# the list-valued nodes of each wake-word architecture: an empty list leaves
+# no key in the flat layout, so it is restored by name
+_LIST_NODES = {"perceptron": ("half_layers", "layers"), "transformer": ("blocks",)}
 
 
 def state_from_numpy(tree: Any) -> Dict[str, torch.Tensor]:
@@ -57,3 +75,18 @@ def embedding_params_from_numpy(tree: Any) -> EmbeddingNet:
 def wakeword_params_from_numpy(tree: Any) -> Dict[str, torch.Tensor]:
     """JAX wake-word parameter tree (numpy) -> state dict of ``WakeWordMLPModel``."""
     return state_from_numpy(tree)
+
+
+def restore_empty_lists(tree: Dict[str, Any], architecture: str) -> Dict[str, Any]:
+    """Put back the empty ``half_layers`` / ``layers`` / ``blocks`` lists a flat layout drops."""
+    for name in _LIST_NODES[architecture]:
+        tree.setdefault(name, [])
+    return tree
+
+
+def wakeword_params_to_numpy(model: nn.Module) -> Dict[str, Any]:
+    """A wake-word module's parameters as the JAX parameter tree of float32 numpy arrays."""
+    tree = unflatten_params(
+        {k: np.asarray(v, dtype=np.float32) for k, v in flatten_params(model).items()}
+    )
+    return restore_empty_lists(tree, model.architecture)

@@ -25,28 +25,7 @@ from heybuddy_tpu_torch.utils.codecs import read_wav_any
 from heybuddy_tpu_torch.utils.log import logger
 from heybuddy_tpu_torch.utils.npy import AppendableNpyFile
 
-__all__ = [
-    "LabeledFeatureExtractor",
-    "iter_hf_dataset",
-    "iter_wav_files",
-    "get_cache_dir",
-    "get_default_dataset_dir",
-]
-
-
-def get_cache_dir(subdir: str = "") -> str:
-    """``HEYBUDDY_CACHE_DIR`` (default ``~/.cache/heybuddy-tpu``) / ``subdir``, created."""
-    base = os.environ.get(
-        "HEYBUDDY_CACHE_DIR", os.path.join(os.path.expanduser("~"), ".cache", "heybuddy-tpu")
-    )
-    path = os.path.join(base, subdir) if subdir else base
-    os.makedirs(path, exist_ok=True)
-    return path
-
-
-def get_default_dataset_dir() -> str:
-    """Where feature shards go: ``HEYBUDDY_DATASET_DIR``, else the cache's ``precalculated``."""
-    return os.environ.get("HEYBUDDY_DATASET_DIR") or get_cache_dir("precalculated")
+__all__ = ["LabeledFeatureExtractor", "iter_hf_dataset", "iter_wav_files"]
 
 
 def iter_hf_dataset(

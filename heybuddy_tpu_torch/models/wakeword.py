@@ -1,21 +1,33 @@
 """
-The wake-word head and audio-level prediction.
+The wake-word heads, their checkpoints and audio-level prediction.
 
-Counterpart of the JAX package's ``models/wakeword.py`` for the
-``perceptron`` architecture: ``WakeWordMLPModel`` flattens (batch, 16, 96)
-features -> LayerNorm -> gated MLP -> optional 16 half-layer branches on
-striped frame subsets -> N x [LayerNorm + gated MLP] -> LayerNorm -> gated
-MLP -> sigmoid. LayerNorm is float32 with eps 1e-5; the small products stay
-``torch.matmul`` in float32 (TF32 off), as the JAX head leaves them to XLA.
+Counterpart of the JAX package's ``models/wakeword.py``:
 
-``load_model`` reads the flat npz checkpoint with its ``__config__``; a
-``transformer`` checkpoint is not yet ported and raises.
+* ``WakeWordMLPModel`` (``perceptron``) flattens (batch, 16, 96) features ->
+  LayerNorm -> gated MLP -> optional 16 half-layer branches on striped frame
+  subsets -> N x [LayerNorm + gated MLP] -> LayerNorm -> gated MLP -> sigmoid.
+* ``WakeWordTransformerModel`` (``transformer``): linear-in -> LayerNorm ->
+  activation -> N pre-norm blocks (attention with LayerNorm on the queries
+  and keys and softmax scale 1.0, gated FFN with hidden width a multiple of
+  18) -> an affine-free norm over the 16 frames (eps 1e-6) -> one
+  zero-initialised linear per channel -> sigmoid -> max over the channels.
+
+LayerNorm is float32 (eps 1e-5 unless stated); the small products stay
+``torch.matmul`` in float32 (TF32 off), as the JAX heads leave them to XLA.
+``forward(x, train=True, generator=g)`` applies the input dropout of
+training with draws from ``g``, an explicit ``torch.Generator`` on the
+model's device (``jax.random``'s draws cannot be reproduced).
+
+Checkpoints are the JAX package's flat npz: ``a/0/b`` keys in the JAX
+parameter tree's layout (dense weights (in, out)) plus ``__config__``, so a
+checkpoint written by either package loads in the other.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, List, Optional, Tuple
+import os
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,15 +36,28 @@ from torch import nn
 from heybuddy_tpu_torch.constants import (
     CLIP_SAMPLES,
     DEFAULT_ACTIVATION_THRESHOLD,
+    DEFAULT_HEADS,
+    DEFAULT_LAYER_DIM,
+    DEFAULT_LAYERS,
+    DEFAULT_USE_GATING,
+    DEFAULT_USE_HALF_LAYERS,
     EMBEDDING_DIM,
     FEATURE_FRAMES,
     SAMPLE_RATE,
 )
-from heybuddy_tpu_torch.convert import wakeword_params_from_numpy
+from heybuddy_tpu_torch.convert import restore_empty_lists, wakeword_params_from_numpy, wakeword_params_to_numpy
 from heybuddy_tpu_torch.device import DeviceLike, resolve_device
-from heybuddy_tpu_torch.models.embedding_net import unflatten_params
+from heybuddy_tpu_torch.models.embedding_net import flatten_params, unflatten_params
 
-__all__ = ["WakeWordMLPModel", "load_model", "HALF_LAYER_INDICES", "get_normalized_dim"]
+__all__ = [
+    "WakeWordMLPModel",
+    "WakeWordTransformerModel",
+    "load_model",
+    "save_model",
+    "read_checkpoint",
+    "HALF_LAYER_INDICES",
+    "get_normalized_dim",
+]
 
 ACTIVATIONS = {
     "relu": torch.relu,
@@ -73,16 +98,19 @@ def get_normalized_dim(dim: int, multiple_of: int = 8, down_ratio: float = 2 / 3
 
 
 class _Linear(nn.Module):
-    """x @ w + b, w stored (in, out) as in the JAX tree; torch default init."""
+    """x @ w (+ b), w stored (in, out) as in the JAX tree; torch default init."""
 
-    def __init__(self, fan_in: int, fan_out: int, generator: torch.Generator) -> None:
+    def __init__(self, fan_in: int, fan_out: int, generator: torch.Generator, bias: bool = True) -> None:
         super().__init__()
         bound = 1.0 / np.sqrt(fan_in)
         self.w = nn.Parameter(torch.empty(fan_in, fan_out).uniform_(-bound, bound, generator=generator))
-        self.b = nn.Parameter(torch.empty(fan_out).uniform_(-bound, bound, generator=generator))
+        self.b = (
+            nn.Parameter(torch.empty(fan_out).uniform_(-bound, bound, generator=generator)) if bias else None
+        )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.w) + self.b
+        out = torch.matmul(x, self.w)
+        return out if self.b is None else out + self.b
 
 
 class _LayerNorm(nn.Module):
@@ -93,19 +121,24 @@ class _LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = xf.var(dim=-1, keepdim=True, unbiased=False)
-        return (xf - mean) * torch.rsqrt(var + self.eps) * self.g + self.b
+        return _normalize(x, self.eps) * self.g + self.b
+
+
+def _normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """(x - mean) / sqrt(var + eps) over the last axis, in float32."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return (xf - mean) * torch.rsqrt(var + eps)
 
 
 class _GatedMLP(nn.Module):
     def __init__(
         self, input_dim: int, hidden_dim: int, output_dim: int, gated: bool,
-        activation: str, generator: torch.Generator,
+        activation: str, generator: torch.Generator, multiple_of: int = 8,
     ) -> None:
         super().__init__()
-        hidden_dim = get_normalized_dim(hidden_dim)
+        hidden_dim = get_normalized_dim(hidden_dim, multiple_of)
         self.hidden = _Linear(input_dim, hidden_dim, generator)
         self.output = _Linear(hidden_dim, output_dim, generator)
         self.gate = _Linear(input_dim, hidden_dim, generator) if gated else None
@@ -126,6 +159,14 @@ class _NormMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.mlp(self.norm(x))
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with draws from ``generator``; identity without one."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class WakeWordInferenceMixin:
@@ -219,10 +260,10 @@ class WakeWordMLPModel(WakeWordInferenceMixin, nn.Module):
     def __init__(
         self,
         input_shape: Tuple[int, int] = (FEATURE_FRAMES, EMBEDDING_DIM),
-        layer_dim: int = 96,
-        num_layers: int = 2,
-        use_gating: bool = True,
-        use_half_layers: bool = False,
+        layer_dim: int = DEFAULT_LAYER_DIM,
+        num_layers: int = DEFAULT_LAYERS,
+        use_gating: bool = DEFAULT_USE_GATING,
+        use_half_layers: bool = DEFAULT_USE_HALF_LAYERS,
         dropout: float = 0.1,
         activation: str = "silu",
         params: Optional[Any] = None,
@@ -275,8 +316,12 @@ class WakeWordMLPModel(WakeWordInferenceMixin, nn.Module):
             "activation": self.activation,
         }
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         x = x.float()
+        if train:
+            x = _dropout(x, self.dropout, generator)
         b = x.shape[0]
         states = self.mlp_in(self.norm_in(x.reshape(b, -1)))
         for idx, half in zip(self._half_idx, self.half_layers):
@@ -285,25 +330,195 @@ class WakeWordMLPModel(WakeWordInferenceMixin, nn.Module):
             states = layer(states)
         return torch.sigmoid(self.mlp_out(self.norm_out(states)))
 
+    def save_onnx(self, path: str, opset_version: int = 19) -> None:
+        from heybuddy_tpu_torch.export.onnx_export import export_mlp_model
 
-def load_model(path: str, device: DeviceLike = "cuda") -> WakeWordMLPModel:
-    """Load a checkpoint npz (flat parameters + ``__config__``) onto ``device``."""
+        export_mlp_model(wakeword_params_to_numpy(self), self.config(), path, opset_version)
+
+
+class _Attention(nn.Module):
+    """Bias-free q/k/v/output projections, LayerNorm on q and k, softmax scale 1.0."""
+
+    def __init__(self, dim: int, num_heads: int, generator: torch.Generator) -> None:
+        super().__init__()
+        inner = (dim // num_heads) * num_heads
+        self.num_heads = num_heads
+        self.queries = _Linear(dim, inner, generator, bias=False)
+        self.keys = _Linear(dim, inner, generator, bias=False)
+        self.values = _Linear(dim, inner, generator, bias=False)
+        self.output = _Linear(inner, dim, generator, bias=False)
+        self.query_norm = _LayerNorm(inner)
+        self.key_norm = _LayerNorm(inner)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, s, _ = x.shape
+
+        def heads(t: torch.Tensor) -> torch.Tensor:
+            return t.reshape(b, s, self.num_heads, -1).transpose(1, 2)
+
+        q = heads(self.query_norm(self.queries(x)))
+        k = heads(self.key_norm(self.keys(x)))
+        v = heads(self.values(x))
+        # the reference's scale_by_num_heads=False: no 1/sqrt(d) on the logits
+        weights = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)
+        out = torch.matmul(weights, v).transpose(1, 2).reshape(b, s, -1)
+        return self.output(out)
+
+
+class _TransformerBlock(nn.Module):
+    def __init__(
+        self, dim: int, num_heads: int, multiple_of: int, norm_epsilon: float,
+        activation: str, generator: torch.Generator,
+    ) -> None:
+        super().__init__()
+        self.attention_norm = _LayerNorm(dim, norm_epsilon)
+        self.attention = _Attention(dim, num_heads, generator)
+        self.feed_forward_norm = _LayerNorm(dim, norm_epsilon)
+        self.feed_forward = _GatedMLP(dim, dim * 4, dim, True, activation, generator, multiple_of)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attention(self.attention_norm(x))
+        return x + self.feed_forward(self.feed_forward_norm(x))
+
+
+class _FinalLayer(nn.Module):
+    """Affine-free norm over the frames, then one (frames -> 1) linear, zero-initialised."""
+
+    def __init__(self, frames: int) -> None:
+        super().__init__()
+        self.fc = _Linear(frames, 1, torch.Generator())
+        with torch.no_grad():
+            self.fc.w.zero_()
+            self.fc.b.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # (b, frames, dim) -> (b, dim, frames): one logit per channel
+        return self.fc(_normalize(x.transpose(1, 2), 1e-6))[:, :, 0]
+
+
+class WakeWordTransformerModel(WakeWordInferenceMixin, nn.Module):
+    """Transformer wake-word classifier: (batch, 16, 96) -> (batch, 1) probability."""
+
+    architecture = "transformer"
+
+    def __init__(
+        self,
+        input_shape: Tuple[int, int] = (FEATURE_FRAMES, EMBEDDING_DIM),
+        dim: int = DEFAULT_LAYER_DIM,
+        num_layers: int = DEFAULT_LAYERS,
+        num_heads: int = DEFAULT_HEADS,
+        multiple_of: int = 18,
+        norm_epsilon: float = 1e-5,
+        dropout: float = 0.1,
+        activation: str = "silu",
+        params: Optional[Any] = None,
+        seed: int = 0,
+        device: DeviceLike = "cuda",
+    ) -> None:
+        nn.Module.__init__(self)
+        self.input_shape = tuple(input_shape)
+        frames, input_dim = input_shape
+        self.dim = dim
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.multiple_of = multiple_of
+        self.norm_epsilon = norm_epsilon
+        self.dropout = dropout
+        self.activation = activation
+        gen = torch.Generator().manual_seed(seed)
+        self.linear_in = _Linear(input_dim, dim, gen)
+        self.layernorm = _LayerNorm(dim)
+        self.blocks = nn.ModuleList(
+            _TransformerBlock(dim, num_heads, multiple_of, norm_epsilon, activation, gen)
+            for _ in range(num_layers)
+        )
+        self.final = _FinalLayer(frames)
+        self.act = ACTIVATIONS[activation]
+        if params is not None:
+            self.load_state_dict(wakeword_params_from_numpy(params), strict=True)
+        self.device = resolve_device(device)
+        self.to(self.device).eval()
+
+    def config(self) -> Dict[str, Any]:
+        return {
+            "architecture": self.architecture,
+            "input_shape": list(self.input_shape),
+            "layer_dim": self.dim,
+            "num_layers": self.num_layers,
+            "num_heads": self.num_heads,
+            "multiple_of": self.multiple_of,
+            "norm_epsilon": self.norm_epsilon,
+            "dropout": self.dropout,
+            "activation": self.activation,
+        }
+
+    def forward(
+        self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        x = x.float()
+        if train:
+            x = _dropout(x, self.dropout, generator)
+        x = self.act(self.layernorm(self.linear_in(x)))
+        for block in self.blocks:
+            x = block(x)
+        probs = torch.sigmoid(self.final(x))  # (b, dim)
+        return probs.amax(dim=1, keepdim=True)
+
+    def save_onnx(self, path: str, opset_version: int = 19) -> None:
+        raise NotImplementedError(
+            "ONNX export currently supports the perceptron architecture; "
+            "use architecture='perceptron' for browser deployment."
+        )
+
+
+ModelType = Union[WakeWordMLPModel, WakeWordTransformerModel]
+
+
+def save_model(model: ModelType, path: str) -> None:
+    """Write the flat parameters and ``__config__`` to one npz (the JAX package's layout)."""
+    flat = flatten_params(wakeword_params_to_numpy(model))
+    flat["__config__"] = np.frombuffer(json.dumps(model.config()).encode("utf-8"), dtype=np.uint8)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
+    if not path.endswith(".npz") and os.path.exists(path + ".npz"):
+        os.replace(path + ".npz", path)
+
+
+def read_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A checkpoint npz as (config, numpy parameter tree); no torch tensors, no device."""
     with np.load(path) as loaded:
         config = json.loads(bytes(loaded["__config__"]).decode("utf-8"))
         flat = {k: np.asarray(loaded[k]) for k in loaded.files if k != "__config__"}
+    return config, restore_empty_lists(unflatten_params(flat), config["architecture"])
+
+
+def load_model(path: str, device: DeviceLike = "cuda") -> ModelType:
+    """Load a checkpoint npz (either architecture) onto ``device``."""
+    config, params = read_checkpoint(path)
     arch = config.pop("architecture")
+    if arch == "perceptron":
+        return WakeWordMLPModel(
+            input_shape=tuple(config["input_shape"]),
+            layer_dim=config["layer_dim"],
+            num_layers=config["num_layers"],
+            use_gating=config["use_gating"],
+            use_half_layers=config["use_half_layers"],
+            dropout=config.get("dropout", 0.1),
+            activation=config.get("activation", "silu"),
+            params=params,
+            device=device,
+        )
     if arch == "transformer":
-        raise NotImplementedError("the transformer wake-word head is not yet ported")
-    if arch != "perceptron":
-        raise ValueError(f"Unknown architecture in checkpoint: {arch}")
-    return WakeWordMLPModel(
-        input_shape=tuple(config["input_shape"]),
-        layer_dim=config["layer_dim"],
-        num_layers=config["num_layers"],
-        use_gating=config["use_gating"],
-        use_half_layers=config["use_half_layers"],
-        dropout=config.get("dropout", 0.1),
-        activation=config.get("activation", "silu"),
-        params=unflatten_params(flat),
-        device=device,
-    )
+        return WakeWordTransformerModel(
+            input_shape=tuple(config["input_shape"]),
+            dim=config["layer_dim"],
+            num_layers=config["num_layers"],
+            num_heads=config.get("num_heads", DEFAULT_HEADS),
+            multiple_of=config.get("multiple_of", 18),
+            norm_epsilon=config.get("norm_epsilon", 1e-5),
+            dropout=config.get("dropout", 0.1),
+            activation=config.get("activation", "silu"),
+            params=params,
+            device=device,
+        )
+    raise ValueError(f"Unknown architecture in checkpoint: {arch}")

@@ -14,6 +14,7 @@ for name in names:
     if not name.endswith("__main__"):  # running it would parse argv
         importlib.import_module(name)
 import chip_smoke  # the chip check imports the port only
+import step_calibration  # and so does its calibration of the transformer step
 jax_like = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 reference = sorted(m for m in sys.modules if m == "heybuddy_tpu" or m.startswith("heybuddy_tpu."))
 print(len(names), jax_like, reference)

@@ -60,10 +60,74 @@ def test_weight_bridge_with_half_layers(activation):
 
 
 def test_transformer_checkpoint_is_not_ported(tmp_path):
+    """A JAX transformer checkpoint loads in the port; its ONNX export is what
+    is not ported (the JAX package has none either)."""
     path = str(tmp_path / "transformer.npz")
     jax_wakeword.WakeWordTransformerModel(dim=16, num_layers=1).save(path)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        wakeword.load_model(path, device="cpu")
+    model = wakeword.load_model(path, device="cpu")
+    assert isinstance(model, wakeword.WakeWordTransformerModel)
+    with pytest.raises(NotImplementedError, match="perceptron architecture"):
+        model.save_onnx(str(tmp_path / "transformer.onnx"))
+
+
+@pytest.mark.parametrize(
+    "options",
+    [
+        dict(dim=96, num_layers=2, num_heads=1),
+        dict(dim=32, num_layers=1, num_heads=2, activation="gelu"),
+        dict(dim=24, num_layers=3, num_heads=3, multiple_of=8, norm_epsilon=1e-6),
+    ],
+)
+def test_transformer_matches_jax_apply(options):
+    jax_model = jax_wakeword.WakeWordTransformerModel(seed=7, **options)
+    # the zero-initialised final layer makes every score 0.5: give it weights
+    params = jax.tree_util.tree_map(np.asarray, jax_model.params)
+    rng = np.random.default_rng(8)
+    params["final"]["fc"]["w"] = rng.normal(0.0, 0.15, params["final"]["fc"]["w"].shape).astype(np.float32)
+    params["final"]["fc"]["b"] = np.asarray([-2.0], np.float32)
+    model = wakeword.WakeWordTransformerModel(params=params, device="cpu", **options)
+    assert model.config() == jax_model.config()
+    x = _features(43, 6)
+    ref = np.asarray(jax_model.apply(params, x, train=False))
+    got = model(torch.from_numpy(x)).detach().numpy()
+    assert got.shape == ref.shape == (6, 1)
+    assert np.ptp(ref) > 0.01
+    np.testing.assert_allclose(got, ref, atol=HEAD_ATOL)
+
+
+@pytest.mark.parametrize("architecture", ["perceptron", "transformer"])
+def test_checkpoints_load_both_ways(tmp_path, architecture):
+    if architecture == "perceptron":
+        jax_model = jax_wakeword.WakeWordMLPModel(layer_dim=32, num_layers=0, use_half_layers=True, seed=1)
+    else:
+        jax_model = jax_wakeword.WakeWordTransformerModel(dim=24, num_layers=2, num_heads=2, seed=1)
+    x = _features(44, 4)
+    jax_path, port_path = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    jax_model.save(jax_path)
+    model = wakeword.load_model(jax_path, device="cpu")
+    assert model.config() == jax_model.config()
+    np.testing.assert_allclose(model(torch.from_numpy(x)).detach().numpy(), np.asarray(jax_model(x)),
+                               atol=HEAD_ATOL)
+    wakeword.save_model(model, port_path)
+    back = jax_wakeword.load_model(port_path)
+    assert back.config() == jax_model.config()
+    for a, b in zip(jax.tree_util.tree_leaves(back.params), jax.tree_util.tree_leaves(jax_model.params)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    with np.load(jax_path) as a, np.load(port_path) as b:
+        assert sorted(a.files) == sorted(b.files)
+
+
+def test_dropout_draws_from_the_generator():
+    model = wakeword.WakeWordMLPModel(layer_dim=16, num_layers=1, dropout=0.5, device="cpu")
+    x = torch.from_numpy(_features(45, 64))
+    first = model(x, train=True, generator=torch.Generator().manual_seed(3))
+    again = model(x, train=True, generator=torch.Generator().manual_seed(3))
+    other = model(x, train=True, generator=torch.Generator().manual_seed(4))
+    assert torch.equal(first, again) and not torch.equal(first, other)
+    assert torch.equal(model(x, train=True), model(x))  # no generator: no dropout
+    kept = wakeword._dropout(torch.ones(100000), 0.1, torch.Generator().manual_seed(0))
+    assert abs(float((kept == 0).float().mean()) - 0.1) < 0.005
+    assert set(torch.unique(kept).tolist()) == {0.0, float(np.float32(1.0) / np.float32(0.9))}
 
 
 @pytest.fixture(scope="module")
