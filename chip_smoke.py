@@ -20,7 +20,12 @@ through the CLI entry (the default head at full width, then a short
 ``--transformer`` run), a short trajectory of each head on the card against
 the CPU (and once more with TF32 on, which the limits must reject), one
 fired transformer step on the card against the CPU, ``convert`` run by the numpy ONNX runner against the card, and ``predict``
-with the new checkpoint. It checks what each path returns, times kernels and
+with the new checkpoint; then feature generation: one 512-clip batch's
+render, augmentation and pad-only features on the card against the CPU with
+the same draws, timed stage by stage, and ``train`` from an empty dataset
+directory on the fused ``formant-device`` route (K1 -> K2 once per batch of
+512) and on the host ``formant`` route, with both heads scored on the
+generated held-out caches. It checks what each path returns, times kernels and
 plain versions with CUDA events, prints one JSON line of kernel numbers and
 ends with one JSON line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero; it also fails without a CUDA device.
@@ -54,12 +59,17 @@ from heybuddy_tpu_torch.constants import (
     MEL_N_FFT,
 )
 from heybuddy_tpu_torch.convert import wakeword_params_to_numpy
+from heybuddy_tpu_torch.data.augmented import AugmentedAudioGenerator, NoiseProvider
 from heybuddy_tpu_torch.data.extract import LabeledFeatureExtractor
+from heybuddy_tpu_torch.data.features import TrainingFeaturesGenerator, autoconfigure_batch_sizes
 from heybuddy_tpu_torch.data.precalculated import PrecalculatedDatasetIterator
 from heybuddy_tpu_torch.data.space import active_space, write_space_sidecar
 from heybuddy_tpu_torch.data.training import WakeWordTrainingDatasetIterator
+from heybuddy_tpu_torch.data.tts_generator import SpeechSampleGenerator
 from heybuddy_tpu_torch.export.onnx_numpy import OnnxRunner
+from heybuddy_tpu_torch.models import formant_device as fd
 from heybuddy_tpu_torch.models.featurizer import SpeechEmbeddings, featurize_batch, get_speech_embeddings
+from heybuddy_tpu_torch.models.tts import get_tts_model
 from heybuddy_tpu_torch.models.wakeword import (
     WakeWordMLPModel,
     WakeWordTransformerModel,
@@ -71,6 +81,7 @@ from heybuddy_tpu_torch.ops.kernels import build
 from heybuddy_tpu_torch.ops.kernels import embedding_kernel as ek
 from heybuddy_tpu_torch.ops.kernels import featurize_kernel as fk
 from heybuddy_tpu_torch.ops.kernels import melspec_kernel as mk
+from heybuddy_tpu_torch.ops.augment import AugmentConfig, augment_batch, draw_augment, seeded_generator
 from heybuddy_tpu_torch.ops.melspec import mel_filterbank, num_frames
 from heybuddy_tpu_torch.ops.windows import embedding_window_starts
 from heybuddy_tpu_torch.text.tokens import BERTTokenizer
@@ -185,6 +196,31 @@ STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-6, 1e-4
 SCORE_TRAINED_ATOL = 1e-5
 # convert's ONNX head run by the numpy runner against the model on the card
 ONNX_ATOL = 1e-5
+
+# The generate phase: `train` from an empty dataset directory, generating its
+# caches on the card. The fused route (`--tts-backend formant-device`: host
+# plans, then render -> augment -> K1 -> K2 on the card in batches of 512) at
+# the widths of the path (the v8 embedding, 48000-sample renders of 100
+# harmonics, 23040-sample clips, the default augmentation); the counts cut
+# from 100,000 / 100,000 / 25,000 / 25,000 / 25,000 to these, one stage of
+# 1,000 steps. The default host `formant` route smaller still.
+GEN_PHRASE = "hey buddy"
+GEN_FUSED_ROWS = {"hey-buddy": 2048, "hey-buddy-adversarial": 2048, "hey-buddy-testing-validation": 512,
+                  "hey-buddy-testing": 512, "hey-buddy-adversarial-testing": 512}
+GEN_HOST_ROWS = {"hey-buddy": 256, "hey-buddy-adversarial": 256, "hey-buddy-testing-validation": 64}
+GEN_BATCH = 512  # the fused route's batch: the augment batch size (128), at least 512
+GEN_STEPS, GEN_HOST_STEPS = 1000, 250
+GEN_ADVERSARIAL_PHRASES = 250  # train's default
+GEN_PROFILE_ROWS = 1024  # clips generated under torch.profiler for the device's busy share
+# Renders held against the CPU: the first RENDER_CHECK of the 512 (each clip
+# renders alone, and the CPU takes about 0.1 s a clip), at 3x the CPU
+# render's own float32 error (against float64) and at most 1e-3 of the 0.7
+# peak, the CPU tests' bound against JAX's render
+RENDER_CHECK = 32
+RENDER_SPREAD, RENDER_CAP = 3.0, 1e-3 * 0.7
+# augment_batch on the card against the CPU with the same draws, on [-1, 1]
+# audio: the CPU tests' bound against JAX's chain (measured there: 8.9e-7)
+AUGMENT_ATOL = 1e-4
 
 
 def check(cond: bool, what: str) -> None:
@@ -779,6 +815,314 @@ def train_phase(net, dev: torch.device, tmp: str) -> Dict:
                         "onnx_err": onnx_err}}
 
 
+class GenLog(StageLog):
+    """``StageLog`` of a ``train`` run that generates its caches, plus the
+    generator's own records: per cache the fused batches, host-fallback
+    clips and classic featurize calls."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.fused: Dict[str, Tuple[int, int]] = {}
+        self.classic: Dict[str, int] = {}
+
+    def emit(self, record: logging.LogRecord) -> None:
+        super().emit(record)
+        msg = record.getMessage()
+        if m := re.match(r"Fused \d+ clips into (\S+)\.npy in (\d+) batch\(es\) of up to \d+; (\d+) host", msg):
+            self.fused[m[1]] = (int(m[2]), int(m[3]))
+        elif m := re.match(r"Featurized \d+ clips into (\S+)\.npy in (\d+) featurize call", msg):
+            self.classic[m[1]] = self.classic.get(m[1], 0) + int(m[2])
+
+
+def generate_route(label: str, backend: str, rows: Dict[str, int], steps: int, dev: torch.device,
+                   tmp: str) -> Dict:
+    """``train`` through the CLI entry from an empty dataset directory on the
+    ``backend`` route; checks the caches, the launch counts the batch sizes
+    give, and that the loss falls."""
+    data_dir = os.path.join(tmp, f"gen-{label}")
+    os.makedirs(data_dir)
+    argv = ["train", GEN_PHRASE, "--tts-backend", backend, "--positive-samples", str(rows["hey-buddy"]),
+            "--adversarial-samples", str(rows["hey-buddy-adversarial"]),
+            "--validation-samples", str(rows["hey-buddy-testing-validation"]),
+            "--testing-positive-samples", str(rows.get("hey-buddy-testing", 0)),
+            "--testing-adversarial-samples", str(rows.get("hey-buddy-adversarial-testing", 0)),
+            "--stages", "1", "--steps", str(steps), "--training-no-default-dataset",
+            "--checkpoint-dir", os.path.join(tmp, f"gen-{label}-ckpt"), "--device", dev.type]
+    saved = os.environ.get("HEYBUDDY_DATASET_DIR")
+    os.environ["HEYBUDDY_DATASET_DIR"] = data_dir
+    log, out = GenLog(), io.StringIO()
+    logger.addHandler(log)
+    try:
+        with contextlib.redirect_stdout(out):
+            t0 = time.time()
+            rc, launches = run_path(f"generate_{label}", lambda: cli_main(argv), ("mel_patches", "embedding_pool"))
+            total_s = time.time() - t0
+    finally:
+        logger.removeHandler(log)
+        if saved is None:
+            os.environ.pop("HEYBUDDY_DATASET_DIR", None)
+        else:
+            os.environ["HEYBUDDY_DATASET_DIR"] = saved
+    check(rc == 0 and "Training complete" in out.getvalue(), f"generate {label}: train failed")
+    check(log.steps() == [steps], f"generate {label}: stages {log.steps()}, expected [{steps}]")
+    gen_s = log.starts[0][0] - t0
+    clips = sum(rows.values())
+    shapes = {}
+    for name, n in rows.items():
+        data = np.load(os.path.join(data_dir, f"{name}.npy"))
+        shapes[name] = list(data.shape)
+        check(data.shape == (n, 16, 96) and bool(np.isfinite(data).all()),
+              f"generate {label}: cache {name} {data.shape}, expected ({n}, 16, 96), finite")
+    # the featurize calls the batch sizes give: per cache, the fused batches
+    # of its plans and one classic call per embed batch of host-fallback clips
+    embed = autoconfigure_batch_sizes(dev)["embed_batch_size"]
+    expected = 0
+    for name, n in rows.items():
+        batches, fallback = log.fused.get(name, (0, n))
+        want_batches = -(-(n - fallback) // GEN_BATCH) if backend == "formant-device" else 0
+        want_classic = -(-fallback // embed)
+        check(batches == want_batches and log.classic.get(name, 0) == want_classic,
+              f"generate {label}: {name} made {batches} fused batches and {log.classic.get(name, 0)} classic "
+              f"calls, expected {want_batches} and {want_classic} ({fallback} fallback clips)")
+        expected += want_batches + want_classic
+    check(launches == {"mel_patches": expected, "embedding_pool": expected},
+          f"generate {label}: launched {launches}, expected {expected} of K1 and of K2")
+    # the loss logged every 1/20 of the stage, from the trainer's own records
+    loss = np.array(log.losses)
+    head, tail = float(loss[:3].mean()), float(loss[-3:].mean())
+    check(bool(np.isfinite(loss).all()) and tail < head, f"generate {label}: the loss did not fall")
+    fallbacks = sum(f for _, f in log.fused.values())
+    print(f"generate {label} (train --tts-backend {backend}, empty dataset dir, {steps} steps): {clips} clips "
+          f"generated in {gen_s:.3f} s (host clock, from the command's start to its training's first stage) = "
+          f"{clips / gen_s:.1f} clips/s; whole command {total_s:.3f} s; caches {shapes}; launches {launches} "
+          f"(expected {expected}: fused batches {dict(sorted(log.fused.items()))}, classic calls "
+          f"{dict(sorted(log.classic.items()))}, {fallbacks} host-fallback clips); loss logged at {len(loss)} "
+          f"steps, mean of the first 3 {head:.5f}, of the last 3 {tail:.5f}")
+    print(f"generate {label}: logged losses {np.round(loss, 5).tolist()}")
+    return {"launches": launches, "data_dir": data_dir, "summary": {
+        "clips": clips, "generate_s": gen_s, "clips_per_s": clips / gen_s, "command_s": total_s,
+        "caches": shapes, "expected_launches": expected, "fallback_clips": fallbacks,
+        "loss_first3": head, "loss_last3": tail}}
+
+
+def heldout_phase(data_dir: str, dev: torch.device, tmp: str) -> Dict[str, Dict[str, float]]:
+    """Both heads on the fused route's generated caches: the default head
+    ``generate_route`` trained, and ``--transformer`` trained here on the same
+    caches; each scored on the held-out testing caches (positives against
+    their adversaries, the second pool of texts). Printed, not held: how far
+    the heads separate generated speech is a finding, not a check."""
+    ckpt_t = os.path.join(tmp, "gen-fused-transformer")
+    saved = os.environ.get("HEYBUDDY_DATASET_DIR")
+    os.environ["HEYBUDDY_DATASET_DIR"] = data_dir
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc, _ = run_path("generate_transformer", lambda: cli_main(
+                ["train", GEN_PHRASE, "--transformer", "--tts-backend", "formant-device",
+                 "--positive-samples", str(GEN_FUSED_ROWS["hey-buddy"]),
+                 "--adversarial-samples", str(GEN_FUSED_ROWS["hey-buddy-adversarial"]),
+                 "--validation-samples", str(GEN_FUSED_ROWS["hey-buddy-testing-validation"]),
+                 "--testing-positive-samples", "0", "--testing-adversarial-samples", "0", "--stages", "1",
+                 "--steps", str(GEN_STEPS), "--training-no-default-dataset", "--checkpoint-dir", ckpt_t,
+                 "--device", dev.type]), ())
+    finally:
+        if saved is None:
+            os.environ.pop("HEYBUDDY_DATASET_DIR", None)
+        else:
+            os.environ["HEYBUDDY_DATASET_DIR"] = saved
+    check(rc == 0, "train --transformer on the generated caches failed")
+    pos = np.load(os.path.join(data_dir, "hey-buddy-testing.npy"))
+    neg = np.load(os.path.join(data_dir, "hey-buddy-adversarial-testing.npy"))
+    out = {}
+    for label, ckpt in (("perceptron", os.path.join(tmp, "gen-fused-ckpt")), ("transformer", ckpt_t)):
+        model = load_model(os.path.join(ckpt, "hey-buddy_final.npz"), device=dev)
+        s_pos, s_neg = model.scores(pos), model.scores(neg)
+        check(bool(np.isfinite(s_pos).all() and np.isfinite(s_neg).all()), f"{label}: held-out scores")
+        out[label] = {"pos_mean": float(s_pos.mean()), "recall": float(np.mean(s_pos > 0.5)),
+                      "neg_mean": float(s_neg.mean()), "false_accepts": float(np.mean(s_neg > 0.5)),
+                      "spread": float(np.ptp(np.concatenate([s_pos, s_neg])))}
+        print(f"generate held-out ({len(pos)} testing positives, {len(neg)} testing adversaries, other seeds "
+              f"and texts than training) {label}: positives {out[label]['pos_mean']:.4f} (recall "
+              f"{out[label]['recall']:.4f}), adversaries {out[label]['neg_mean']:.4f} (false accepts "
+              f"{out[label]['false_accepts']:.4f}); all scores within {out[label]['spread']:.3e}")
+    return out
+
+
+def plain_pad_only(plans: List, breath: torch.Tensor, white: torch.Tensor, net, dtype: torch.dtype) -> torch.Tensor:
+    """The pad-only fused path's plain version on the CPU: the render, centring
+    and K1 -> K2 in ``dtype`` (float64: render, mel and trunk sums in double)."""
+    t = {k: torch.from_numpy(v) for k, v in fd.pack_plans(plans, fd.DEFAULT_MAX_SAMPLES).items()}
+    audio = fd.render(t["tracks"], t["table"], t["scale"], t["noise_scale"], t["length"], breath, white,
+                      l_max=fd.DEFAULT_MAX_SAMPLES, dtype=dtype)
+    staged = fd.center_place(audio[:, :CLIP] * (1.0 / 0.7), torch.clamp(t["length"], max=CLIP), CLIP)
+    patches, n = mk.mel_patches_plain((staged * 32767.0).float().contiguous(), accumulate=dtype)
+    return ek.fused_embedding_plain(net, patches, embedding_window_starts(CLIP), n, accumulate=dtype)
+
+
+def generate_phase(net, dev: torch.device, tmp: str) -> Dict:
+    """One 512-clip batch of each stage on the card against the CPU with the
+    same draws and timed; then ``train`` from an empty dataset directory on
+    the fused and on the host route; the device's busy share while
+    generating."""
+    cpu = torch.device("cpu")
+    cfg = AugmentConfig()
+    tts = get_tts_model("formant-device", device=dev)
+    # ---- one fused batch, stage by stage -----------------------------------------
+    speech = SpeechSampleGenerator(GEN_PHRASE, adversarial=True, num_adversarial_texts=GEN_ADVERSARIAL_PHRASES,
+                                   batch_size=128, seed=SEED, tts_backend="formant-device", device=dev)
+    t0 = time.perf_counter()
+    samples = list(speech(GEN_BATCH + 64, yield_plans=True))
+    plan_s = time.perf_counter() - t0
+    plans = [s["plan"] for s in samples if "plan" in s][:GEN_BATCH]
+    check(len(plans) == GEN_BATCH, f"{len(plans)} plans of {GEN_BATCH + 64} clips")
+    packed = fd.pack_plans(plans, fd.DEFAULT_MAX_SAMPLES)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in packed.items()}
+    breath, white = fd.clip_noise(packed["seeds"], fd.DEFAULT_MAX_SAMPLES, dev)
+
+    def render_card() -> torch.Tensor:
+        return fd.render(t["tracks"], t["table"], t["scale"], t["noise_scale"], t["length"], breath, white,
+                         l_max=fd.DEFAULT_MAX_SAMPLES, harmonics=tts.harmonics)
+
+    audio = render_card()
+    provider = NoiseProvider(seed=SEED)
+    noise_bank = torch.from_numpy(provider.noise_batch(GEN_BATCH, CLIP)).to(dev)
+    impulse_bank = torch.from_numpy(provider.impulse_batch(GEN_BATCH)).to(dev)
+    gen = seeded_generator(dev, SEED, 777, 0)
+    draws = draw_augment(gen, GEN_BATCH, CLIP, cfg, dev)
+    rows_n = torch.randint(0, GEN_BATCH, (GEN_BATCH,), generator=gen, device=dev)
+    rows_i = torch.randint(0, GEN_BATCH, (GEN_BATCH,), generator=gen, device=dev)
+    clip = (audio[:, :CLIP] * (1.0 / 0.7)).contiguous()
+    lengths = torch.clamp(t["length"], max=CLIP)
+    noise_rows, impulse_rows = noise_bank[rows_n], impulse_bank[rows_i]
+    staged = augment_batch(clip, lengths, noise_rows, impulse_rows, cfg, draws=draws)
+    pad_only = fd.fused_features_batch(plans, net, None, noise_bank, impulse_bank, cfg, pad_only=True,
+                                       noise=(breath, white))[0]
+    torch.cuda.synchronize()
+
+    # (a) the render: the first RENDER_CHECK clips against the CPU's, same draws
+    cpu_net = get_speech_embeddings(device="cpu").net
+    sub = {k: v[:RENDER_CHECK].cpu() for k, v in t.items()}
+    b_cpu, w_cpu = breath[:RENDER_CHECK].cpu(), white[:RENDER_CHECK].cpu()
+    cpu32, cpu64 = (fd.render(sub["tracks"], sub["table"], sub["scale"], sub["noise_scale"], sub["length"], b_cpu,
+                              w_cpu, l_max=fd.DEFAULT_MAX_SAMPLES, dtype=dt) for dt in (torch.float32, torch.float64))
+    spread = float((cpu32.double() - cpu64).abs().max())
+    render_limit = min(RENDER_SPREAD * spread, RENDER_CAP)
+    render_err = float((audio[:RENDER_CHECK].cpu() - cpu32).abs().max())
+    peaks = audio.abs().amax(dim=1)
+    print(f"generate render: {GEN_BATCH} plans x {fd.DEFAULT_MAX_SAMPLES} samples, {tts.harmonics} harmonics; the "
+          f"first {RENDER_CHECK} card vs CPU max |d| {render_err:.3e} (limit {render_limit:.3e}: {RENDER_SPREAD}x the "
+          f"CPU's float32-vs-float64 {spread:.3e}, at most {RENDER_CAP:.1e}); peaks {float(peaks.min()):.6f}-"
+          f"{float(peaks.max()):.6f}")
+    check(bool(torch.isfinite(audio).all()) and float((peaks - 0.7).abs().max()) < 1e-5, "render output")
+    check(render_err <= render_limit, "the render on the card disagrees with the CPU")
+    # (b) augment_batch at (512, 23040) against the CPU with the same draws and inputs
+    cpu_aug = augment_batch(clip.cpu(), lengths.cpu(), noise_rows.cpu(), impulse_rows.cpu(), cfg,
+                            draws={k: v.cpu() for k, v in draws.items()})
+    augment_err = float((staged.cpu() - cpu_aug).abs().max())
+    applied = {k: int(v.sum()) for k, v in draws.items() if k.endswith("_apply")}
+    print(f"generate augment_batch: ({GEN_BATCH}, {CLIP}) card vs CPU, same draws: max |d| {augment_err:.3e} "
+          f"(limit {AUGMENT_ATOL}); stages applied {applied}")
+    check(bool(torch.isfinite(staged).all()) and float(staged.abs().max()) <= 1.0, "augment output")
+    check(augment_err <= AUGMENT_ATOL, "augment_batch on the card disagrees with the CPU")
+    # (c) pad-only fused_features_batch against its plain version on the CPU (K2's rule)
+    ref = plain_pad_only(plans[:RENDER_CHECK], b_cpu, w_cpu, cpu_net, torch.float32)
+    ref64 = plain_pad_only(plans[:RENDER_CHECK], b_cpu, w_cpu, cpu_net, torch.float64)
+    pad_err, pad_limit = check_bf16("generate fused pad-only (card vs the CPU's render -> centring -> K1 -> K2, "
+                                    "plain f32 vs f64 throughout)", pad_only[:RENDER_CHECK].cpu(), ref, ref64)
+    check(pad_only.shape == (GEN_BATCH, 16, 96) and bool(torch.isfinite(pad_only).all()), "pad-only features")
+
+    # ---- stage times of one 512-clip batch ----------------------------------------
+    stage_ms = {
+        "noise_draws": cuda_ms(lambda: fd.clip_noise(packed["seeds"], fd.DEFAULT_MAX_SAMPLES, dev), 1, 5),
+        "render": cuda_ms(render_card, 1, 5),
+        "augment": cuda_ms(lambda: augment_batch(clip, lengths, noise_rows, impulse_rows, cfg, draws=draws), 2, 7),
+        "featurize": cuda_ms(lambda: featurize_batch(net, staged * 32767.0), 2, 7),
+        "fused_features_batch": cuda_ms(lambda: fd.fused_features_batch(
+            plans, net, seeded_generator(dev, SEED, 777, 1), noise_bank, impulse_bank, cfg), 1, 5),
+    }
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = fd.fused_features_batch(plans, net, seeded_generator(dev, SEED, 777, 2), noise_bank, impulse_bank,
+                                    cfg)[0].cpu()
+    batch_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(feats).all()), "fused features")
+    # The render's least work: per sample and harmonic the expression tree's
+    # 38 float32 operations (the harmonic's frequency, three formant
+    # Lorentzians, the nasal zero and murmur, the Nyquist gate, the
+    # accumulation and the sin recurrence), at the float32 peak; its bytes:
+    # the tracks, the noise table and the two noise draws read once, the
+    # audio written once.
+    render_ops = GEN_BATCH * fd.DEFAULT_MAX_SAMPLES * tts.harmonics * 38
+    render_bytes = (sum(v.numel() * v.element_size() for v in t.values()) + breath.numel() * 4
+                    + white.numel() * 4 + audio.numel() * 4)
+    render_bound = max(render_ops / PEAK_FP32, render_bytes / PEAK_BYTES) * 1e3
+    print(f"generate render bound: {render_ops / 1e9:.2f} GFLOP float32 -> {render_ops / PEAK_FP32 * 1e3:.3f} ms, "
+          f"{render_bytes / 1e6:.1f} MB -> {render_bytes / PEAK_BYTES * 1e3:.3f} ms; the eager render "
+          f"{stage_ms['render']:.3f} ms = {stage_ms['render'] / render_bound:.1f}x its bound")
+    print(f"generate stages of one {GEN_BATCH}-clip batch: host planning {plan_s:.3f} s for {len(samples)} clips "
+          f"(host clock, {len(samples) / plan_s:.1f} clips/s, one thread); CUDA events (median): "
+          f"{', '.join(f'{k} {v:.3f} ms' for k, v in stage_ms.items())}; one fused_features_batch to host features "
+          f"{batch_s * 1e3:.1f} ms (host clock)")
+
+    # ---- the host route's stages, one augment batch of 128 clips (host clock) ----
+    host_tts = get_tts_model("formant", device=dev)
+    texts = [s["phrase"] for s in samples[:128]]
+    speakers = [(i // 904, i % 904) for i in range(128)]
+    t0 = time.perf_counter()
+    host_audio = host_tts.synthesize_batch(texts, speakers, 0.25, 1.0, 0.667, 0.8, seed=SEED)
+    host_ms = {"tts": (time.perf_counter() - t0) * 1e3}
+    augmenter = AugmentedAudioGenerator(iter([]), config=cfg, batch_size=128, noise_provider=provider, seed=SEED,
+                                        device=dev)
+    clips = [augmenter._prepare_clip({"audio": {"array": a, "sampling_rate": 16000}}) for a in host_audio]
+    t0 = time.perf_counter()
+    provider.noise_batch(128, CLIP), provider.impulse_batch(128)
+    host_ms["noise_and_impulses"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    augmented = augmenter.execute_augment_batch(clips)
+    host_ms["augment_with_noise_and_copies"] = (time.perf_counter() - t0) * 1e3
+    embeddings = get_speech_embeddings(device=dev)
+    t0 = time.perf_counter()
+    host_feats = embeddings.featurize_device(augmented)[0].cpu()
+    host_ms["featurize_with_copies"] = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(host_feats).all()), "host-route features")
+    print(f"generate host-route stages of one 128-clip batch (host clock): "
+          f"{', '.join(f'{k} {v:.1f} ms' for k, v in host_ms.items())}; the formant render on "
+          f"{os.environ.get('HEYBUDDY_TTS_THREADS') or min(os.cpu_count() or 1, 8)} threads, "
+          f"{128 / host_ms['tts'] * 1e3:.1f} clips/s")
+
+    # ---- train from an empty dataset directory, fused and host routes ------------
+    fused = generate_route("fused", "formant-device", GEN_FUSED_ROWS, GEN_STEPS, dev, tmp)
+    heldout = heldout_phase(fused["data_dir"], dev, tmp)
+    host = generate_route("formant", "formant", GEN_HOST_ROWS, GEN_HOST_STEPS, dev, tmp)
+    # the adversarial pools recorded beside the caches equal the CPU generator's
+    cpu_gen = TrainingFeaturesGenerator(GEN_PHRASE, directory=os.path.join(tmp, "gen-cpu"), device=cpu)
+    for route in (fused, host):
+        for testing in (False, True):
+            sidecar = os.path.join(route["data_dir"], f"hey-buddy-adversarial{'-testing' if testing else ''}.texts.json")
+            if not os.path.exists(sidecar.replace(".texts.json", ".npy")):
+                continue
+            with open(sidecar) as f:
+                recorded = json.load(f)
+            want = sorted(set(cpu_gen.adversarial_texts(testing=testing, adversarial_phrases=GEN_ADVERSARIAL_PHRASES)))
+            check(recorded == want, f"{sidecar}: {len(recorded)} texts, the CPU generator's {len(want)}")
+    print(f"generate: the adversarial texts sidecars equal the CPU generator's pools "
+          f"({len(recorded)} texts, e.g. {recorded[:3]})")
+
+    # ---- the device's busy share while the fused route generates ----------------
+    prof_gen = TrainingFeaturesGenerator(GEN_PHRASE, directory=os.path.join(tmp, "gen-profile"), device=dev,
+                                         tts_backend="formant-device")
+    busy = device_busy(lambda: prof_gen.get_training_features(GEN_PROFILE_ROWS))
+    share = "not measured (no device events in the trace)" if busy["busy_ms"] is None else (
+        f"{busy['busy_ms']:.2f} ms of kernels ({busy['kernels']}) in {busy['wall_ms']:.2f} ms: device busy "
+        f"{busy['busy_ms'] / busy['wall_ms']:.4f}")
+    print(f"generate under torch.profiler ({GEN_PROFILE_ROWS} clips, fused route, planning included): {share}")
+    return {"generate_fused": fused["launches"], "generate_formant": host["launches"], "summary": {
+        "plan_s": plan_s, "plan_clips": len(samples), "stage_ms": stage_ms, "batch_s": batch_s, "host_ms": host_ms,
+        "render_bound_ms": render_bound,
+        "render_err": render_err, "render_limit": render_limit, "augment_err": augment_err,
+        "pad_only_err": pad_err, "pad_only_limit": pad_limit, "fused": fused["summary"], "heldout": heldout,
+        "formant": host["summary"], **{f"profiled_{k}": v for k, v in busy.items()}}}
+
+
 def device_busy(fn: Callable[[], object]) -> Dict[str, float]:
     """Host-clock ms of ``fn`` under ``torch.profiler`` and the ms its CUDA
     kernels ran (None when the trace holds no device events)."""
@@ -798,6 +1142,7 @@ def device_busy(fn: Callable[[], object]) -> Dict[str, float]:
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
+    os.environ["HEYBUDDY_OFFLINE"] = "1"  # generation's noise provider: never probe the hub
     smi = nvidia_smi_line()
     print(smi)
     dev = torch.device("cuda")
@@ -972,6 +1317,9 @@ def main() -> int:
         # ---- the training path: caches on the card, train, convert, predict ----------------
         train = train_phase(net, dev, tmp)
         paths["train_cache"], paths["train_predict"] = train["train_cache"], train["train_predict"]
+        # ---- feature generation: train from an empty dataset directory ---------------
+        generate = generate_phase(net, dev, tmp)
+        paths["generate_fused"], paths["generate_formant"] = generate["generate_fused"], generate["generate_formant"]
     score_err = float(np.abs(s_gpu - s_cpu).max())
     print(f"predict scores card {np.round(s_gpu, 4).tolist()} vs plain path "
           f"{np.round(s_cpu, 4).tolist()}: max |d| {score_err:.3e}")
@@ -1100,7 +1448,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "paths": paths, "featurize_ms": fused_ms,
                       "mega_ms": mega_ms, "mega_wins": mega_wins, "clips_per_s": BATCH / fused_ms * 1e3,
                       "call_ms": call_ms, "predict_ms": predict_s * 1e3, "batch": BATCH,
-                      "train": train["summary"], **extract}))
+                      "train": train["summary"], "generate": generate["summary"], **extract}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -8,14 +8,17 @@ Command line of the port (argparse):
         [--samples-per-file N] [--process-batch-size N] [--tokenizer-max-length N]
         [--hours H] [--device cuda|cpu] [Hugging Face dataset options]
 
-``train`` trains a wake-word head for PHRASE from the feature caches in
-``$HEYBUDDY_DATASET_DIR`` with the JAX ``heybuddy train``'s options, names and
-defaults, writes checkpoints to ``--checkpoint-dir`` and prints "Training
-complete; final checkpoint: DIR/NAME_final.npz". A cache that is missing or
-short raises (feature generation is not ported); the augmentation, TTS and
-adversarial-text options are accepted and passed on, as the JAX command does,
-and matter only to that generation. The multi-device ``--mesh`` option is not
-ported. ``convert`` writes a perceptron checkpoint as the ONNX head the
+``train`` trains a wake-word head for PHRASE end to end with the JAX
+``heybuddy train``'s options, names and defaults: the feature caches in
+``$HEYBUDDY_DATASET_DIR`` that are missing or short are generated (TTS ->
+augmentation -> featurization, ``data/features.py``; ``--tts-backend`` or
+``HEYBUDDY_TTS_BACKEND`` picks the host ``formant`` or the fused
+``formant-device`` route, ``HEYBUDDY_FUSED_TTS=0`` turns the fused route
+off), ``--prefix-negative-phrases`` / ``--collision-swap-phrases`` add their
+texts to the adversarial pool, checkpoints go to ``--checkpoint-dir``, and it
+prints "Training complete; final checkpoint: DIR/NAME_final.npz". The
+multi-device ``--mesh`` option is not ported; stream-window negatives need
+``data/streams.py`` (not ported). ``convert`` writes a perceptron checkpoint as the ONNX head the
 browser runtime loads (default OUTPUT: the checkpoint's path with ``.onnx``)
 and prints "Wrote OUTPUT"; it reads the npz's numpy arrays and needs no device.
 
@@ -85,31 +88,32 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-# (option, type, default) of train's augmentation options, in the JAX command's order
+# (option, type, default, AugmentConfig field) of train's augmentation options,
+# in the JAX command's order
 _AUGMENT_OPTIONS = (
-    ("seven-band-prob", float, C.DEFAULT_AUGMENT_SEVEN_BAND_PROB),
-    ("seven-band-gain-db", float, C.DEFAULT_AUGMENT_SEVEN_BAND_GAIN_DB),
-    ("tanh-distortion-prob", float, C.DEFAULT_AUGMENT_TANH_DISTORTION_PROB),
-    ("tanh-distortion-min", float, C.DEFAULT_AUGMENT_TANH_MIN_DISTORTION),
-    ("tanh-distortion-max", float, C.DEFAULT_AUGMENT_TANH_MAX_DISTORTION),
-    ("pitch-shift-prob", float, C.DEFAULT_AUGMENT_PITCH_SHIFT_PROB),
-    ("pitch-shift-semitones", int, C.DEFAULT_AUGMENT_PITCH_SHIFT_SEMITONES),
-    ("band-stop-prob", float, C.DEFAULT_AUGMENT_BAND_STOP_PROB),
-    ("colored-noise-prob", float, C.DEFAULT_AUGMENT_COLORED_NOISE_PROB),
-    ("colored-noise-min-snr-db", float, C.DEFAULT_AUGMENT_COLORED_NOISE_MIN_SNR_DB),
-    ("colored-noise-max-snr-db", float, C.DEFAULT_AUGMENT_COLORED_NOISE_MAX_SNR_DB),
-    ("colored-noise-min-f-decay", float, C.DEFAULT_AUGMENT_COLORED_NOISE_MIN_F_DECAY),
-    ("colored-noise-max-f-decay", float, C.DEFAULT_AUGMENT_COLORED_NOISE_MAX_F_DECAY),
-    ("background-noise-prob", float, C.DEFAULT_AUGMENT_BACKGROUND_NOISE_PROB),
-    ("background-noise-min-snr-db", float, C.DEFAULT_AUGMENT_BACKGROUND_NOISE_MIN_SNR_DB),
-    ("background-noise-max-snr-db", float, C.DEFAULT_AUGMENT_BACKGROUND_NOISE_MAX_SNR_DB),
-    ("gain-prob", float, C.DEFAULT_AUGMENT_GAIN_PROB),
-    ("reverb-prob", float, C.DEFAULT_AUGMENT_REVERB_PROB),
+    ("seven-band-prob", float, C.DEFAULT_AUGMENT_SEVEN_BAND_PROB, "seven_band_prob"),
+    ("seven-band-gain-db", float, C.DEFAULT_AUGMENT_SEVEN_BAND_GAIN_DB, "seven_band_gain_db"),
+    ("tanh-distortion-prob", float, C.DEFAULT_AUGMENT_TANH_DISTORTION_PROB, "tanh_distortion_prob"),
+    ("tanh-distortion-min", float, C.DEFAULT_AUGMENT_TANH_MIN_DISTORTION, "tanh_min_distortion"),
+    ("tanh-distortion-max", float, C.DEFAULT_AUGMENT_TANH_MAX_DISTORTION, "tanh_max_distortion"),
+    ("pitch-shift-prob", float, C.DEFAULT_AUGMENT_PITCH_SHIFT_PROB, "pitch_shift_prob"),
+    ("pitch-shift-semitones", int, C.DEFAULT_AUGMENT_PITCH_SHIFT_SEMITONES, "pitch_shift_semitones"),
+    ("band-stop-prob", float, C.DEFAULT_AUGMENT_BAND_STOP_PROB, "band_stop_prob"),
+    ("colored-noise-prob", float, C.DEFAULT_AUGMENT_COLORED_NOISE_PROB, "colored_noise_prob"),
+    ("colored-noise-min-snr-db", float, C.DEFAULT_AUGMENT_COLORED_NOISE_MIN_SNR_DB, "colored_noise_min_snr_db"),
+    ("colored-noise-max-snr-db", float, C.DEFAULT_AUGMENT_COLORED_NOISE_MAX_SNR_DB, "colored_noise_max_snr_db"),
+    ("colored-noise-min-f-decay", float, C.DEFAULT_AUGMENT_COLORED_NOISE_MIN_F_DECAY, "colored_noise_min_f_decay"),
+    ("colored-noise-max-f-decay", float, C.DEFAULT_AUGMENT_COLORED_NOISE_MAX_F_DECAY, "colored_noise_max_f_decay"),
+    ("background-noise-prob", float, C.DEFAULT_AUGMENT_BACKGROUND_NOISE_PROB, "background_noise_prob"),
+    ("background-noise-min-snr-db", float, C.DEFAULT_AUGMENT_BACKGROUND_NOISE_MIN_SNR_DB, "background_noise_min_snr_db"),
+    ("background-noise-max-snr-db", float, C.DEFAULT_AUGMENT_BACKGROUND_NOISE_MAX_SNR_DB, "background_noise_max_snr_db"),
+    ("gain-prob", float, C.DEFAULT_AUGMENT_GAIN_PROB, "gain_prob"),
+    ("reverb-prob", float, C.DEFAULT_AUGMENT_REVERB_PROB, "reverb_prob"),
 )
 
 
 def _add_train_parser(commands: Any) -> None:
-    train = commands.add_parser("train", help="train a wake-word model for PHRASE from cached features")
+    train = commands.add_parser("train", help="train a wake-word model for PHRASE end to end")
     add = train.add_argument
     add("phrase")
     add("--additional-phrase", action="append", default=[])
@@ -139,7 +143,7 @@ def _add_train_parser(commands: Any) -> None:
     add("--training-no-default-dataset", dest="training_default_size", action="store_const", const="none")
     add("--training-dataset", default=None, help="an extra negative feature .npy")
     add("--augment-phrase-prob", type=float, default=C.DEFAULT_AUGMENT_PHRASE_PROB)
-    for option, kind, default in _AUGMENT_OPTIONS:
+    for option, kind, default, _ in _AUGMENT_OPTIONS:
         add(f"--augmentation-{option}", type=kind, default=default)
     add("--logging-steps", type=int, default=C.DEFAULT_LOGGING_STEPS)
     add("--validation-steps", type=int, default=C.DEFAULT_VALIDATION_STEPS)
@@ -223,27 +227,36 @@ def _extract(args: argparse.Namespace) -> int:
 def _train(args: argparse.Namespace) -> int:
     from heybuddy_tpu_torch.data.precalculated import PrecalculatedDatasetIterator
     from heybuddy_tpu_torch.data.training import WakeWordTrainingDatasetIterator
+    from heybuddy_tpu_torch.ops.augment import AugmentConfig
+    from heybuddy_tpu_torch.text.adversarial import prefix_negative_texts, single_swap_collision_texts
     from heybuddy_tpu_torch.training.trainer import WakeWordTrainer
     from heybuddy_tpu_torch.utils.log import logger
 
     if args.debug:
         logger.setLevel(logging.DEBUG)
-    if args.prefix_negative_phrases or args.collision_swap_phrases:
-        raise NotImplementedError(
-            "--prefix-negative-phrases / --collision-swap-phrases derive adversarial texts for "
-            "feature generation, which is not ported yet"
-        )
     phrase = args.phrase
     phrases = [phrase] + list(args.additional_phrase)
     phrase_arg: Any = phrases if len(phrases) > 1 else phrase
-    augment_config = {
-        option.replace("-", "_"): getattr(args, f"augmentation_{option.replace('-', '_')}")
-        for option, _, _ in _AUGMENT_OPTIONS
-    }
+    augment_config = AugmentConfig(**{
+        field: getattr(args, f"augmentation_{option.replace('-', '_')}")
+        for option, _, _, field in _AUGMENT_OPTIONS
+    })
+    custom_texts = list(args.adversarial_phrase_custom)
+    if args.prefix_negative_phrases:
+        prefix_texts = prefix_negative_texts(phrase, num_samples=args.prefix_negative_phrases)
+        logger.info(f"Prefix-negative pool: {len(prefix_texts)} texts (e.g. {prefix_texts[:3]})")
+        custom_texts.extend(prefix_texts)
+    if args.collision_swap_phrases:
+        swap_texts = single_swap_collision_texts(
+            phrase, num_samples=args.collision_swap_phrases, max_swaps=args.collision_swap_depth
+        )
+        logger.info(f"Swap-collision pool (depth<={args.collision_swap_depth}): {len(swap_texts)} texts "
+                    f"(e.g. {swap_texts[:3]})")
+        custom_texts.extend(swap_texts)
     feature_kwargs: Dict[str, Any] = dict(
         augment_config=augment_config,
         phrase_augment_prob=args.augment_phrase_prob,
-        custom_adversarial_texts=list(args.adversarial_phrase_custom) or None,
+        custom_adversarial_texts=custom_texts or None,
         tts_backend=args.tts_backend,
         device=args.device,
     )

@@ -4,9 +4,10 @@ Constants of the port: featurization, the wake-word head and its training.
 A copy of the values in the JAX package's ``constants.py`` that this package
 uses: the audio/feature contract, the mel geometry, the embedding windows,
 the default activation threshold, the model, training and dataset defaults,
-the augmentation defaults of ``train`` and the TTS provenance tags (the JAX
-package keeps the last three in its TTS modules). The port keeps its own copy
-so that it never imports the JAX package.
+and the TTS and augmentation defaults of generation. The port keeps its own
+copy so that it never imports the JAX package. The synthesis version tags
+live beside their synthesizers, as in the JAX package (``models/formant.py``,
+``models/formant_device.py``, ``models/tts.py``).
 """
 
 # --- audio / feature contract -------------------------------------------------
@@ -80,11 +81,22 @@ DEFAULT_VALIDATION_SAMPLES = 25000
 DEFAULT_TESTING_POSITIVE_SAMPLES = 25000
 DEFAULT_TESTING_ADVERSARIAL_SAMPLES = 25000
 DEFAULT_PARTIAL_BATCH_SIZE = 25
+DEFAULT_PARTIAL_MIN_VISIBLE = 0.30
+DEFAULT_PARTIAL_MAX_VISIBLE = 0.80
+# rows generated into a cache per generation call
+DEFAULT_FEATURE_BATCH_SIZE = 25000
 # the runtime's window stride in samples (0.12 s): stream-window caches hold
 # their rows in temporal order at this stride
 RUNTIME_WINDOW_STRIDE = 1920
 
-# --- the augmentation options of `train` (they matter only to generation) -----
+# --- TTS ----------------------------------------------------------------------
+DEFAULT_TTS_BATCH_SIZE = 8
+DEFAULT_TTS_SLERP_WEIGHTS = (0.00, 0.25, 0.50, 0.75)
+DEFAULT_TTS_LENGTH_SCALES = (0.75, 1.00, 1.25, 1.50)
+DEFAULT_TTS_NOISE_SCALES = (0.667, 1.0)
+DEFAULT_TTS_NOISE_SCALE_WEIGHTS = (0.8, 1.0)
+
+# --- augmentation ---------------------------------------------------------------
 DEFAULT_AUGMENT_SEVEN_BAND_PROB = 0.25
 DEFAULT_AUGMENT_SEVEN_BAND_GAIN_DB = 6.0
 DEFAULT_AUGMENT_TANH_DISTORTION_PROB = 0.25
@@ -102,10 +114,38 @@ DEFAULT_AUGMENT_BACKGROUND_NOISE_PROB = 0.75
 DEFAULT_AUGMENT_BACKGROUND_NOISE_MIN_SNR_DB = -10.0
 DEFAULT_AUGMENT_BACKGROUND_NOISE_MAX_SNR_DB = 15.0
 DEFAULT_AUGMENT_GAIN_PROB = 1.0
+DEFAULT_AUGMENT_GAIN_MIN_DB = -18.0
+DEFAULT_AUGMENT_GAIN_MAX_DB = 6.0
 DEFAULT_AUGMENT_REVERB_PROB = 0.75
 DEFAULT_AUGMENT_PHRASE_PROB = 0.75
-
-# --- provenance tags of synthesized caches (the feature-space sidecar's "tts") -
-FORMANT_VERSION = 2
-SAMPLING_VERSION = 2
-DEVICE_FORMANT_VERSION = 1
+# 100 command-style lead words of the "{phrase}. {word}" phrase augmentation
+DEFAULT_AUGMENT_PHRASE_WORDS = [
+    "can", "where", "who", "what", "when",
+    "why", "how", "is", "are", "do",
+    "will", "would", "should", "could", "may",
+    "might", "please", "tell", "give",
+    "show", "explain", "find", "list", "make",
+    "play", "call", "set", "remind", "start", "stop",
+    "pause", "open", "close", "turn", "begin",
+    "continue", "send", "search", "answer", "read",
+    "repeat", "check", "update", "add", "remove",
+    "delete", "connect", "save", "load", "launch",
+    "bring", "print", "identify", "translate", "record",
+    "forward", "rewind", "increase", "decrease", "switch",
+    "change", "describe", "access", "review", "manage",
+    "organize", "move", "select", "toggle", "control",
+    "copy", "paste", "schedule", "arrange", "integrate",
+    "collaborate", "prepare", "track", "navigate", "compile",
+    "prioritize", "compare", "summarize", "highlight",
+    "visualize", "analyze", "optimize", "clarify", "verify",
+    "monitor", "explore", "enhance", "expand", "customize",
+    "format", "generate", "calculate", "configure",
+    "recommend", "build",
+]
+# the hosted background-noise and impulse-response corpora (streamed only
+# when the hub is reachable; offline the synthetic ones stand in)
+DEFAULT_IMPULSE_DATASET = "benjamin-paine/mit-impulse-response-survey-16khz"
+DEFAULT_BACKGROUND_DATASET = [
+    "benjamin-paine/free-music-archive-commercial-16khz-full",
+    "benjamin-paine/freesound-laion-640k-commercial-16khz-full",
+]

@@ -21,12 +21,10 @@ the card, as every entry point of the port does.
 
 from __future__ import annotations
 
-import ctypes.util
 import json
 import os
 from typing import Any, Dict, Optional
 
-from heybuddy_tpu_torch.constants import DEVICE_FORMANT_VERSION, FORMANT_VERSION, SAMPLING_VERSION
 from heybuddy_tpu_torch.device import DeviceLike
 from heybuddy_tpu_torch.utils.log import logger
 
@@ -45,19 +43,21 @@ _LEGACY_TTS = "formant:2"
 
 
 def _g2p_name() -> str:
-    """The phonemizer the JAX package's synthesis would use: HEYBUDDY_PHONEMIZER,
-    else espeak where libespeak-ng is installed, else the rule engine."""
-    backend = os.environ.get("HEYBUDDY_PHONEMIZER", "").lower()
-    if backend in ("neural", "simple"):
-        return backend
-    env = os.environ.get("HEYBUDDY_ESPEAK_LIB")
-    if (env and os.path.exists(env)) or any(ctypes.util.find_library(n) for n in ("espeak-ng", "espeak")):
-        return "espeak"
-    return "simple"
+    """The name of the phonemizer synthesis uses (``text/phonemizer.py``);
+    "neural", which the port does not run, is named as the JAX package names it."""
+    if os.environ.get("HEYBUDDY_PHONEMIZER", "").lower() == "neural":
+        return "neural"
+    from heybuddy_tpu_torch.text.phonemizer import get_phonemizer
+
+    return getattr(get_phonemizer(), "name", "simple")
 
 
 def tts_provenance(backend: Optional[str] = None) -> str:
     """Stable id of the synthesis source that feeds a cache (backend, versions, G2P)."""
+    from heybuddy_tpu_torch.models.formant import FORMANT_VERSION
+    from heybuddy_tpu_torch.models.formant_device import DEVICE_FORMANT_VERSION
+    from heybuddy_tpu_torch.models.tts import SAMPLING_VERSION
+
     backend = backend or os.environ.get("HEYBUDDY_TTS_BACKEND")
     if backend is None:
         ckpt = os.environ.get("HEYBUDDY_TTS_CHECKPOINT")

@@ -20,7 +20,24 @@ reference = sorted(m for m in sys.modules if m == "heybuddy_tpu" or m.startswith
 print(len(names), jax_like, reference)
 assert not jax_like, jax_like
 assert not reference, reference
+print(" ".join(names))
 """
+
+# the modules of the generation slice: TTS, text front end, augmentation, the
+# fused render path and the generation half of the feature caches
+GENERATION_MODULES = (
+    "heybuddy_tpu_torch.text.phonemizer",
+    "heybuddy_tpu_torch.text.espeak",
+    "heybuddy_tpu_torch.text.wordlist",
+    "heybuddy_tpu_torch.text.adversarial",
+    "heybuddy_tpu_torch.models.formant",
+    "heybuddy_tpu_torch.models.tts",
+    "heybuddy_tpu_torch.models.formant_device",
+    "heybuddy_tpu_torch.ops.augment",
+    "heybuddy_tpu_torch.data.augmented",
+    "heybuddy_tpu_torch.data.tts_generator",
+    "heybuddy_tpu_torch.data.features",
+)
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -30,5 +47,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         [sys.executable, "-c", PROBE], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
     )
     assert result.returncode == 0, result.stderr + result.stdout
-    count = int(result.stdout.split()[0])
-    assert count >= 15  # every module of the port was walked
+    lines = result.stdout.strip().splitlines()
+    count = int(lines[-2].split()[0])
+    assert count >= 26  # every module of the port was walked
+    walked = set(lines[-1].split())
+    assert set(GENERATION_MODULES) <= walked, sorted(set(GENERATION_MODULES) - walked)

@@ -371,19 +371,28 @@ TRAIN_ARGS = [
 ]
 
 
-def test_train_with_missing_cache_raises(tmp_dataset_dir, tmp_path):
-    """A short cache raises MissingFeaturesError naming the path, the rows and
-    the missing generation; nothing is generated or substituted."""
+def test_train_with_missing_cache_raises(tmp_dataset_dir, tmp_path, monkeypatch, capsys):
+    """A short cache is topped up as JAX tops it up (its 20 rows kept, 28
+    generated), the missing validation cache is generated, and training
+    completes; only the stream-window caches, whose generation is not ported,
+    still raise MissingFeaturesError."""
+    monkeypatch.setenv("HEYBUDDY_OFFLINE", "1")
     _seed_caches(tmp_dataset_dir, {"hey-buddy": (48, 1), "hey-buddy-adversarial": (20, -1)})
-    before = sorted(os.listdir(tmp_dataset_dir))
-    with pytest.raises(MissingFeaturesError) as err:
-        cli_main(["train", "hey buddy", *TRAIN_ARGS, "--checkpoint-dir", str(tmp_path / "ckpt")])
-    message = str(err.value)
-    assert os.path.join(tmp_dataset_dir, "hey-buddy-adversarial.npy") in message
-    assert "holds 20 rows" in message and "48 are needed" in message
-    assert "TTS" in message and "augmentation" in message
-    assert sorted(os.listdir(tmp_dataset_dir)) == before
-    assert len(np.load(os.path.join(tmp_dataset_dir, "hey-buddy-adversarial.npy"))) == 20
+    adversarial = os.path.join(tmp_dataset_dir, "hey-buddy-adversarial.npy")
+    first = np.load(adversarial)
+    ckpt = tmp_path / "ckpt"
+    assert cli_main(["train", "hey buddy", *TRAIN_ARGS, "--adversarial-phrases", "8",
+                     "--checkpoint-dir", str(ckpt)]) == 0
+    assert capsys.readouterr().out.strip() == f"Training complete; final checkpoint: {ckpt}/hey-buddy_final.npz"
+    grown = np.load(adversarial)
+    assert grown.shape == (48, 16, 96) and np.isfinite(grown).all()
+    np.testing.assert_array_equal(grown[:20], first)
+    validation = np.load(os.path.join(tmp_dataset_dir, "hey-buddy-testing-validation.npy"))
+    assert validation.shape == (16, 16, 96) and np.isfinite(validation).all()
+    assert os.path.exists(os.path.join(tmp_dataset_dir, "hey-buddy-adversarial.texts.json"))
+    with pytest.raises(MissingFeaturesError, match="streams.py"):
+        cli_main(["train", "hey buddy", *TRAIN_ARGS, "--stream-negative-samples", "8",
+                  "--checkpoint-dir", str(tmp_path / "ckpt2")])
 
 
 def test_default_device_is_the_card(tmp_path):

@@ -1,6 +1,6 @@
 """The port's feature stores, caches and space checks against the JAX package's."""
 
-import os
+import json
 
 import numpy as np
 import pytest
@@ -149,22 +149,32 @@ def test_sidecar_accept_stamp_reject(tmp_path, fresh_featurizers, monkeypatch):
     assert space.check_cache_space(path, device="cpu") == jax_space.check_cache_space(path)
 
 
-def test_stale_cache_is_removed_then_raises(tmp_path, fresh_featurizers):
+def test_stale_cache_is_removed_then_raises(tmp_path, fresh_featurizers, monkeypatch):
     """A cache in another space is dropped (with its texts sidecar), as JAX
-    drops it; the port then raises instead of regenerating."""
+    drops it, and then generated anew: the stale rows are gone, the texts
+    sidecar holds the new pool (JAX's for the same seed), the space sidecar
+    is the active space."""
+    monkeypatch.setenv("HEYBUDDY_OFFLINE", "1")
     gen = TrainingFeaturesGenerator("hey buddy", directory=str(tmp_path), device="cpu")
     path = str(tmp_path / "hey-buddy-adversarial.npy")
-    np.save(path, np.zeros((8, 16, 96), np.float32))
+    np.save(path, np.full((8, 16, 96), 7.0, np.float32))
     space.write_space_sidecar(path, {**space.active_space(device="cpu"), "space_id": "stale"})
     with open(str(tmp_path / "hey-buddy-adversarial.texts.json"), "w") as f:
-        f.write("[]")
-    with pytest.raises(MissingFeaturesError, match="holds 0 rows"):
-        gen.get_training_features(8, adversarial=True)
-    assert not os.path.exists(path)
-    assert not os.path.exists(str(tmp_path / "hey-buddy-adversarial.texts.json"))
+        f.write('["stale text"]')
+    it = gen.get_training_features(8, adversarial=True, adversarial_phrases=6)
+    data = np.load(path)
+    assert len(it) == 8 and data.shape == (8, 16, 96)
+    assert np.isfinite(data).all() and not (data == 7.0).any()
+    assert space.read_space_sidecar(path) == space.active_space(device="cpu")
+    with open(str(tmp_path / "hey-buddy-adversarial.texts.json")) as f:
+        texts = json.load(f)
+    assert "stale text" not in texts
+    jax_pool = JaxFeatures("hey buddy", directory=str(tmp_path / "jax")).adversarial_texts(adversarial_phrases=6)
+    assert texts == sorted(set(jax_pool)) and len(texts) == 6
 
 
-def test_cache_names_and_iterators_match_jax(tmp_path, fresh_featurizers):
+def test_cache_names_and_iterators_match_jax(tmp_path, fresh_featurizers, monkeypatch):
+    monkeypatch.setenv("HEYBUDDY_OFFLINE", "1")
     phrase = ["Hey", "Buddy!"]
     port = TrainingFeaturesGenerator(phrase, directory=str(tmp_path), seed=3, device="cpu")
     ref = JaxFeatures(phrase, directory=str(tmp_path), seed=3)
@@ -191,8 +201,15 @@ def test_cache_names_and_iterators_match_jax(tmp_path, fresh_featurizers):
         assert got.name == want.name == name
         assert got.stream_stride_seconds == want.stream_stride_seconds
         np.testing.assert_array_equal(got.take(4), want.take(4))
+    # a short cache is topped up, its first rows unchanged (JAX's rule: extend, never regenerate)
+    first = np.load(str(tmp_path / "hey-buddy.npy"))
+    assert len(port.get_training_features(11)) == 11
+    grown = np.load(str(tmp_path / "hey-buddy.npy"))
+    np.testing.assert_array_equal(grown[:10], first)
+    assert grown.shape == (11, 16, 96) and np.isfinite(grown[10]).all()
+    # stream windows need data/streams.py, not ported: a short cache still raises
     with pytest.raises(MissingFeaturesError, match="needed"):
-        port.get_training_features(11)
+        port.get_stream_window_features(11, seed=9)
 
 
 def test_hosted_sets_on_a_local_file(tmp_path, fresh_featurizers, monkeypatch):

@@ -15,6 +15,14 @@ and prints each package's held-out scores::
     PYTHONPATH=. python tests/test_torch_transformer_head.py
 
 It takes about 30 minutes on 8 CPU cores, most of it the 4,000 train steps.
+
+With ``generated`` it instead repeats the generate phase's held-out run:
+the port makes the caches of ``train "hey buddy" --tts-backend
+formant-device`` on the CPU (2,048 positives and adversaries, 512 of each
+for testing), then both packages train each head on those same files
+(batches 50 / 50, 1,000 steps, dropout 0) and score the testing caches::
+
+    PYTHONPATH=. python tests/test_torch_transformer_head.py generated
 """
 
 import os
@@ -58,24 +66,28 @@ def featurize(sizes, seed, start_s, chunk=512):
 
 
 def composition(pre, train, feats, batches):
+    """Positives, adversaries and (with a third batch size) negatives."""
     def source(name, seed):
         return pre.PrecalculatedDatasetIterator(name, data=feats[name], seed=seed)
 
+    negative = [(source("adversarial", 2), batches[1])]
+    if len(batches) > 2:
+        negative.append((source("negative", 3), batches[2]))
     return train.WakeWordTrainingDatasetIterator(
         num_batch_threads=1,
         positive=[(source("positive", 1), batches[0])],
-        negative=[(source("adversarial", 2), batches[1]), (source("negative", 3), batches[2])],
+        negative=negative,
     )
 
 
-def train_both(feats, batches, steps, directory):
-    """Both packages' transformers (defaults, dropout 0) trained alike; their
+def train_both(feats, batches, steps, directory, architecture="transformer"):
+    """Both packages' heads (defaults, dropout 0) trained alike; their
     histories, trainers and held-out scores."""
     jax_t = jax_trainer.WakeWordTrainer(
-        checkpoint_dir=os.path.join(directory, "jax"), architecture="transformer", dropout=0.0
+        checkpoint_dir=os.path.join(directory, "jax"), architecture=architecture, dropout=0.0
     )
     port_t = trainer.WakeWordTrainer(
-        checkpoint_dir=os.path.join(directory, "port"), architecture="transformer", dropout=0.0,
+        checkpoint_dir=os.path.join(directory, "port"), architecture=architecture, dropout=0.0,
         device="cpu", params=jax.tree_util.tree_map(np.asarray, jax_t.model.params),
     )
     held = np.concatenate([feats["held_positive"], feats["held_negative"]])
@@ -114,9 +126,52 @@ def test_transformer_trains_like_jax_on_featurized_clips(tmp_path, start):
     np.testing.assert_allclose(port_run["scores"], jax_run["scores"], rtol=0.0, atol=SCORE_ATOL)
 
 
+def generated_caches(directory, rows):
+    """{name: features} of the fused route's caches, made by the port on the
+    CPU as ``train`` makes them: positives and adversaries (250 texts) for
+    training and for testing."""
+    from heybuddy_tpu_torch.data.features import TrainingFeaturesGenerator
+
+    os.environ["HEYBUDDY_OFFLINE"] = "1"
+    os.environ.setdefault("HEYBUDDY_FUSED_TTS_BATCH", "128")  # a batch's render arrays stay under 0.5 GB
+    gen = TrainingFeaturesGenerator("hey buddy", directory=directory, device="cpu", tts_backend="formant-device")
+    gen.get_training_features(rows["positive"])
+    gen.get_training_features(rows["adversarial"], adversarial=True, adversarial_phrases=250)
+    gen.get_training_features(rows["held_positive"], testing=True)
+    gen.get_training_features(rows["held_negative"], adversarial=True, adversarial_phrases=250, testing=True)
+    files = {"positive": "hey-buddy", "adversarial": "hey-buddy-adversarial",
+             "held_positive": "hey-buddy-testing", "held_negative": "hey-buddy-adversarial-testing"}
+    return {k: np.load(os.path.join(directory, f"{name}.npy")) for k, name in files.items()}
+
+
+def generated_main() -> int:
+    """Both heads of both packages on the same generated cache files."""
+    rows = {"positive": 2048, "adversarial": 2048, "held_positive": 512, "held_negative": 512}
+    with tempfile.TemporaryDirectory() as tmp:
+        start = time.perf_counter()
+        feats = generated_caches(os.path.join(tmp, "data"), rows)
+        print(f"generated {sum(rows.values())} clips on the CPU in {time.perf_counter() - start:.1f} s; "
+              f"{', '.join(f'{k} {v.shape}' for k, v in feats.items())}", flush=True)
+        for architecture in ("transformer", "perceptron"):
+            runs = train_both(feats, (50, 50), 1000, os.path.join(tmp, architecture), architecture)
+            for label, run in runs.items():
+                loss, scores = run["history"]["loss"], run["scores"]
+                pos, neg = scores[:rows["held_positive"]], scores[rows["held_positive"]:]
+                print(f"{architecture}, {label}: 1000 steps in {run['seconds']:.1f} s; loss mean of the first 50 "
+                      f"steps {loss[:50].mean():.5f}, of the last 50 {loss[-50:].mean():.5f}; testing positives "
+                      f"{pos.mean():.4f} (recall {np.mean(pos > 0.5):.4f}), adversaries {neg.mean():.4f} "
+                      f"(false accepts {np.mean(neg > 0.5):.4f}); scores spread {np.ptp(scores):.3e}", flush=True)
+            print(f"{architecture}: testing scores, port vs JAX: max |d| "
+                  f"{np.abs(runs['port']['scores'] - runs['jax']['scores']).max():.3e}, mean |d| "
+                  f"{np.abs(runs['port']['scores'] - runs['jax']['scores']).mean():.3e}", flush=True)
+    return 0
+
+
 def main() -> int:
     """The card's transformer run on the CPU, in both packages, per pattern start."""
     jax.config.update("jax_platforms", "cpu")
+    if sys.argv[1:] == ["generated"]:
+        return generated_main()
     n_held = 512
     for start, start_s in STARTS.items():
         feats = featurize(_sizes(4096, n_held), seed=20261016, start_s=start_s)
