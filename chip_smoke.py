@@ -5,14 +5,16 @@ Chip check of the PyTorch / CUDA port on one NVIDIA GPU.
 
 Builds the five hand-written kernel libraries from ``heybuddy_tpu_torch/ops/
 kernels/csrc`` (K1 mel patches, K1b its hop-block form, K2 fused embedding,
-K3 mel spectrogram, K4 one-kernel featurizer; K1 and K3 with their bf16-DFT
-variants), prints each library's registers, shared memory and tensor-core
-(HMMA) instruction count from ``cuobjdump``, holds each kernel against its
+K3 mel spectrogram, K4 one-kernel featurizer; K1, K1b and K3 with their
+bf16-DFT variants), prints each library's registers, shared memory and
+tensor-core instruction counts (HMMA for mma.sync, HGMMA for wgmma) from
+``cuobjdump``, holds each kernel against its
 plain PyTorch version on the card, on noise and on a tonal input, then
 drives every path a user calls at full width,
 each with the launch counters set to 0 just before it and read just after:
 ``featurize_batch`` in each pooling formulation on 2048 clips (``SpeechEmbeddings``
-for "fused", with ``return_spectrograms`` too), the hop-block mel path, the
+for "fused", with ``return_spectrograms`` too), the hop-block mel path and its
+bf16-DFT form, the
 spectrogram-layout embedding entry, ``extract`` and ``predict`` through the CLI
 entry, and the training path: feature caches built on the card through
 ``featurize_batch`` ("fused", K1 -> K2) from seeded synthetic clips, ``train``
@@ -109,12 +111,13 @@ PEAK_BF16 = 989e12
 # Tolerances, each with its reason:
 # K1, K1b, K3: a DFT of int16-range audio against the plain float32 version:
 #     5e-3 absolute + 1e-4 relative on log-mel values of about -1..4 (the JAX
-#     suite's bound between its Pallas and XLA mel paths). K1b sums float32
-#     products in another order; K1 and K3 compute a split product of fp16
-#     pairs (22 significant bits of each operand, the x_lo b_lo term of about
-#     2^-22 dropped), as close to the float32 mel as float32's own rounding.
+#     suite's bound between its Pallas and XLA mel paths). K1, K1b and K3
+#     compute a split product of fp16 pairs (22 significant bits of each
+#     operand, the x_lo b_lo term of about 2^-22 dropped), as close to the
+#     float32 mel as float32's own rounding; K1b on wgmma, the others on
+#     mma.sync.
 MEL_ATOL, MEL_RTOL = 5e-3, 1e-4
-# K1, K3 also: the split's precision. fp16 pairs stay within 6.1e-5 of the
+# K1, K1b, K3 also: the split's precision. fp16 pairs stay within 6.1e-5 of the
 #     plain version on the tonal input and 1e-6 on noise; bf16 pairs (16
 #     significant bits) reach 2.3e-3 on the tone, inside MEL_ATOL but enough
 #     to move K4's embeddings a mean 1.2e-2. This bound, between the two,
@@ -124,8 +127,9 @@ SPLIT_ATOL = 5e-4
 #     float32 products): the JAX suite's bound between the bf16 and float32
 #     DFT (tests/test_melspec.py)
 BF16_DFT_ATOL = 1e-2
-# the libraries whose kernels must run on the tensor cores (HMMA in their SASS)
-TENSOR_CORE_LIBS = ("mel_patches", "embedding_pool", "mel_spectrogram", "featurize")
+# the libraries whose kernels must run on the tensor cores: HMMA (mma.sync) or
+# HGMMA (wgmma) in their SASS
+TENSOR_CORE_LIBS = ("mel_patches", "mel_patches_fat", "embedding_pool", "mel_spectrogram", "featurize")
 # K2, K4: the bf16 rounding points (RMS outputs, feats, GELU, softmax weights)
 #     turn any change of float32 summation order into one-ulp bf16 flips that
 #     the trunk carries on to the output. The plain version computed in float32
@@ -245,7 +249,7 @@ def tonal_audio(rng: np.random.Generator, b: int, t: int) -> np.ndarray:
 
 def resource_report() -> None:
     """Per library: registers and static shared memory of each kernel, its dynamic
-    shared memory and the number of HMMA (tensor-core) instructions in its SASS."""
+    shared memory and the numbers of HMMA and HGMMA (tensor-core) instructions in its SASS."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     for name in build.SOURCES:
@@ -265,10 +269,11 @@ def resource_report() -> None:
                                f"registers, {usage.get('SHARED')} B static shared, "
                                f"{usage.get('LOCAL')} B local")
         hmma = len(re.findall(r"\bHMMA\.", sass))
+        hgmma = len(re.findall(r"\bHGMMA\.", sass))
         print(f"  {name}: {'; '.join(kernels)}; dynamic shared {build.smem_bytes(name)} B per "
-              f"block; HMMA instructions {hmma}")
+              f"block; HMMA instructions {hmma}, HGMMA {hgmma}")
         if name in TENSOR_CORE_LIBS:
-            check(hmma > 0, f"{name}: no tensor-core instruction in its SASS")
+            check(hmma + hgmma > 0, f"{name}: no tensor-core instruction in its SASS")
 
 
 def check_mel(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float = MEL_ATOL,
@@ -290,15 +295,13 @@ def check_split(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
 
 def check_k1(audio: torch.Tensor, expect_patches: int, dft_mode: str,
              dft_dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, int, float]:
-    name = "K1b" if dft_mode == "fat" else "K1" if dft_dtype == torch.float32 else "K1-bf16"
+    name = ("K1b" if dft_mode == "fat" else "K1") + ("" if dft_dtype == torch.float32 else "-bf16")
     got, n = mk.mel_patches(audio, dft_mode, dft_dtype)
     ref, n_ref = mk.mel_patches_plain(audio, dft_mode, dft_dtype)
     torch.cuda.synchronize()
     check(n == n_ref == expect_patches, f"{name} num_patches {n}/{n_ref} != {expect_patches}")
-    if dft_mode == "chunked" and dft_dtype == torch.float32:
+    if dft_dtype == torch.float32:
         err = check_split(name, got[:, :n], ref[:, :n])
-    elif dft_dtype == torch.float32:
-        err = check_mel(name, got[:, :n], ref[:, :n])
     else:
         err = check_mel(name, got[:, :n], ref[:, :n], BF16_DFT_ATOL, 0.0)
     check(bool((got[:, n:] == 0).all()), f"{name} pad rows are not exactly zero")
@@ -1153,7 +1156,7 @@ def main() -> int:
     print(f"build: {seconds:.1f} s for {', '.join(build.SOURCES)}")
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
-            if "spill" in line or "error" in line.lower():
+            if "spill" in line or "error" in line.lower() or "C75" in line:
                 print(f"  {name}: {line.strip()}")
     resource_report()
 
@@ -1163,7 +1166,7 @@ def main() -> int:
     net = featurizer.net
 
     # ---- each kernel against its plain version ------------------------------------------
-    errs = {k: 0.0 for k in ("K1", "K1b", "K2", "K3", "K4", "K1-bf16", "K3-bf16")}
+    errs = {k: 0.0 for k in ("K1", "K1b", "K2", "K3", "K4", "K1-bf16", "K3-bf16", "K1b-bf16")}
     bf16 = torch.bfloat16
     cases = [("noise", rng.normal(0.0, 1000.0, (b, t)), b, t, expect)
              for b, t, expect in ((64, 23040, 35), (3, 17280, 26), (2, 32000, 49), (3, 20001, 30),
@@ -1182,17 +1185,22 @@ def main() -> int:
         layout = (patches[:, :n].reshape(b, 4 * n, 32) - spec[:, : 4 * n]).abs().max().item()
         p16, _, err16 = check_k1(audio, expect, "chunked", bf16)
         errs["K1-bf16"] = max(errs["K1-bf16"], err16)
+        f16, _, errf16 = check_k1(audio, expect, "fat", bf16)
+        errs["K1b-bf16"] = max(errs["K1b-bf16"], errf16)
+        # the same bf16 operands and exact products as K1-bf16, summed in another order
+        f16_vs_k1 = check_mel("K1b-bf16 vs K1-bf16", f16[:, :n], p16[:, :n])
         s16 = mk.mel_spectrogram(audio, dft_dtype=bf16)
         errs["K3-bf16"] = max(errs["K3-bf16"], check_mel(
             "K3-bf16", s16, mk.mel_spectrogram_plain(audio, bf16), BF16_DFT_ATOL, 0.0))
         k1_err = (patches[:, :n] - mk.mel_patches_plain(audio)[0][:, :n]).abs().max().item()
-        print(f"K1/K1b/K3 {kind} t={t} b={b}: num_patches {n}, frames {spec.shape[1]}; max |d| vs "
-              f"plain K1 {k1_err:.3e} K3 {k3_err:.3e} (limits {MEL_ATOL} + {MEL_RTOL} |ref| and "
-              f"{SPLIT_ATOL}) K1b "
-              f"{err:.3e}; K1b vs K1 {fat_vs_k1:.3e} (limit {MEL_ATOL} + {MEL_RTOL} |ref|); "
+        print(f"K1/K1b/K3 {kind} t={t} b={b}: num_patches {n}, frames {spec.shape[1]}; K1b loads its "
+              f"hop rows by {mk.fat_load_path(audio)}; max |d| vs "
+              f"plain K1 {k1_err:.3e} K3 {k3_err:.3e} K1b {err:.3e} (limits {MEL_ATOL} + {MEL_RTOL} "
+              f"|ref| and {SPLIT_ATOL}); K1b vs K1 {fat_vs_k1:.3e} (limit {MEL_ATOL} + {MEL_RTOL} |ref|); "
               f"K3 vs K1 layout {layout:.3e} (one mel body: 0 expected); bf16 DFT vs its plain "
-              f"K1 {err16:.3e} K3 {errs['K3-bf16']:.3e} (limit {BF16_DFT_ATOL}), vs K1 "
-              f"{(p16[:, :n] - patches[:, :n]).abs().max().item():.3e}")
+              f"K1 {err16:.3e} K3 {errs['K3-bf16']:.3e} K1b {errf16:.3e} (limit {BF16_DFT_ATOL}), vs K1 "
+              f"{(p16[:, :n] - patches[:, :n]).abs().max().item():.3e}; K1b-bf16 vs K1-bf16 "
+              f"{f16_vs_k1:.3e} (limit {MEL_ATOL} + {MEL_RTOL} |ref|)")
         check(layout == 0.0, "K3 differs from K1's layout")
         err, limit = check_k2(net, patches, n, t)
         errs["K2"] = max(errs["K2"], err)
@@ -1203,6 +1211,21 @@ def main() -> int:
         check_path("fused_embedding_windows(K3) vs K2 on K1's patches", windows, direct, limit)
         errs["K4"] = max(errs["K4"], check_k4(net, audio, t)[0])
 
+    # K1b on a whole number of hops at a base 4 bytes past 16-byte alignment:
+    # no flat TMA view, so the plain loads (its own generator: the cases
+    # below see the draws they always saw)
+    b, t = 3, 17280
+    offset_rng = np.random.default_rng(SEED + 1)
+    buf = torch.from_numpy(offset_rng.normal(0.0, 1000.0, b * t + 1).astype(np.float32)).to(dev)
+    audio = buf[1:].view(b, t)
+    for dtype in (torch.float32, bf16):
+        _, _, err = check_k1(audio, 26, "fat", dtype)
+        key = "K1b" if dtype == torch.float32 else "K1b-bf16"
+        errs[key] = max(errs[key], err)
+        print(f"{key} t={t} b={b}, base offset 4 B: loads its hop rows by {mk.fat_load_path(audio)}; "
+              f"max |d| vs plain {err:.3e}")
+    check(mk.fat_load_path(audio) == "plain", "an unaligned base took the TMA path")
+
     clips = np.clip(rng.normal(0.0, 0.05, (BATCH, CLIP)), -1.0, 1.0).astype(np.float32)
     audio = torch.from_numpy(clips * 32767.0).to(dev)
     starts = embedding_window_starts(CLIP)
@@ -1210,7 +1233,8 @@ def main() -> int:
     patches, n = mk.mel_patches(audio)
     errs["K1"] = max(errs["K1"], check_split("K1", patches[:, :n], mk.mel_patches_plain(audio)[0][:, :n]))
     fat, _ = mk.mel_patches(audio, "fat")
-    errs["K1b"] = max(errs["K1b"], check_mel("K1b", fat[:, :n], mk.mel_patches_plain(audio, "fat")[0][:, :n]))
+    errs["K1b"] = max(errs["K1b"], check_split("K1b", fat[:, :n], mk.mel_patches_plain(audio, "fat")[0][:, :n]))
+    errs["K1b-bf16"] = max(errs["K1b-bf16"], check_k1(audio, n, "fat", bf16)[2])
     spec = mk.mel_spectrogram(audio)
     errs["K3"] = max(errs["K3"], check_split("K3", spec, mk.mel_spectrogram_plain(audio)))
     errs["K1-bf16"] = max(errs["K1-bf16"], check_k1(audio, n, "chunked", bf16)[2])
@@ -1219,7 +1243,7 @@ def main() -> int:
         BF16_DFT_ATOL, 0.0))
     print(f"kernels at {BATCH} x {CLIP}: max |d| vs plain K1 {errs['K1']:.3e} K1b {errs['K1b']:.3e} "
           f"K3 {errs['K3']:.3e} K1-bf16 {errs['K1-bf16']:.3e} K3-bf16 {errs['K3-bf16']:.3e} "
-          f"(maxima over every shape so far)")
+          f"K1b-bf16 {errs['K1b-bf16']:.3e} (maxima over every shape so far)")
     del fat, spec
     err, path_limit = check_k2(net, patches, n, CLIP)  # the limit of every bf16 path below
     errs["K2"] = max(errs["K2"], err)
@@ -1286,6 +1310,19 @@ def main() -> int:
     print(f"path fat (hop-block mel -> K2): launches {paths['fat']}")
     check_path("fat vs fused", fat_out, emb_dev, path_limit)
 
+    def fat_bf16_path():
+        fat16, n_fat = mk.mel_patches(audio, dft_mode="fat", dft_dtype=bf16)
+        return ek.fused_embedding_from_patches(net, fat16, starts, n_fat)
+
+    fat16_out, paths["fat_bf16"] = run_path("fat_bf16", fat_bf16_path,
+                                            ("mel_patches_fat_bf16", "embedding_pool"))
+    plain16, n16 = mk.mel_patches_plain(audio, "fat", bf16)
+    print(f"path fat_bf16 (hop-block bf16-DFT mel -> K2): launches {paths['fat_bf16']}; vs fused "
+          f"max |d| {(fat16_out - emb_dev).abs().max().item():.3e}")
+    check_path("fat_bf16 vs K2 on the hop-block bf16-DFT plain mel", fat16_out,
+               ek.fused_embedding_from_patches(net, plain16, starts, n16), path_limit)
+    del fat16_out, plain16
+
     win_out, paths["windows"] = run_path(
         "windows", lambda: ek.fused_embedding_windows(net, mk.mel_spectrogram(audio), starts),
         ("mel_spectrogram", "embedding_pool"))
@@ -1339,6 +1376,8 @@ def main() -> int:
                     cuda_ms(lambda: mk.mel_patches_plain(audio, dft_dtype=bf16))),
         "K3-bf16": (cuda_ms(lambda: mk.mel_spectrogram(audio, dft_dtype=bf16)),
                     cuda_ms(lambda: mk.mel_spectrogram_plain(audio, bf16))),
+        "K1b-bf16": (cuda_ms(lambda: mk.mel_patches(audio, "fat", bf16)),
+                     cuda_ms(lambda: mk.mel_patches_plain(audio, "fat", bf16))),
     }
     # end to end: E2E_PAIRS pairs of fused and mega, each pair in the other order
     e2e = {"fused": [], "mega": []}
@@ -1390,7 +1429,7 @@ def main() -> int:
                audio_bytes + out_bytes + weight_bytes + consts, "fp32 mel + bf16 trunk"),
     }
     work["K1b"] = work["K1"]  # the same function: its extra zero-row work is distance from the bound
-    work["K1-bf16"], work["K3-bf16"] = work["K1"], work["K3"]  # the same least work
+    work["K1-bf16"], work["K3-bf16"], work["K1b-bf16"] = work["K1"], work["K3"], work["K1"]  # the same least work
 
     def bound(name: str) -> Tuple[float, str]:
         t_ops, nbytes, _ = work[name]
@@ -1398,15 +1437,17 @@ def main() -> int:
         return (t_ops * 1e3, "operations") if t_ops >= t_bytes else (t_bytes * 1e3, "bytes")
 
     # Floors of each kernel's own method: the direct DFT (400 x 256 products a
-    # frame) as 3 bf16 tensor-core products (split), 1 (bf16 DFT) or float32
-    # FMAs over 480 hop-block rows (K1b), plus the float32 tail (power,
-    # filterbank); K2's trunk is the function's own work. The larger of those
-    # operations at their peak and the function's bytes.
+    # frame) as 3 16-bit tensor-core products (split) or 1 (bf16 DFT); K1b's
+    # the same over its 480 hop-block rows, 64 hop rows for every 62 frames;
+    # plus the float32 tail (power, filterbank); K2's trunk is the function's
+    # own work. The larger of those operations at their peak and the
+    # function's bytes.
     dft_flop = mk.TAPS * 2 * mk.N_FREQ_PAD * 2
+    fat_flop = mk.HOP_BLOCKS * 160 * 2 * mk.N_FREQ_PAD * 2 * 64 / 62
     tail_s = (2 * mk.N_FREQ_PAD + 2 * mk.N_FREQ_PAD * 32) / PEAK_FP32
     frame_s = {"K1": 3 * dft_flop / PEAK_BF16 + tail_s, "K3": 3 * dft_flop / PEAK_BF16 + tail_s,
                "K1-bf16": dft_flop / PEAK_BF16 + tail_s, "K3-bf16": dft_flop / PEAK_BF16 + tail_s,
-               "K1b": 3 * 160 * 2 * mk.N_FREQ_PAD * 2 / PEAK_FP32 + tail_s}
+               "K1b": 3 * fat_flop / PEAK_BF16 + tail_s, "K1b-bf16": fat_flop / PEAK_BF16 + tail_s}
     method_s = {k: BATCH * (frames if k.startswith("K3") else usable) * v for k, v in frame_s.items()}
     method_s["K2"] = k2_ops / PEAK_BF16
     method_s["K4"] = method_s["K1"] + method_s["K2"]
@@ -1423,6 +1464,7 @@ def main() -> int:
         "K1-bf16": ("mel_patches_bf16", "mel_patches.cu", "melspec_kernel.py:204", "bf16_dft"),
         "K3-bf16": ("mel_spectrogram_bf16", "mel_spectrogram.cu", "melspec_kernel.py:101",
                     "bf16_spectrogram"),
+        "K1b-bf16": ("mel_patches_fat_bf16", "mel_patches_fat.cu", "melspec_kernel.py:348", "fat_bf16"),
     }
     kernels = []
     for kid, (name, src, replaces, path) in meta.items():

@@ -1,26 +1,30 @@
 """
-Time this checkout's K1 and K2 against another version's build of the same
-sources on one card, in alternating pairs.
+Time this checkout's K1, K1b (both entries) and K2 against other versions'
+builds of the same sources on one card, in alternating pairs.
 
-    python -m heybuddy_tpu_torch.ops.kernels.compare_builds OTHER
+    python -m heybuddy_tpu_torch.ops.kernels.compare_builds OTHER [OTHER ...]
 
-OTHER is the root of another checkout of the repo (for example the parent
-commit, unpacked with ``git archive``). Its ``mel_patches.cu`` and
-``embedding_pool.cu``, with whatever headers sit beside them, are built with
-this checkout's flags into ``heybuddy_tpu_torch/_build/other-<hash>/`` and
-launched through this checkout's wrappers (``build.library_from``): both
-versions get the same inputs and the same launch code, so their C entries
-must match. On 2048 seeded clips of 23040 samples, as ``chip_smoke.py``
-times them, each of 10 pairs times both versions by CUDA events (the median
-of 11 runs after 3 warm-ups), this checkout first in even pairs and the
-other first in odd ones. It prints the two versions' largest output
-difference, every pair's times, the medians, the per-pair ratio of other to
-this, the card's name and power limit, and one JSON line of the same.
+Each OTHER is the root of another checkout of the repo (for example the
+parent commit, unpacked with ``git archive``, or a copy of the sources with
+one phase of a kernel deleted). Its ``mel_patches.cu``,
+``mel_patches_fat.cu`` and ``embedding_pool.cu``, with whatever headers sit
+beside them, are built with this checkout's flags into
+``heybuddy_tpu_torch/_build/other-<hash>/`` and launched through this
+checkout's wrappers (``build.library_from``): both versions get the same
+inputs and the same launch code, so their C entries must match; an entry
+the other build lacks is skipped. On 2048 seeded clips of 23040 samples, as
+``chip_smoke.py`` times them, each of 10 pairs times both versions by CUDA
+events (the median of 11 runs after 3 warm-ups), this checkout first in
+even pairs and the other first in odd ones. For each OTHER it prints the two
+versions' largest output difference, every pair's times, the medians, the
+per-pair ratio of other to this, the card's name and power limit, and one
+JSON line of the same.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
 import os
@@ -39,7 +43,7 @@ from heybuddy_tpu_torch.ops.kernels import melspec_kernel as mk
 from heybuddy_tpu_torch.ops.windows import embedding_window_starts
 from heybuddy_tpu_torch.utils.cuda_timing import cuda_ms, nvidia_smi_line
 
-KERNELS = ("mel_patches", "embedding_pool")
+KERNELS = ("mel_patches", "mel_patches_fat", "embedding_pool")
 BATCH = 2048
 CLIP = 23040
 PAIRS = 10  # the fewest pairs that can show a difference (9 of 10 wins)
@@ -98,8 +102,12 @@ def compare(fn: Callable[[], torch.Tensor], name: str, other_lib: str, pairs: in
     }
 
 
+# the library of each timed entry that is not its library's main one
+ENTRY_LIBRARY = {"mel_patches_fat_bf16": "mel_patches_fat"}
+
+
 def kernel_runs(dev: torch.device) -> Dict[str, Callable[[], torch.Tensor]]:
-    """One launch of K1 and of K2 on the seeded 2048-clip batch that chip_smoke.py times."""
+    """One launch of each timed entry on the seeded 2048-clip batch that chip_smoke.py times."""
     net = SpeechEmbeddings(device=dev).net
     rng = np.random.default_rng(SEED)
     clips = np.clip(rng.normal(0.0, 0.05, (BATCH, CLIP)), -1.0, 1.0).astype(np.float32)
@@ -108,13 +116,15 @@ def kernel_runs(dev: torch.device) -> Dict[str, Callable[[], torch.Tensor]]:
     patches, n = mk.mel_patches(audio)
     return {
         "mel_patches": lambda: mk.mel_patches(audio)[0],
+        "mel_patches_fat": lambda: mk.mel_patches(audio, "fat")[0],
+        "mel_patches_fat_bf16": lambda: mk.mel_patches(audio, "fat", torch.bfloat16)[0],
         "embedding_pool": lambda: ek.fused_embedding_from_patches(net, patches, starts, n),
     }
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0].strip())
-    parser.add_argument("other", help="root of the other checkout")
+    parser.add_argument("other", nargs="+", help="root of another checkout")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("compare_builds needs a CUDA device")
@@ -122,20 +132,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(smi)
     dev = torch.device("cuda")
     build.build_all(KERNELS)
-    others = build_other(args.other, KERNELS)
     runs = kernel_runs(dev)
-    results = {}
-    for name in KERNELS:
-        r = compare(runs[name], name, others[name], PAIRS)
-        results[name] = r
-        print(f"{name} at {BATCH} x {CLIP}, {PAIRS} pairs in alternating order: this "
-              f"{[round(v, 4) for v in r['this_ms']]} ms, other {[round(v, 4) for v in r['other_ms']]} "
-              f"ms; medians this {r['this_median_ms']:.4f}, other {r['other_median_ms']:.4f} ms; "
-              f"other / this per pair {[round(v, 4) for v in r['other_over_this']]}, median "
-              f"{r['median_ratio']:.4f}; this faster in {r['this_faster_pairs']} of {PAIRS}; "
-              f"outputs max |d| {r['max_abs_diff']:.3e}")
-    print(smi)
-    print(json.dumps({"device": smi, "batch": BATCH, "pairs": PAIRS, "kernels": results}))
+    for root in args.other:
+        others = build_other(root, KERNELS)
+        results = {}
+        for entry, fn in runs.items():
+            library = ENTRY_LIBRARY.get(entry, entry)
+            if not hasattr(ctypes.CDLL(others[library]), f"{entry}_launch"):
+                print(f"{root}: {entry}: no such entry in its build, skipped")
+                continue
+            r = compare(fn, library, others[library], PAIRS)
+            results[entry] = r
+            print(f"{root}: {entry} at {BATCH} x {CLIP}, {PAIRS} pairs in alternating order: this "
+                  f"{[round(v, 4) for v in r['this_ms']]} ms, other {[round(v, 4) for v in r['other_ms']]} "
+                  f"ms; medians this {r['this_median_ms']:.4f}, other {r['other_median_ms']:.4f} ms; "
+                  f"other / this per pair {[round(v, 4) for v in r['other_over_this']]}, median "
+                  f"{r['median_ratio']:.4f}; this faster in {r['this_faster_pairs']} of {PAIRS}; "
+                  f"outputs max |d| {r['max_abs_diff']:.3e}")
+        print(smi)
+        print(json.dumps({"device": smi, "other": root, "batch": BATCH, "pairs": PAIRS,
+                          "kernels": results}))
     return 0
 
 

@@ -1,8 +1,9 @@
 // The mel body shared by the mel kernels for Hopper, sm_90a: K1
 // (mel_patches.cu), K3 (mel_spectrogram.cu) and K4 (featurize.cu) run
 // `logmel_chunk`; K1b (mel_patches_fat.cu) computes its spectrum another way
-// and shares the tail (`mel_log_store`). One source of the arithmetic keeps
-// every kernel's log-mel equal, bit for bit, for the same audio.
+// (one wgmma product over hop rows) and shares the tail (`mel_log_store`).
+// One source of the arithmetic keeps every kernel's log-mel equal, bit for
+// bit, for the same audio.
 //
 // Per frame f: spectrum = audio[160 f + 56 .. 160 f + 456) @ basis (400, 256),
 // the windowed real-DFT basis restricted to the 400 rows the centred Hann
@@ -128,30 +129,40 @@ __device__ __forceinline__ void load_fb(const float* __restrict__ fb, float* fb_
 }
 
 // Frames f0 .. f0 + nf - 1 of a chunk whose power rows (nf x 128, row stride
-// LD) and filterbank (load_fb) are in shared memory: store(f - f0, m, v) for every frame f < n_out, v the scaled
-// log-mel when f < usable and 0 past it.
-template <int LD = NBIN, typename Store>
+// LD) and filterbank (load_fb) are in shared memory: store(f - f0, m, v) for
+// every frame f < n_out, v the scaled log-mel when f < usable and 0 past it.
+// NTHREADS threads take part (the whole block by default), thread `tid` of
+// them the caller's. A thread carries two frames' sums at once, two
+// independent chains over the same filter weights; each sum keeps its own
+// order, so the values do not depend on the pairing.
+template <int LD = NBIN, int NTHREADS = THREADS, typename Store>
 __device__ __forceinline__ void mel_log_store(const float* power_s, const float* fb_s, int nf,
-                                              int f0, int usable, int n_out, Store store) {
-  static_assert(THREADS % NMEL == 0, "a thread keeps one mel bin");
+                                              int f0, int usable, int n_out, int tid,
+                                              Store store) {
+  static_assert(NTHREADS % NMEL == 0, "a thread keeps one mel bin");
   // The filter of mel bin m is non-zero on bins lo..hi only. A product with
   // one of its zeros adds exactly +0 to the non-negative power sum, so the
   // sum over lo..hi in bin order has the bits of the sum over all 128 bins.
-  const int m = threadIdx.x % NMEL;
+  const int m = tid % NMEL;
   const int* band = reinterpret_cast<const int*>(fb_s + NBIN * NMEL);
   const int lo = band[m];
   const int hi = band[NMEL + m];
-  for (int idx = threadIdx.x; idx < nf * NMEL; idx += THREADS) {
+  constexpr int STEP = NTHREADS / NMEL;  // frames between a thread's two
+  for (int idx = tid; idx < nf * NMEL; idx += 2 * NTHREADS) {
     const int fl = idx / NMEL;
-    const int f = f0 + fl;
-    if (f >= n_out) continue;
-    float value = 0.0f;
-    if (f < usable) {
-      float mel = 0.0f;
-      for (int bin = lo; bin <= hi; ++bin) mel = fmaf(power_s[fl * LD + bin], fb_s[bin * NMEL + m], mel);
-      value = logf(mel + 1e-6f) / 10.0f + 2.0f;
+    const int fl2 = fl + STEP < nf ? fl + STEP : fl;  // a lone last frame pairs with itself
+    const float* p = power_s + fl * LD;
+    const float* p2 = power_s + fl2 * LD;
+    float mel = 0.0f;
+    float mel2 = 0.0f;
+    for (int bin = lo; bin <= hi; ++bin) {
+      const float w = fb_s[bin * NMEL + m];
+      mel = fmaf(p[bin], w, mel);
+      mel2 = fmaf(p2[bin], w, mel2);
     }
-    store(fl, m, value);
+    if (f0 + fl < n_out) store(fl, m, f0 + fl < usable ? logf(mel + 1e-6f) / 10.0f + 2.0f : 0.0f);
+    if (fl2 != fl && f0 + fl2 < n_out)
+      store(fl2, m, f0 + fl2 < usable ? logf(mel2 + 1e-6f) / 10.0f + 2.0f : 0.0f);
   }
 }
 
@@ -326,7 +337,7 @@ __device__ __forceinline__ void logmel_chunk(const float* __restrict__ audio_cli
     __syncthreads();
   }
 
-  mel_log_store<PLD>(power_s, fb_s, FCHUNK, f0, usable, n_out, store);
+  mel_log_store<PLD>(power_s, fb_s, FCHUNK, f0, usable, n_out, threadIdx.x, store);
 }
 
 }  // namespace mel

@@ -8,23 +8,22 @@ Counterparts of the JAX package's ``ops/pallas/melspec_kernel.py``:
   (b, p_pad, 128) where patch p holds frames 4p..4p+3 (32 mel bins each),
   ``num_patches = frames // 4`` and ``p_pad`` rounds it up to 8; rows
   ``num_patches..p_pad-1`` are exact zeros. ``dft_mode="fat"`` is K1b, the
-  same function computed as one product of the clip's hop rows against the
-  three hop-aligned basis blocks side by side, then shifted sums.
+  same function computed as one product of the hop rows against the three
+  hop-aligned basis blocks side by side, then shifted sums.
 * ``mel_spectrogram(audio)`` is K3 (``mel_spectrogram_pallas``): (b, t) ->
   (b, frames, 32), every frame, the contract of the JAX package's XLA
   ``ops/melspec.py::mel_spectrogram``.
-* ``dft_dtype=torch.bfloat16`` (K1's chunked mode and K3) is the TPU kernels'
-  ``dft_dtype=bfloat16``: audio and basis rounded to bf16 before the DFT
-  product, float32 accumulation. The JAX suite bounds it at 1e-2 from the
-  float32 mel.
+* ``dft_dtype=torch.bfloat16`` (both modes of ``mel_patches``, and K3) is
+  the TPU kernels' ``dft_dtype=bfloat16``: audio and basis rounded to bf16
+  before the DFT product, float32 accumulation. The JAX suite bounds it at
+  1e-2 from the float32 mel.
 
-On the card K1 and K3 compute the DFT as a split tensor-core product of
-fp16 pairs (``csrc/mel_common.cuh``), within 5e-3 + 1e-4 |ref| of the
-float32 plain version; K1b keeps an exact float32 DFT. The kernels read the
-basis's split and the filterbank's bands from behind the float32 constants
-(``mel_constants``), so their C entries take the same pointers as before;
-each wrapper raises unless the buffers it passes hold those bytes
-(``check_constants``).
+On the card K1, K1b and K3 compute the DFT as a split tensor-core product of
+fp16 pairs (``csrc/mel_common.cuh``), within 5e-4 of the float32 plain
+version. The kernels read the basis's operands and the filterbank's bands
+from behind the float32 constants (``mel_constants``), so their C entries
+take the same pointers as before; each wrapper raises unless the buffers it
+passes hold those bytes (``check_constants``).
 
 Unlike the Pallas kernels nothing pads the batch. On a CUDA tensor each
 wrapper launches its hand-written kernel (``csrc/mel_patches.cu``,
@@ -108,6 +107,12 @@ def _numpy_constants() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 # the split DFT's power-of-two scaling of the basis (csrc/mel_common.cuh B_SCALE)
 SPLIT_BASIS_SCALE = 256.0
+# K1b's operand tiles (csrc/mel_patches_fat.cu): k16 x n128, n128 = the cos
+# and the sin columns of 64 bins, in the order the kernel consumes them
+FAT_K = 16
+FAT_BINS = 64
+FAT_TILE_BYTES = FAT_K * 2 * FAT_BINS * 2
+FAT_STAGES = (N_FREQ_PAD // FAT_BINS) * HOP_BLOCKS * (MEL_HOP_LENGTH // FAT_K)  # 60
 
 
 def _with_operands(taps: torch.Tensor) -> torch.Tensor:
@@ -140,31 +145,76 @@ def _with_bands(fb: torch.Tensor) -> torch.Tensor:
     return torch.cat(raw).view(torch.float32)[: fb.numel()].view(fb.shape)
 
 
+def fat_tiles(values: torch.Tensor) -> torch.Tensor:
+    """
+    The hop blocks (160, 3 * 256) of 16-bit ``values`` as K1b's operand tiles:
+    for each half h (bins 64 h ..), block j and k-step s, the tile of rows
+    16 s .. 16 s + 15 of block j and its columns of those bins' cos and sin,
+    as wgmma's K-major layout without swizzle reads it: 8 x 8 core matrices
+    of 8 columns (n) by 8 rows (k), 128 contiguous bytes each, the two along k
+    next to each other and the 16 along n 256 bytes apart. Returns
+    (FAT_STAGES, 16, 2, 8, 8): tile, n group, k half, n, k.
+    """
+    width = 2 * N_FREQ_PAD
+    tiles = []
+    for h in range(N_FREQ_PAD // FAT_BINS):
+        bins = torch.arange(h * FAT_BINS, (h + 1) * FAT_BINS, device=values.device)
+        cols = torch.cat([bins, N_FREQ_PAD + bins])
+        for j in range(HOP_BLOCKS):
+            block = values[:, j * width + cols]  # (160, 128)
+            for s in range(MEL_HOP_LENGTH // FAT_K):
+                tile = block[s * FAT_K : (s + 1) * FAT_K].t()  # (n 128, k 16)
+                tiles.append(tile.reshape(16, 8, 2, 8).permute(0, 2, 1, 3))
+    return torch.stack(tiles).contiguous()
+
+
+def _with_fat_operands(blocks: torch.Tensor) -> torch.Tensor:
+    """
+    One float32 buffer that holds the hop blocks (160, 3 * 256) and behind
+    them K1b's operands: the fp16 pair hi = fp16(b * 256), lo = fp16(b * 256
+    - hi) as ``fat_tiles``, each tile's hi then its lo, then the bf16(b)
+    tiles (``csrc/mel_patches_fat.cu`` OPS_*). Returns the (160, 768) view of
+    its head.
+    """
+    scaled = blocks * SPLIT_BASIS_SCALE
+    hi = scaled.half()
+    lo = (scaled - hi.float()).half()
+    pairs = torch.stack([fat_tiles(hi), fat_tiles(lo)], dim=1)
+    raw = [t.contiguous().view(torch.uint8).reshape(-1)
+           for t in (blocks, pairs, fat_tiles(blocks.bfloat16()))]
+    return torch.cat(raw).view(torch.float32)[: blocks.numel()].view(blocks.shape)
+
+
 @functools.lru_cache(maxsize=None)
 def mel_constants(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """
     The (taps, hop blocks, filterbank) constants the mel kernels read, on
-    ``device``; ``taps`` heads a buffer that also holds its DFT operands, and
-    ``fb`` one that also holds its bands.
+    ``device``; ``taps`` and ``blocks`` head buffers that also hold their DFT
+    operands, and ``fb`` one that also holds its bands.
     """
     taps, blocks, fb = (torch.from_numpy(c).to(device) for c in _numpy_constants())
-    return _with_operands(taps), blocks, _with_bands(fb)
+    return _with_operands(taps), _with_fat_operands(blocks), _with_bands(fb)
 
 
-# bytes the kernels read from the buffers that ``taps`` and ``fb`` head: the
-# float32 taps and three 16-bit operands (``csrc/mel_common.cuh`` OPS_*); the
-# float32 filterbank and two int32 bands (FB_FLOATS)
+# bytes the kernels read from the buffers that ``taps``, ``blocks`` and ``fb``
+# head: the float32 taps and three 16-bit operands (``csrc/mel_common.cuh``
+# OPS_*); the float32 hop blocks and three 16-bit operands
+# (``csrc/mel_patches_fat.cu`` OPS_*); the float32 filterbank and two int32
+# bands (FB_FLOATS)
 OPERAND_BYTES = TAPS * 2 * N_FREQ_PAD * (4 + 3 * 2)
+FAT_OPERAND_BYTES = MEL_HOP_LENGTH * HOP_BLOCKS * 2 * N_FREQ_PAD * 4 + FAT_STAGES * FAT_TILE_BYTES * 3
 BAND_BYTES = (N_FREQ_PAD + 2) * MEL_BINS * 4
 
 
-def check_constants(taps: torch.Tensor, fb: torch.Tensor) -> None:
+def check_constants(taps: torch.Tensor, fb: torch.Tensor, blocks: torch.Tensor) -> None:
     """
-    Raise unless ``taps`` and ``fb`` head buffers that hold what the kernels
-    read behind them (``mel_constants``'s own): a copy of either, made with
-    ``clone``, ``contiguous`` or ``to``, ends at its last float32 value.
+    Raise unless ``taps``, ``fb`` and ``blocks`` head buffers that hold what
+    the kernels read behind them (``mel_constants``'s own): a copy of any,
+    made with ``clone``, ``contiguous`` or ``to``, ends at its last float32
+    value.
     """
-    for what, t, need in (("taps", taps, OPERAND_BYTES), ("fb", fb, BAND_BYTES)):
+    for what, t, need in (("taps", taps, OPERAND_BYTES), ("fb", fb, BAND_BYTES),
+                          ("blocks", blocks, FAT_OPERAND_BYTES)):
         held = t.untyped_storage().nbytes() - t.storage_offset() * t.element_size()
         if t.dtype != torch.float32 or not t.is_contiguous() or held < need:
             raise ValueError(
@@ -176,7 +226,7 @@ def check_constants(taps: torch.Tensor, fb: torch.Tensor) -> None:
 def kernel_constants(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``mel_constants(device)`` for a launch, checked by ``check_constants``."""
     taps, blocks, fb = mel_constants(device)
-    check_constants(taps, fb)
+    check_constants(taps, fb, blocks)
     return taps, blocks, fb
 
 
@@ -207,12 +257,20 @@ def _logmel_taps(
     return _mel_tail(torch.matmul(frames.to(accumulate), taps.to(accumulate)), fb).float()
 
 
-def _logmel_hop_blocks(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
-    """The first ``n_frames`` frames by K1b's hop-block product and shifted sums."""
+def _logmel_hop_blocks(
+    audio: torch.Tensor, n_frames: int, dft_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """
+    The first ``n_frames`` frames by K1b's hop-block product and shifted
+    sums; with ``dft_dtype=torch.bfloat16`` the hop rows and the blocks are
+    rounded to bf16 first and multiplied in float32 (each product exact).
+    """
     _, blocks, fb = mel_constants(audio.device)
     b = audio.shape[0]
     n_hops = n_frames + HOP_BLOCKS - 1  # frame f reads hops f, f+1, f+2
     hops = audio[:, : n_hops * MEL_HOP_LENGTH].reshape(b, n_hops, MEL_HOP_LENGTH)
+    if dft_dtype == torch.bfloat16:
+        hops, blocks = hops.bfloat16().float(), blocks.bfloat16().float()
     z = torch.matmul(hops, blocks)  # (b, n_hops, 3 * 256)
     width = 2 * N_FREQ_PAD
     spectrum = z[:, :n_frames, :width]
@@ -236,7 +294,7 @@ def mel_patches_plain(
     b, t = audio.shape
     usable, num_patches, p_pad = patch_geometry(t)
     if dft_mode == "fat":
-        logmel = _logmel_hop_blocks(audio, usable)
+        logmel = _logmel_hop_blocks(audio, usable, dft_dtype)
     else:
         logmel = _logmel_taps(audio, usable, dft_dtype, accumulate)
     out = audio.new_zeros((b, p_pad, PATCH_FRAMES * MEL_BINS))
@@ -269,15 +327,13 @@ def mel_patches(
 ) -> Tuple[torch.Tensor, int]:
     """
     (b, t) float32 int16-range audio -> ((b, p_pad, 128) patches, num_patches).
-    ``dft_mode`` "chunked" is K1, "fat" K1b; ``dft_dtype=torch.bfloat16`` (chunked
-    only) the bf16-DFT variant. Launches the CUDA kernel for a CUDA tensor, the
+    ``dft_mode`` "chunked" is K1, "fat" K1b; ``dft_dtype=torch.bfloat16`` the
+    bf16-DFT variant of either. Launches the CUDA kernel for a CUDA tensor, the
     plain version for a CPU one.
     """
     if dft_mode not in DFT_MODES:
         raise ValueError(f"unknown dft_mode {dft_mode!r}; expected one of {DFT_MODES}")
     check_dft_dtype(dft_dtype)
-    if dft_mode == "fat" and dft_dtype != torch.float32:
-        raise ValueError("the hop-block mode (dft_mode='fat') takes dft_dtype=torch.float32 only")
     check_audio(audio, "mel_patches")
     b, t = audio.shape
     usable, num_patches, p_pad = patch_geometry(t)
@@ -294,9 +350,19 @@ def mel_patches(
         audio.device,
         [audio.data_ptr(), basis.data_ptr(), fb.data_ptr(), out.data_ptr()],
         [b, t, usable, p_pad],
-        entry="mel_patches_bf16" if dft_dtype == torch.bfloat16 else name,
+        entry=f"{name}_bf16" if dft_dtype == torch.bfloat16 else name,
     )
     return out, num_patches
+
+
+def fat_load_path(audio: torch.Tensor) -> str:
+    """
+    How K1b loads ``audio``'s hop rows: "tma" when the audio is the flat
+    matrix of hop rows (t % 160 == 0, 16-byte aligned), else "plain"; the
+    rule of ``csrc/mel_patches_fat.cu`` ``tma_path``.
+    """
+    aligned = audio.shape[-1] % MEL_HOP_LENGTH == 0 and audio.data_ptr() % 16 == 0
+    return "tma" if aligned else "plain"
 
 
 def mel_spectrogram(audio: torch.Tensor, dft_dtype: torch.dtype = torch.float32) -> torch.Tensor:

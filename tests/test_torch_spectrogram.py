@@ -11,7 +11,7 @@ import torch
 import jax.numpy as jnp
 
 from heybuddy_tpu.ops.pallas.melspec_kernel import mel_patches_pallas, mel_spectrogram_pallas
-from heybuddy_tpu_torch.ops.kernels.melspec_kernel import mel_patches, mel_spectrogram
+from heybuddy_tpu_torch.ops.kernels.melspec_kernel import fat_load_path, mel_patches, mel_spectrogram
 
 # fp32 DFT of int16-range audio summed in another order than the Pallas
 # kernel's: the JAX suite's own bound between its Pallas and XLA mel paths
@@ -57,6 +57,34 @@ def test_fat_mel_patches_match_pallas_and_chunked(b, t, expect):
     np.testing.assert_allclose(got[:, :n], ref[:, :n], atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(got[:, :n], chunked[:, :n], atol=ATOL, rtol=RTOL)
     assert (got[:, n:] == 0).all()
+
+
+@pytest.mark.parametrize("b, t, expect", [(2, 23040, 35), (3, 20001, 30)])
+def test_fat_bf16_mel_patches_match_the_chunked_bf16_mode(b, t, expect):
+    """
+    The hop-block bf16 DFT rounds the same samples and basis values to bf16 as
+    the chunked one and sums the same exact products in another order: JAX's
+    two modes agree bit for bit, the port's within float32 rounding.
+    """
+    audio = _audio(44, b, t)
+    ref, ref_n = mel_patches_pallas(jnp.asarray(audio), interpret=True, dft_dtype=jnp.bfloat16)
+    ref = np.asarray(ref)[:b]
+    got, n = mel_patches(torch.from_numpy(audio), dft_mode="fat", dft_dtype=torch.bfloat16)
+    chunked, _ = mel_patches(torch.from_numpy(audio), dft_dtype=torch.bfloat16)
+    got, chunked = got.numpy(), chunked.numpy()
+    assert n == ref_n == expect
+    np.testing.assert_allclose(got[:, :n], ref[:, :n], atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got[:, :n], chunked[:, :n], atol=ATOL, rtol=RTOL)
+    assert (got[:, n:] == 0).all()
+
+
+@pytest.mark.parametrize("t, offset, path", [(23040, 0, "tma"), (20001, 0, "plain"), (23040, 1, "plain")])
+def test_fat_load_path_follows_the_flat_hop_view(t, offset, path):
+    """K1b loads hop rows by TMA only where the audio is the flat (rows, 160) matrix, 16-byte aligned."""
+    buf = torch.zeros(2 * t + offset)
+    audio = buf[offset:].view(2, t)
+    assert audio.data_ptr() % 16 == 4 * offset % 16
+    assert fat_load_path(audio) == path
 
 
 def test_unknown_dft_mode_raises():

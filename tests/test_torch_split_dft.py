@@ -13,7 +13,14 @@ pair is more than ten times further from float32.
 
 The bf16-DFT variant (``dft_dtype=torch.bfloat16``, the TPU kernels'
 ``dft_dtype=jnp.bfloat16``) runs its plain version here against JAX's Pallas
-kernels in interpret mode.
+kernels in interpret mode, in both of ``mel_patches``' modes.
+
+K1b (``dft_mode="fat"``) computes the same split as one product of the hop
+rows against the three hop-aligned basis blocks, then shifted sums
+(``csrc/mel_patches_fat.cu``). Its split is emulated here the same way, and
+so is the kernel's walk: its operand tiles decoded from the buffer behind
+the blocks as its wgmma descriptors read them, its 64-row tiles over the
+flat hop rows, the halo, the shifted sums in the epilogue and the pad rows.
 """
 
 import numpy as np
@@ -32,6 +39,9 @@ ATOL, RTOL = 5e-3, 1e-4
 BF16_DFT_TOL = 1e-2
 # csrc/mel_common.cuh X_SCALE: audio enters the fp16 pair scaled by 2^-8
 X_SCALE = 1.0 / 256.0
+# the split's limit against the float32 mel (chip_smoke.py SPLIT_ATOL): fp16
+# pairs stay within 6.1e-5 of it on the tone, bf16 pairs reach 2.3e-3
+SPLIT_ATOL = 5e-4
 
 
 def _noise(seed: int, b: int, t: int) -> np.ndarray:
@@ -69,6 +79,113 @@ def _split_logmel(audio: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def _jax_mel(audio: np.ndarray) -> np.ndarray:
     return np.asarray(jax_melspec.mel_spectrogram(jnp.asarray(audio)))
+
+
+def _split_hop_blocks(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
+    """
+    ``_logmel_hop_blocks`` with the hop rows and the blocks split into fp16
+    pairs at the kernels' scalings: three products per 160-deep block, each
+    exact and summed in float64, then the shifted sums.
+    """
+    _, blocks, fb = mk.mel_constants(torch.device("cpu"))
+    b = audio.shape[0]
+    n_hops = n_frames + mk.HOP_BLOCKS - 1
+    hops = audio[:, : n_hops * MEL_HOP_LENGTH].reshape(b, n_hops, MEL_HOP_LENGTH)
+    x_hi, x_lo = _pair(hops, torch.float16, X_SCALE)
+    b_hi, b_lo = _pair(blocks, torch.float16, mk.SPLIT_BASIS_SCALE)
+    z = x_hi @ b_hi + x_hi @ b_lo + x_lo @ b_hi  # (b, n_hops, 3 * 256)
+    width = 2 * mk.N_FREQ_PAD
+    spectrum = sum(z[:, j : j + n_frames, j * width : (j + 1) * width] for j in range(mk.HOP_BLOCKS))
+    return mk._mel_tail(spectrum.float(), fb)
+
+
+def _jax_fat(audio: np.ndarray, dft_dtype=jnp.float32):
+    out, n = mel_patches_pallas(jnp.asarray(audio), interpret=True, dft_mode="fat", dft_dtype=dft_dtype)
+    return np.asarray(out)[: audio.shape[0]], n  # the Pallas kernel pads the batch to 16
+
+
+# csrc/mel_patches_fat.cu: hop rows a warpgroup multiplies, frames it keeps,
+# warpgroups a block
+ROWS_WG, FRAMES_WG, CONSUMERS = 64, 62, 2
+
+
+def _operand_tiles(terms: int) -> list:
+    """
+    K1b's operand tiles decoded from the buffer behind the blocks, each as
+    (160, 128) float64 per (half, block) in consumption order: element (n, k)
+    of a k16 x n128 tile at 16-bit index 128 (n // 8) + 64 (k // 8) + 8 (n %
+    8) + k % 8, the wgmma descriptors' strides (256 B along n, 128 B along k).
+    """
+    _, blocks, _ = mk.mel_constants(torch.device("cpu"))
+    raw = torch.frombuffer(bytearray(bytes(blocks.untyped_storage())), dtype=torch.uint8)
+    ops = raw[blocks.numel() * 4 :]
+    tile = mk.FAT_TILE_BYTES
+    n, k = torch.meshgrid(torch.arange(128), torch.arange(16), indexing="ij")
+    index = 128 * (n // 8) + 64 * (k // 8) + 8 * (n % 8) + k % 8
+    stages = mk.FAT_STAGES
+
+    def decode(buf, dtype, stride, offset):
+        out = []
+        for st in range(stages):
+            words = buf[st * stride + offset : st * stride + offset + tile].view(dtype)
+            out.append(words[index].double().t())  # (k 16, n 128)
+        # 10 k-steps per (half, block): (160, 128)
+        return [torch.cat(out[i : i + 10]) for i in range(0, stages, 10)]
+
+    if terms == 3:
+        return list(zip(decode(ops, torch.float16, 2 * tile, 0), decode(ops, torch.float16, 2 * tile, tile)))
+    bf16 = ops[stages * 2 * tile :]
+    return [(b16, None) for b16 in decode(bf16, torch.bfloat16, tile, 0)]
+
+
+def _emulate_fat_kernel(audio: torch.Tensor, terms: int) -> torch.Tensor:
+    """
+    K1b's walk in float64: blocks of two warpgroups, each 64 flat hop rows
+    (zero past the batch) for 62 frames; per half and block the product of
+    the split rows with the decoded tiles; block 0 written to frame r, block
+    1 added to frame r - 1, block 2 added to frame r - 2; the frames of each
+    clip below ``usable`` stored, each clip's pad rows zeroed by the
+    warpgroup that holds its first pad frame. Unwritten values stay NaN.
+    """
+    b, t = audio.shape
+    usable, _, p_pad = mk.patch_geometry(t)
+    per_clip = t // MEL_HOP_LENGTH
+    rows = b * per_clip
+    flat = audio[:, : per_clip * MEL_HOP_LENGTH].reshape(rows, MEL_HOP_LENGTH)
+    tiles = _operand_tiles(terms)
+    _, _, fb = mk.mel_constants(torch.device("cpu"))
+    out = torch.full((b, 4 * p_pad, 32), float("nan"))
+    for r0 in range(0, rows, FRAMES_WG):  # each warpgroup's first row (= first frame)
+        a = torch.zeros(ROWS_WG, MEL_HOP_LENGTH)
+        a[: max(0, min(ROWS_WG, rows - r0))] = flat[r0 : r0 + ROWS_WG]
+        if terms == 3:
+            v = a * X_SCALE
+            hi = v.half()
+            x = (hi.double(), (v - hi.float()).half().double())
+        else:
+            x = (a.bfloat16().double(), None)
+        halves = []
+        for h in range(2):
+            spec = torch.zeros(FRAMES_WG, 128, dtype=torch.float64)
+            for j in range(3):
+                b_hi, b_lo = tiles[h * 3 + j]
+                d = x[0] @ b_hi
+                if terms == 3:
+                    d = d + x[0] @ b_lo + x[1] @ b_hi
+                d = d.float().double()  # float32 accumulators
+                spec = spec + d[j : j + FRAMES_WG]
+            halves.append(spec)
+        # (62, 256): the cos of bins 0..127, then their sin
+        spectrum = torch.cat([halves[0][:, :64], halves[1][:, :64], halves[0][:, 64:], halves[1][:, 64:]], 1)
+        logmel = mk._mel_tail(spectrum.float(), fb)
+        for fl in range(FRAMES_WG):
+            clip, f = divmod(r0 + fl, per_clip)
+            if clip < b and f < usable:
+                out[clip, f] = logmel[fl]
+        for clip in range(b):
+            if r0 <= clip * per_clip + usable < r0 + FRAMES_WG:
+                out[clip, usable:] = 0.0
+    return out.reshape(b, p_pad, 128)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16], ids=["fp16-pair", "bf16-pair"])
@@ -128,13 +245,14 @@ def test_the_filterbank_buffer_holds_each_bins_band_behind_it():
 
 
 def test_the_constants_pass_their_own_check():
-    taps, _, fb = mk.kernel_constants(torch.device("cpu"))
+    taps, blocks, fb = mk.kernel_constants(torch.device("cpu"))
     assert taps.untyped_storage().nbytes() == mk.OPERAND_BYTES
     assert fb.untyped_storage().nbytes() == mk.BAND_BYTES
-    mk.check_constants(taps, fb)
+    assert blocks.untyped_storage().nbytes() == mk.FAT_OPERAND_BYTES
+    mk.check_constants(taps, fb, blocks)
 
 
-@pytest.mark.parametrize("which", ["taps", "fb"])
+@pytest.mark.parametrize("which", ["taps", "fb", "blocks"])
 @pytest.mark.parametrize("copy", [
     lambda t: t.clone(),
     lambda t: t.to(torch.float64).to(torch.float32),
@@ -142,13 +260,15 @@ def test_the_constants_pass_their_own_check():
 ], ids=["clone", "to", "transposed"])
 def test_a_copy_of_a_constant_is_refused(which, copy):
     """A copy ends at its last float32 value: a kernel would read past it."""
-    taps, _, fb = mk.mel_constants(torch.device("cpu"))
+    taps, blocks, fb = mk.mel_constants(torch.device("cpu"))
     if which == "taps":
         taps = copy(taps)
-    else:
+    elif which == "fb":
         fb = copy(fb)
+    else:
+        blocks = copy(blocks)
     with pytest.raises(ValueError, match=which):
-        mk.check_constants(taps, fb)
+        mk.check_constants(taps, fb, blocks)
 
 
 @pytest.mark.parametrize("b, t, frames", [(2, 23040, 141), (3, 17280, 105)])
@@ -182,8 +302,67 @@ def test_dft_dtype_is_checked():
         mk.mel_patches(audio, dft_dtype=torch.float16)
     with pytest.raises(ValueError, match="dft_dtype"):
         mk.mel_spectrogram(audio, dft_dtype=torch.float64)
-    with pytest.raises(ValueError, match="fat"):
-        mk.mel_patches(audio, dft_mode="fat", dft_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dft_dtype"):
+        mk.mel_patches(audio, dft_mode="fat", dft_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("b, t, expect", [(2, 23040, 35), (3, 17280, 26)])
+def test_fat_bf16_dft_patches_match_pallas(b, t, expect):
+    audio = _noise(26, b, t)
+    ref, ref_n = _jax_fat(audio, jnp.bfloat16)
+    got, n = mk.mel_patches(torch.from_numpy(audio), dft_mode="fat", dft_dtype=torch.bfloat16)
+    f32, _ = mk.mel_patches(torch.from_numpy(audio), dft_mode="fat")
+    got, f32 = got.numpy(), f32.numpy()
+    assert n == ref_n == expect
+    assert got.shape == ref.shape == (b, -(-n // 8) * 8, 128)
+    np.testing.assert_allclose(got[:, :n], ref[:, :n], atol=ATOL, rtol=RTOL)
+    assert np.abs(got[:, :n] - f32[:, :n]).max() < BF16_DFT_TOL
+    assert (got[:, n:] == 0).all()
+
+
+@pytest.mark.parametrize("kind", ["noise", "tonal"])
+def test_fat_split_dft_matches_the_float32_fat_mel(kind):
+    audio = (_noise if kind == "noise" else _tonal)(27, 3, 23040)
+    ref, n = _jax_fat(audio)
+    usable = 4 * n
+    got = _split_hop_blocks(torch.from_numpy(audio), usable).numpy()
+    assert np.abs(got.reshape(3, n, 128) - ref[:, :n]).max() < SPLIT_ATOL
+
+
+def test_the_blocks_buffer_holds_their_operand_tiles_behind_them():
+    _, blocks, _ = mk.mel_constants(torch.device("cpu"))
+    assert torch.equal(blocks, torch.from_numpy(mk._numpy_constants()[1]))
+    assert blocks.untyped_storage().nbytes() == mk.FAT_OPERAND_BYTES
+    scaled = blocks.double() * mk.SPLIT_BASIS_SCALE
+    hi = scaled.float().half()
+    lo = (scaled.float() - hi.float()).half()
+    width = 2 * mk.N_FREQ_PAD
+    for terms, want in ((3, (hi, lo)), (1, (blocks.bfloat16(), None))):
+        for i, got in enumerate(_operand_tiles(terms)):
+            h, j = divmod(i, 3)
+            bins = torch.arange(64 * h, 64 * h + 64)
+            cols = j * width + torch.cat([bins, mk.N_FREQ_PAD + bins])
+            for part, ref in zip(got, want):
+                if ref is not None:
+                    assert torch.equal(part, ref[:, cols].double()), (terms, h, j)
+
+
+@pytest.mark.parametrize("terms", [3, 1], ids=["split", "bf16"])
+@pytest.mark.parametrize("b, t", [(3, 23040), (2, 20001), (1, 32000), (5, 17280)])
+def test_the_fat_kernels_walk_matches_the_plain_version(b, t, terms):
+    """
+    The kernel's tiling, halo, epilogue and pad rows, emulated on its own
+    operand tiles, against the plain version of its DFT type: flat rows
+    across clip boundaries (t % 160 == 0) and the clips' own rows (20001),
+    a batch that ends inside a tile.
+    """
+    audio = torch.from_numpy(_noise(28, b, t))
+    dtype = torch.float32 if terms == 3 else torch.bfloat16
+    ref, n = mk.mel_patches_plain(audio, "fat", dtype)
+    got = _emulate_fat_kernel(audio, terms)
+    assert not torch.isnan(got).any()
+    assert (got[:, n:] == 0).all()
+    assert (got[:, :n] - ref[:, :n]).abs().max().item() < SPLIT_ATOL
 
 
 def test_float64_accumulation_moves_the_mel_by_float32_rounding_only():
