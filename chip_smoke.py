@@ -27,7 +27,16 @@ render, augmentation and pad-only features on the card against the CPU with
 the same draws, timed stage by stage, and ``train`` from an empty dataset
 directory on the fused ``formant-device`` route (K1 -> K2 once per batch of
 512) and on the host ``formant`` route, with both heads scored on the
-generated held-out caches. It checks what each path returns, times kernels and
+generated held-out caches; then the stream path: stream-window caches of each
+kind (speech, near-collision and collision-salad streams synthesised on the
+host, and speech on the ``formant-device`` route), one K1 and one K2 per
+1024-window segment, K1 on the segment's row-strided window view against K1
+on the materialised windows bit for bit, a top-up against the whole, and
+``train`` with the three stream options from an empty directory; then
+``listen --input-wav`` through the CLI entry with the head that run wrote
+and its ONNX export, without and with ``--vad``, on the card against the CPU
+(detections, chunk scores, one K1 and one K2 per head and scored chunk), and
+``SileroStyleVAD`` on the card against the CPU. It checks what each path returns, times kernels and
 plain versions with CUDA events, prints one JSON line of kernel numbers and
 ends with one JSON line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero; it also fails without a CUDA device.
@@ -55,10 +64,12 @@ import torch
 
 from heybuddy_tpu_torch.cli import main as cli_main
 from heybuddy_tpu_torch.constants import (
+    DEFAULT_ACTIVATION_THRESHOLD,
     DEFAULT_ADVERSARIAL_BATCH_SIZE,
     DEFAULT_NEGATIVE_BATCH_SIZE,
     DEFAULT_POSITIVE_BATCH_SIZE,
     MEL_N_FFT,
+    RUNTIME_WINDOW_STRIDE,
 )
 from heybuddy_tpu_torch.convert import wakeword_params_to_numpy
 from heybuddy_tpu_torch.data.augmented import AugmentedAudioGenerator, NoiseProvider
@@ -66,12 +77,19 @@ from heybuddy_tpu_torch.data.extract import LabeledFeatureExtractor
 from heybuddy_tpu_torch.data.features import TrainingFeaturesGenerator, autoconfigure_batch_sizes
 from heybuddy_tpu_torch.data.precalculated import PrecalculatedDatasetIterator
 from heybuddy_tpu_torch.data.space import active_space, write_space_sidecar
+from heybuddy_tpu_torch.data.streams import stream_window_clips, synth_speech_stream
 from heybuddy_tpu_torch.data.training import WakeWordTrainingDatasetIterator
 from heybuddy_tpu_torch.data.tts_generator import SpeechSampleGenerator
 from heybuddy_tpu_torch.export.onnx_numpy import OnnxRunner
 from heybuddy_tpu_torch.models import formant_device as fd
-from heybuddy_tpu_torch.models.featurizer import SpeechEmbeddings, featurize_batch, get_speech_embeddings
+from heybuddy_tpu_torch.models.featurizer import (
+    STREAM_SEGMENT_WINDOWS,
+    SpeechEmbeddings,
+    featurize_batch,
+    get_speech_embeddings,
+)
 from heybuddy_tpu_torch.models.tts import get_tts_model
+from heybuddy_tpu_torch.models.vad import SileroStyleVAD, get_vad_model
 from heybuddy_tpu_torch.models.wakeword import (
     WakeWordMLPModel,
     WakeWordTransformerModel,
@@ -1126,6 +1144,316 @@ def generate_phase(net, dev: torch.device, tmp: str) -> Dict:
         "formant": host["summary"], **{f"profiled_{k}": v for k, v in busy.items()}}}
 
 
+# The stream phase: stream-window caches generated on the card from the
+# host-synthesised streams (data/streams.py), each segment of 1024 windows
+# uploaded once and read by K1 as a row-strided view; then `train` with all
+# three stream options from an empty directory. STREAM_ROWS is two segments
+# per kind, so the double buffer runs; the train counts are cut to one
+# segment each (the defaults are 0: users ask for tens of thousands).
+STREAM_ROWS = 2048
+STREAM_SEED = 0  # train's feature seed
+STREAM_KINDS = (  # (label, backend, get_stream_window_features options)
+    ("speech", "formant", {}),
+    ("adversarial", "formant", {"adversarial": True}),
+    ("collision", "formant", {"collision": True}),
+    ("speech-device", "formant-device", {}),
+)
+STREAM_TRAIN_ROWS = 512
+STREAM_TRAIN_STEPS = 300
+# The listen phase: a 10 s wav (two "hey buddy" and one other phrase over
+# ambient noise) through `listen`, with the stream phase's head and its ONNX
+# export, chunks of the default 4096 samples. SileroStyleVAD card vs CPU over
+# LISTEN_VAD_FRAMES 20 ms frames, state carried: its CPU tests' bound against JAX.
+LISTEN_SECONDS = 10
+LISTEN_VAD_FRAMES = 50
+SILERO_ATOL = 1e-5
+
+
+@contextlib.contextmanager
+def dataset_dir(path: str):
+    """``HEYBUDDY_DATASET_DIR`` set to ``path`` inside the block."""
+    saved = os.environ.get("HEYBUDDY_DATASET_DIR")
+    os.environ["HEYBUDDY_DATASET_DIR"] = path
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("HEYBUDDY_DATASET_DIR", None)
+        else:
+            os.environ["HEYBUDDY_DATASET_DIR"] = saved
+
+
+class StreamLog(GenLog):
+    """``GenLog`` plus the stream-window caches' segments, per cache."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.segments: Dict[str, int] = {}
+
+    def emit(self, record: logging.LogRecord) -> None:
+        super().emit(record)
+        if m := re.match(r"Featurized \d+ stream windows into (\S+)\.npy in (\d+) segment", record.getMessage()):
+            self.segments[m[1]] = self.segments.get(m[1], 0) + int(m[2])
+
+
+def stream_phase(net, dev: torch.device, tmp: str) -> Dict:
+    """Each stream kind's cache generated on the card, its launches and rows
+    checked; the first segment held to the materialised windows; a top-up
+    held to the whole; K1 + K2 timed on a segment; `train` with the three
+    stream options from an empty directory."""
+    seg_windows = STREAM_SEGMENT_WINDOWS
+    segments = -(-STREAM_ROWS // seg_windows)
+    out: Dict = {"launches": {}, "summary": {}}
+    caches = {}
+    for label, backend, kwargs in STREAM_KINDS:
+        gen = TrainingFeaturesGenerator(GEN_PHRASE, directory=os.path.join(tmp, f"stream-{label}"), device=dev,
+                                        tts_backend=backend, seed=STREAM_SEED)
+        t0 = time.perf_counter()
+        it, launches = run_path(f"stream_{label}", lambda: gen.get_stream_window_features(STREAM_ROWS, **kwargs),
+                                ("mel_patches", "embedding_pool"))
+        seconds = time.perf_counter() - t0
+        rows = np.load(os.path.join(tmp, f"stream-{label}", f"{it.name}.npy"))
+        caches[label] = rows
+        check(rows.shape == (STREAM_ROWS, 16, 96) and bool(np.isfinite(rows).all()),
+              f"stream {label}: rows {rows.shape}, expected ({STREAM_ROWS}, 16, 96), finite")
+        check(launches == {"mel_patches": segments, "embedding_pool": segments},
+              f"stream {label}: launched {launches}, expected {segments} of K1 and of K2 (one per segment)")
+        out["launches"][label] = launches
+        out["summary"][label] = {"windows_per_s": STREAM_ROWS / seconds, "seconds": seconds, "segments": segments}
+        print(f"stream {label} ({backend} route): {STREAM_ROWS} windows of {it.name} in {seconds:.3f} s (host clock, "
+              f"synthesis included) = {STREAM_ROWS / seconds:.1f} windows/s; launches {launches}")
+    # the first segment of the speech stream, synthesised again from its seed
+    seg_seconds = (seg_windows * RUNTIME_WINDOW_STRIDE + CLIP) / 16000.0
+    stream = synth_speech_stream(seg_seconds / 60.0, STREAM_SEED, exclude_phrase=GEN_PHRASE, tts_backend="formant",
+                                 device=dev)
+    clips = stream_window_clips(stream)[:seg_windows]
+    windows = torch.from_numpy(clips * 32767.0).to(dev)
+    direct = featurize_batch(net, windows).cpu().numpy()
+    err = float(np.abs(caches["speech"][:seg_windows] - direct).max())
+    print(f"stream speech: the first segment's rows vs featurize_batch on its {seg_windows} materialised windows: "
+          f"max |d| {err:.3e} (the same kernels on the same samples: 0 expected)")
+    check(err == 0.0, "stream rows differ from featurize_batch on the materialised windows")
+    seg = np.zeros((seg_windows - 1) * RUNTIME_WINDOW_STRIDE + CLIP, np.float32)
+    seg[: min(len(stream), len(seg))] = stream[: len(seg)]
+    segment = torch.from_numpy(seg).to(dev).mul_(32767.0)
+    view = segment.as_strided((seg_windows, CLIP), (RUNTIME_WINDOW_STRIDE, 1))
+    for dtype in (torch.float32, torch.bfloat16):
+        a, n = mk.mel_patches(view, dft_dtype=dtype)
+        b, _ = mk.mel_patches(view.contiguous(), dft_dtype=dtype)
+        torch.cuda.synchronize()
+        print(f"stream K1 ({dtype}) on the row-strided view ({seg_windows} rows {RUNTIME_WINDOW_STRIDE} apart) vs on "
+              f"its contiguous copy: equal {bool(torch.equal(a, b))}, max |d| {(a - b).abs().max().item():.3e}")
+        check(bool(torch.equal(a, b)), f"K1 ({dtype}) on the strided view differs from K1 on the materialised windows")
+    # a top-up of a half cache equals the cache generated whole
+    topup = TrainingFeaturesGenerator(GEN_PHRASE, directory=os.path.join(tmp, "stream-topup"), device=dev,
+                                      tts_backend="formant", seed=STREAM_SEED)
+    topup.get_stream_window_features(seg_windows)
+    it = topup.get_stream_window_features(STREAM_ROWS)
+    grown = np.load(os.path.join(tmp, "stream-topup", f"{it.name}.npy"))
+    check(bool(np.array_equal(grown, caches["speech"])),
+          f"a {seg_windows} -> {STREAM_ROWS} top-up differs from the whole")
+    print(f"stream speech: a {seg_windows} -> {STREAM_ROWS} top-up equals the cache generated whole")
+    # K1 + K2 of one segment by CUDA events, and what the segment upload costs
+    k1k2_ms = cuda_ms(lambda: featurize_batch(net, view))
+    upload_ms = cuda_ms(lambda: torch.from_numpy(seg).to(dev))
+    stream_ms = cuda_ms(lambda: get_speech_embeddings(device=dev).featurize_stream_device(
+        stream, seg_windows, RUNTIME_WINDOW_STRIDE)[0].cpu())
+    window_bytes = seg_windows * CLIP * 4
+    print(f"stream segment of {seg_windows} windows, CUDA events (median): K1 + K2 on the strided view "
+          f"{k1k2_ms:.4f} ms; the upload of the segment {upload_ms:.4f} ms; featurize_stream_device (upload, "
+          f"scale, K1, K2) and the rows' copy back {stream_ms:.4f} ms; bytes uploaded {seg.nbytes} (the "
+          f"materialised windows would be {window_bytes}, {window_bytes / seg.nbytes:.2f}x)")
+    # the device's share of a segment, bounded from above: all of the
+    # segment's device work (featurize_stream_device and the rows' copy back,
+    # timed end to end) over the host-route segment's wall time
+    # (torch.profiler's trace of one segment held no device event in this
+    # long process, though a fresh process sees its five)
+    segment_ms = out["summary"]["speech"]["seconds"] / segments * 1e3
+    share = stream_ms / segment_ms
+    out["summary"]["segment"] = {"k1_k2_ms": k1k2_ms, "upload_ms": upload_ms, "featurize_stream_device_ms": stream_ms,
+                                 "bytes_uploaded": seg.nbytes, "materialised_bytes": window_bytes,
+                                 "host_ms": segment_ms, "device_share_at_most": share}
+    print(f"stream: a host-route segment takes {segment_ms:.1f} ms (host clock); the card's share of it is at most "
+          f"its device work's {stream_ms:.4f} ms: {share:.6f}")
+    out.update(stream_train(dev, tmp))
+    return out
+
+
+def stream_train(dev: torch.device, tmp: str) -> Dict:
+    """``train`` through the CLI from an empty dataset directory with the three
+    stream options on the host route: the caches, the launch counts (one K1
+    and one K2 per featurize call and per stream segment) and a falling loss."""
+    data_dir = os.path.join(tmp, "stream-train")
+    os.makedirs(data_dir)
+    ckpt = os.path.join(tmp, "stream-train-ckpt")
+    rows = GEN_HOST_ROWS
+    argv = ["train", GEN_PHRASE, "--tts-backend", "formant", "--positive-samples", str(rows["hey-buddy"]),
+            "--adversarial-samples", str(rows["hey-buddy-adversarial"]),
+            "--validation-samples", str(rows["hey-buddy-testing-validation"]),
+            "--testing-positive-samples", "0", "--testing-adversarial-samples", "0",
+            "--stream-negative-samples", str(STREAM_TRAIN_ROWS), "--collision-negative-samples",
+            str(STREAM_TRAIN_ROWS), "--validation-stream-negative-samples", str(STREAM_TRAIN_ROWS),
+            "--stages", "1", "--steps", str(STREAM_TRAIN_STEPS), "--training-no-default-dataset",
+            "--checkpoint-dir", ckpt, "--device", dev.type]
+    log, stdout = StreamLog(), io.StringIO()
+    logger.addHandler(log)
+    try:
+        with dataset_dir(data_dir), contextlib.redirect_stdout(stdout):
+            t0 = time.time()
+            rc, launches = run_path("stream_train", lambda: cli_main(argv), ("mel_patches", "embedding_pool"))
+            total_s = time.time() - t0
+    finally:
+        logger.removeHandler(log)
+    check(rc == 0 and "Training complete" in stdout.getvalue(), "train with the stream options failed")
+    check(len(log.segments) == 4, f"stream caches generated: {sorted(log.segments)}, expected 4")
+    for name in log.segments:
+        data = np.load(os.path.join(data_dir, f"{name}.npy"))
+        check(bool(np.isfinite(data).all()) and data.shape[1:] == (16, 96), f"stream cache {name} {data.shape}")
+    expected = sum(log.classic.values()) + sum(log.segments.values())
+    check(launches == {"mel_patches": expected, "embedding_pool": expected},
+          f"stream train: launched {launches}, expected {expected} (featurize calls {log.classic}, segments "
+          f"{log.segments})")
+    loss = np.array(log.losses)
+    head, tail = float(loss[:3].mean()), float(loss[-3:].mean())
+    check(bool(np.isfinite(loss).all()) and tail < head, "stream train: the loss did not fall")
+    print(f"stream train (train --stream-negative-samples / --collision-negative-samples / "
+          f"--validation-stream-negative-samples {STREAM_TRAIN_ROWS}, empty dataset dir, {STREAM_TRAIN_STEPS} steps): "
+          f"whole command {total_s:.3f} s (host clock); stream caches {log.segments} segments; featurize calls "
+          f"{log.classic}; launches {launches}; loss mean of the first 3 {head:.5f}, of the last 3 {tail:.5f}")
+    return {"train_launches": launches, "head": os.path.join(ckpt, "hey-buddy_final.npz"),
+            "train": {"command_s": total_s, "segments": log.segments, "loss_first3": head, "loss_last3": tail}}
+
+
+class ChunkLog(logging.Handler):
+    """The per-chunk debug records of ``run_listen``: scores and wall ms of the
+    scored chunks, wall ms of the skipped ones."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.DEBUG)
+        self.scores: List[List[float]] = []
+        self.ms: List[float] = []
+        self.skipped = 0
+
+    def emit(self, record: logging.LogRecord) -> None:
+        msg = record.getMessage()
+        if m := re.match(r"listen chunk \d+: scores \[(.*)\] in (\S+) ms", msg):
+            self.scores.append([float(v) for v in m[1].split(",")])
+            self.ms.append(float(m[2]))
+        elif re.match(r"listen chunk \d+: skipped", msg):
+            self.skipped += 1
+
+
+def listen_wav(path: str) -> None:
+    """LISTEN_SECONDS of ambient noise with two "hey buddy" and one other phrase
+    rendered by the host formant TTS, written as a wav."""
+    rng = np.random.default_rng(SEED)
+    audio = rng.normal(0.0, 3e-4, LISTEN_SECONDS * 16000).astype(np.float32)
+    tts = get_tts_model("formant")
+    for text, at in (("hey buddy", 1.0), ("what time is it", 4.0), ("hey buddy", 7.0)):
+        (_, pcm), = tts([text], num_samples=1, seed=SEED)
+        clip = 0.5 * pcm.astype(np.float32) / 32768.0
+        start = int(at * 16000)
+        audio[start : start + len(clip)] += clip[: len(audio) - start]
+    write_wav(path, audio)
+
+
+def run_listen_cli(heads: List[str], wav: str, device: torch.device, threshold: float,
+                   vad: bool) -> Tuple[List[str], ChunkLog, Dict[str, int]]:
+    """``listen`` through the CLI entry with --debug: its detection lines, its
+    chunk records and the launches it made."""
+    get_vad_model(device=device).reset()
+    log, stdout = ChunkLog(), io.StringIO()
+    logger.addHandler(log)
+    level = logger.level
+    try:
+        with contextlib.redirect_stdout(stdout):
+            build.LAUNCHES.clear()
+            rc = cli_main(["listen", *heads, "--input-wav", wav, "--threshold", repr(threshold), "--device",
+                           device.type, "--debug", "--vad" if vad else "--no-vad"])
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    finally:
+        logger.removeHandler(log)
+        logger.setLevel(level)
+    check(rc == 0, f"listen on {device} failed")
+    return stdout.getvalue().strip().splitlines(), log, launches
+
+
+def listen_phase(dev: torch.device, tmp: str, head: str) -> Dict:
+    """``listen --input-wav`` with the stream phase's head and its ONNX export,
+    without and with --vad, on the card against the CPU: detections, chunk
+    scores and launches; SileroStyleVAD card vs CPU with state carried."""
+    cpu = torch.device("cpu")
+    onnx = os.path.join(tmp, "listen-head.onnx")
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(cli_main(["convert", head, onnx]) == 0, "convert of the stream head failed")
+    heads = [head, onnx]
+    wav = os.path.join(tmp, "listen.wav")
+    listen_wav(wav)
+    # the threshold: the gap between the CPU's chunk scores nearest 0.5 that
+    # is at least 2 SCORE_ATOL wide, so that no score within SCORE_ATOL of the
+    # CPU's can land on the other side of it
+    _, probe, _ = run_listen_cli(heads, wav, cpu, DEFAULT_ACTIVATION_THRESHOLD, False)
+    pooled = np.sort(np.unique(np.concatenate(probe.scores)))
+    candidates = [(abs((a + b) / 2 - 0.5), (a + b) / 2) for a, b in zip(pooled[:-1], pooled[1:])
+                  if b - a >= 2 * SCORE_ATOL]
+    check(bool(candidates), f"no gap of {2 * SCORE_ATOL} between the CPU's chunk scores {pooled.tolist()}")
+    threshold = float(min(candidates)[1])
+    out: Dict = {"threshold": threshold}
+    for vad in (False, True):
+        label = "listen_vad" if vad else "listen"
+        want, cpu_log, _ = run_listen_cli(heads, wav, cpu, threshold, vad)
+        got, card_log, launches = run_listen_cli(heads, wav, dev, threshold, vad)
+        scored = len(card_log.scores)
+        stamps = [line.split(" score=")[0] for line in got]
+        check(stamps == [line.split(" score=")[0] for line in want] and bool(got),
+              f"{label}: detections {got} on the card, {want} on the CPU")
+        check(scored == len(cpu_log.scores) and card_log.skipped == cpu_log.skipped,
+              f"{label}: {scored} scored / {card_log.skipped} skipped chunks on the card, "
+              f"{len(cpu_log.scores)} / {cpu_log.skipped} on the CPU")
+        score_err = float(np.abs(np.array(card_log.scores) - np.array(cpu_log.scores)).max())
+        check(score_err <= SCORE_ATOL, f"{label}: chunk scores card vs CPU max |d| {score_err}")
+        check(launches == {"mel_patches": len(heads) * scored, "embedding_pool": len(heads) * scored},
+              f"{label}: launched {launches}, expected one K1 and one K2 per head and scored chunk "
+              f"({len(heads)} x {scored})")
+        check(vad == (card_log.skipped > 0), f"{label}: {card_log.skipped} chunks skipped")
+        ms = np.array(card_log.ms)
+        out[label] = {"detections": got, "scored": scored, "skipped": card_log.skipped, "score_err": score_err,
+                      "launches": launches, "chunk_ms_median": float(np.median(ms)),
+                      "chunk_ms_p95": float(np.percentile(ms, 95))}
+        print(f"path {label} (cli listen --input-wav, {LISTEN_SECONDS} s wav, heads npz + onnx, threshold "
+              f"{threshold:.4f}{', --vad' if vad else ''}): {len(got)} detections, the CPU's (first {got[:4]}); "
+              f"{scored} chunks scored, "
+              f"{card_log.skipped} skipped; chunk scores card vs CPU max |d| {score_err:.3e} (limit {SCORE_ATOL}); "
+              f"launches {launches}; per scored chunk wall ms (host clock, both heads) median "
+              f"{out[label]['chunk_ms_median']:.3f}, p95 {out[label]['chunk_ms_p95']:.3f}")
+    busy = device_busy(lambda: run_listen_cli(heads, wav, dev, threshold, False))
+    out["profiled"] = busy
+    print("listen under torch.profiler (the run without --vad): " + (
+        "not measured (no device events in the trace)" if busy["busy_ms"] is None else
+        f"{busy['busy_ms']:.3f} ms of kernels ({busy['kernels']}) in {busy['wall_ms']:.1f} ms: device busy "
+        f"{busy['busy_ms'] / busy['wall_ms']:.4f}"))
+    # SileroStyleVAD on the card against the CPU, state carried over 20 ms frames
+    audio = read_wav_any(wav)[0].mean(axis=0)
+    card, host = SileroStyleVAD(seed=SEED, device=dev), SileroStyleVAD(seed=SEED, device=cpu)
+    gaps, frame_ms = [], []
+    for i in range(LISTEN_VAD_FRAMES):
+        frame = audio[16000 + 320 * i : 16000 + 320 * (i + 1)]
+        t0 = time.perf_counter()
+        p = card(frame)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        gaps.append(max(abs(p - host(frame)), float((card.h.cpu() - host.h).abs().max()),
+                        float((card.c.cpu() - host.c).abs().max())))
+    vad_err = max(gaps)
+    check(vad_err <= SILERO_ATOL, f"SileroStyleVAD card vs CPU max |d| {vad_err}")
+    out["silero"] = {"max_abs_err": vad_err, "frame_ms_median": float(np.median(frame_ms))}
+    print(f"SileroStyleVAD card vs CPU over {LISTEN_VAD_FRAMES} frames of 320 samples, state carried: probability, "
+          f"h and c max |d| {vad_err:.3e} (limit {SILERO_ATOL}); per frame (host clock, a call returns the "
+          f"probability) median {out['silero']['frame_ms_median']:.3f} ms")
+    return out
+
+
 def device_busy(fn: Callable[[], object]) -> Dict[str, float]:
     """Host-clock ms of ``fn`` under ``torch.profiler`` and the ms its CUDA
     kernels ran (None when the trace holds no device events)."""
@@ -1357,6 +1685,11 @@ def main() -> int:
         # ---- feature generation: train from an empty dataset directory ---------------
         generate = generate_phase(net, dev, tmp)
         paths["generate_fused"], paths["generate_formant"] = generate["generate_fused"], generate["generate_formant"]
+        # ---- stream-window negatives, then listen with the head they trained ------------
+        stream = stream_phase(net, dev, tmp)
+        paths["stream"], paths["stream_train"] = stream["launches"]["speech"], stream["train_launches"]
+        listen = listen_phase(dev, tmp, stream["head"])
+        paths["listen"], paths["listen_vad"] = listen["listen"]["launches"], listen["listen_vad"]["launches"]
     score_err = float(np.abs(s_gpu - s_cpu).max())
     print(f"predict scores card {np.round(s_gpu, 4).tolist()} vs plain path "
           f"{np.round(s_cpu, 4).tolist()}: max |d| {score_err:.3e}")
@@ -1490,7 +1823,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "paths": paths, "featurize_ms": fused_ms,
                       "mega_ms": mega_ms, "mega_wins": mega_wins, "clips_per_s": BATCH / fused_ms * 1e3,
                       "call_ms": call_ms, "predict_ms": predict_s * 1e3, "batch": BATCH,
-                      "train": train["summary"], "generate": generate["summary"], **extract}))
+                      "train": train["summary"], "generate": generate["summary"],
+                      "stream": {**stream["summary"], "train": stream["train"]}, "listen": listen, **extract}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

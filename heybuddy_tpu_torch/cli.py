@@ -4,9 +4,13 @@ Command line of the port (argparse):
     python -m heybuddy_tpu_torch train PHRASE [the JAX command's options] [--device cuda|cpu]
     python -m heybuddy_tpu_torch convert CHECKPOINT [OUTPUT] [--opset-version 19]
     python -m heybuddy_tpu_torch predict CHECKPOINT AUDIO [--threshold T] [--device cuda|cpu]
+    python -m heybuddy_tpu_torch listen CHECKPOINT... [--input-wav WAV] [--vad] [--threshold T]
+        [--buffer-size N] [--consecutive N] [--debug] [--device cuda|cpu]
     python -m heybuddy_tpu_torch extract NAME SOURCE [--local-files] [--directory D]
         [--samples-per-file N] [--process-batch-size N] [--tokenizer-max-length N]
         [--hours H] [--device cuda|cpu] [Hugging Face dataset options]
+    python -m heybuddy_tpu_torch combine SOURCE... TARGET [--directory D] [--no-reset] [--half]
+        [--delete] [--batch-size N]
 
 ``train`` trains a wake-word head for PHRASE end to end with the JAX
 ``heybuddy train``'s options, names and defaults: the feature caches in
@@ -14,21 +18,31 @@ Command line of the port (argparse):
 augmentation -> featurization, ``data/features.py``; ``--tts-backend`` or
 ``HEYBUDDY_TTS_BACKEND`` picks the host ``formant`` or the fused
 ``formant-device`` route, ``HEYBUDDY_FUSED_TTS=0`` turns the fused route
-off), ``--prefix-negative-phrases`` / ``--collision-swap-phrases`` add their
-texts to the adversarial pool, checkpoints go to ``--checkpoint-dir``, and it
-prints "Training complete; final checkpoint: DIR/NAME_final.npz". The
-multi-device ``--mesh`` option is not ported; stream-window negatives need
-``data/streams.py`` (not ported). ``convert`` writes a perceptron checkpoint as the ONNX head the
+off; ``--stream-negative-samples``, ``--collision-negative-samples`` and
+``--validation-stream-negative-samples`` synthesise continuous streams and
+featurize their sliding runtime windows), ``--prefix-negative-phrases`` /
+``--collision-swap-phrases`` add their texts to the adversarial pool,
+checkpoints go to ``--checkpoint-dir``, and it prints "Training complete;
+final checkpoint: DIR/NAME_final.npz". The multi-device ``--mesh`` option is
+not ported. ``convert`` writes a perceptron checkpoint as the ONNX head the
 browser runtime loads (default OUTPUT: the checkpoint's path with ``.onnx``)
 and prints "Wrote OUTPUT"; it reads the npz's numpy arrays and needs no device.
 
 ``predict`` prints the wake-word timecodes found in AUDIO (a WAV file), one
 line each, or "No wake words detected.", as the JAX package's ``heybuddy
-predict`` does. ``extract`` writes labeled negative-feature shards
-``NAME-<i>.npy`` ([n, 17, 96] float32) from SOURCE, a Hugging Face dataset id
-or, with ``--local-files``, a glob of WAV files with sidecar ``.txt``
-transcripts, and prints "Wrote N shard(s):" and their paths, as ``heybuddy
-extract`` does. Its multi-device ``--mesh`` option is not ported.
+predict`` does. ``predict`` and ``listen`` load npz checkpoints, reference
+``.pt`` state dicts and exported ``.onnx`` heads. ``listen`` scores a rolling
+2 s buffer after every chunk of the microphone (pyaudio) or of
+``--input-wav`` and prints a line "NAME @ T.TTs score=S" per detection;
+``--vad`` skips chunks without speech. ``extract`` writes labeled
+negative-feature shards ``NAME-<i>.npy`` ([n, 17, 96] float32) from SOURCE,
+a Hugging Face dataset id or, with ``--local-files``, a glob of WAV files with
+sidecar ``.txt`` transcripts, and prints "Wrote N shard(s):" and their paths,
+as ``heybuddy extract`` does. Its multi-device ``--mesh`` option is not
+ported. ``combine`` merges feature shards (paths or globs, also looked up in
+``--directory``) into one appendable ``.npy`` (TARGET, or
+``DIRECTORY/TARGET.npy``) and prints "Combined N rows from K shard(s) into
+PATH"; it is numpy only.
 """
 
 from __future__ import annotations
@@ -41,7 +55,8 @@ import sys
 from typing import Any, Dict, List, Optional
 
 from heybuddy_tpu_torch import constants as C
-from heybuddy_tpu_torch.constants import DEFAULT_ACTIVATION_THRESHOLD
+from heybuddy_tpu_torch.constants import DEFAULT_ACTIVATION_THRESHOLD, DEFAULT_LISTEN_BUFFER_SIZE
+from heybuddy_tpu_torch.device import DeviceLike
 
 __all__ = ["main", "build_parser"]
 
@@ -52,10 +67,31 @@ def build_parser() -> argparse.ArgumentParser:
     )
     commands = parser.add_subparsers(dest="command", required=True)
     predict = commands.add_parser("predict", help="print wake-word timecodes found in AUDIO")
-    predict.add_argument("checkpoint", help="wake-word checkpoint (.npz)")
+    predict.add_argument("checkpoint", help="wake-word checkpoint (.npz, .pt or .onnx)")
     predict.add_argument("audio", help="audio file (.wav)")
     predict.add_argument("--threshold", type=float, default=DEFAULT_ACTIVATION_THRESHOLD)
     predict.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    listen = commands.add_parser("listen", help="score live audio (or a wav) with wake-word checkpoints")
+    listen.add_argument("checkpoints", nargs="+", help="wake-word checkpoints (.npz, .pt or .onnx)")
+    listen.add_argument("--threshold", type=float, default=DEFAULT_ACTIVATION_THRESHOLD)
+    listen.add_argument("--buffer-size", type=int, default=DEFAULT_LISTEN_BUFFER_SIZE)
+    listen.add_argument("--input-wav", default=None, help="stream a wav file instead of the microphone")
+    listen.add_argument("--vad", dest="use_vad", action=argparse.BooleanOptionalAction, default=False,
+                        help="skip chunks without speech (VAD hysteresis), like the browser runtime")
+    listen.add_argument("--consecutive", type=int, default=1,
+                        help="consecutive above-threshold chunks needed for a detection")
+    listen.add_argument("--debug", action=argparse.BooleanOptionalAction, default=False)
+    listen.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    combine = commands.add_parser("combine", help="merge feature shards into one appendable .npy")
+    combine.add_argument("source", nargs="*", help="shard paths or globs")
+    combine.add_argument("target", help="output .npy path, or a name in --directory")
+    combine.add_argument("--directory", default=None, help="directory of the shards and of a named target")
+    combine.add_argument("--reset", action=argparse.BooleanOptionalAction, default=True)
+    combine.add_argument("--half", action=argparse.BooleanOptionalAction, default=False)
+    combine.add_argument("--delete", action=argparse.BooleanOptionalAction, default=False)
+    combine.add_argument("--batch-size", type=int, default=10000, help="rows copied per append")
 
     extract = commands.add_parser(
         "extract", help="extract labeled negative-feature shards from an audio dataset"
@@ -179,15 +215,77 @@ def _add_train_parser(commands: Any) -> None:
     add("--device", default="cuda", help="cuda (default) or cpu")
 
 
-def _predict(args: argparse.Namespace) -> int:
-    from heybuddy_tpu_torch.models.wakeword import load_model
+def _load_any_model(path: str, device: DeviceLike = "cuda") -> Any:
+    """An npz checkpoint, a reference ``.pt`` state dict or an ``.onnx`` head, on ``device``."""
+    from heybuddy_tpu_torch.models.wakeword import WakeWordMLPModel, load_model
 
-    model = load_model(args.checkpoint, device=args.device)
+    if path.endswith(".pt"):
+        return WakeWordMLPModel.from_torch_file(path, device=device)
+    if path.endswith(".onnx"):
+        from heybuddy_tpu_torch.runtime.onnx_model import WakeWordONNXModel
+
+        return WakeWordONNXModel(path, device=device)
+    return load_model(path, device=device)
+
+
+def _predict(args: argparse.Namespace) -> int:
+    model = _load_any_model(args.checkpoint, device=args.device)
     times = model.predict_timecodes(args.audio, threshold=args.threshold)
     if not times:
         print("No wake words detected.")
     for t in times:
         print(f"Wake word detected at {t:.1f}s")
+    return 0
+
+
+def _listen(args: argparse.Namespace) -> int:
+    from heybuddy_tpu_torch.runtime.listen import run_listen
+    from heybuddy_tpu_torch.utils.log import logger
+
+    if args.debug:
+        logger.setLevel(logging.DEBUG)
+    for path in [*args.checkpoints, *([args.input_wav] if args.input_wav else [])]:
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"{path} does not exist")
+    run_listen(list(args.checkpoints), threshold=args.threshold, buffer_size=args.buffer_size,
+               input_wav=args.input_wav, use_vad=args.use_vad, consecutive=args.consecutive, device=args.device)
+    return 0
+
+
+def _combine(args: argparse.Namespace) -> int:
+    import numpy as np
+
+    from heybuddy_tpu_torch.data.precalculated import get_default_dataset_dir
+    from heybuddy_tpu_torch.utils.npy import AppendableNpyFile
+
+    directory = args.directory or get_default_dataset_dir()
+    target = args.target
+    target_path = target if target.endswith(".npy") else os.path.join(directory, f"{target}.npy")
+    if args.reset and os.path.exists(target_path):
+        os.remove(target_path)
+    store = AppendableNpyFile(target_path)
+    sources: List[str] = []
+    for pattern in args.source:
+        if os.path.exists(pattern):
+            sources.append(pattern)
+        else:
+            sources.extend(sorted(glob.glob(pattern)))
+            sources.extend(sorted(glob.glob(os.path.join(directory, pattern))))
+    if not sources:
+        print("Error: No source shards found", file=sys.stderr)
+        return 1
+    total = 0
+    for path in sources:
+        shard = np.load(path, mmap_mode="r")
+        for start in range(0, shard.shape[0], args.batch_size):
+            rows = np.asarray(shard[start : start + args.batch_size])
+            if args.half:
+                rows = rows.astype(np.float16)
+            store.append(rows)
+            total += rows.shape[0]
+        if args.delete:
+            os.remove(path)
+    print(f"Combined {total} rows from {len(sources)} shard(s) into {target_path}")
     return 0
 
 
@@ -367,7 +465,10 @@ def _convert(args: argparse.Namespace) -> int:
     return 0
 
 
-_COMMANDS = {"train": _train, "convert": _convert, "predict": _predict, "extract": _extract}
+_COMMANDS = {
+    "train": _train, "convert": _convert, "predict": _predict, "listen": _listen, "extract": _extract,
+    "combine": _combine,
+}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

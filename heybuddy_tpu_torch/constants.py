@@ -88,6 +88,8 @@ DEFAULT_FEATURE_BATCH_SIZE = 25000
 # the runtime's window stride in samples (0.12 s): stream-window caches hold
 # their rows in temporal order at this stride
 RUNTIME_WINDOW_STRIDE = 1920
+# samples per chunk that ``listen`` reads before it scores the rolling buffer
+DEFAULT_LISTEN_BUFFER_SIZE = 4096
 
 # --- TTS ----------------------------------------------------------------------
 DEFAULT_TTS_BATCH_SIZE = 8

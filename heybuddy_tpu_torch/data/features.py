@@ -22,10 +22,13 @@ Two routes, as in JAX:
   the audio never leaving the device), with device-resident noise and
   impulse banks; clips the device cannot express go the classic route.
 
+The stream-window caches are synthesised as continuous streams
+(``data/streams.py``) and featurized a segment of up to 1024 overlapping
+windows at a time, each segment uploaded once and read by K1 in place.
+
 Each stream logs how many featurize calls it made (fused batches, host
-fallback clips), which is what the card's launch counts follow. The
-stream-window caches need ``data/streams.py``, which is not ported: a short
-one raises ``MissingFeaturesError``.
+fallback clips, stream segments), which is what the card's launch counts
+follow.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from heybuddy_tpu_torch.constants import (
+    CLIP_SAMPLES,
     DEFAULT_FEATURE_BATCH_SIZE,
     DEFAULT_PARTIAL_MAX_VISIBLE,
     DEFAULT_PARTIAL_MIN_VISIBLE,
@@ -54,17 +58,13 @@ from heybuddy_tpu_torch.utils.log import logger
 from heybuddy_tpu_torch.utils.npy import AppendableNpyFile
 from heybuddy_tpu_torch.utils.strings import safe_name
 
-__all__ = ["TrainingFeaturesGenerator", "MissingFeaturesError", "autoconfigure_batch_sizes"]
+__all__ = ["TrainingFeaturesGenerator", "autoconfigure_batch_sizes"]
 
 # Disjoint seed-offset block per cache kind (train=0 / testing=1, partial=2/3,
 # clean-offset=4/5, negative-speech=6, validation=7 / testing-validation=8,
 # reverb-positive=9/10, reverb-collision=11/12), the JAX package's: no cache
 # grown to any realistic size reaches another kind's TTS / augment seeds.
 _SEED_NAMESPACE = 10_000_000
-
-
-class MissingFeaturesError(RuntimeError):
-    """A feature cache holds fewer rows than asked for and cannot be generated here."""
 
 
 def _texts_sidecar_path(npy_path: str) -> str:
@@ -595,24 +595,70 @@ class TrainingFeaturesGenerator:
         seed: Optional[int] = None,
         collision: bool = False,
     ) -> PrecalculatedDatasetIterator:
-        """Sliding-window negatives of a continuous stream, rows in temporal
-        order. Generating them needs ``data/streams.py`` (not ported): a cache
-        that holds the rows is used, a short one raises."""
+        """
+        Sliding-window negatives of a continuous stream (``data/streams.py``):
+        every runtime window position (1.44 s, 0.12 s apart) of ordinary
+        speech without the wake phrase's words, of its phonetic near-collisions
+        (``adversarial``) or of collision salads (``collision``), rows in
+        temporal order, featurized as the runtime sees them (no augmentation).
+
+        Missing rows come in segments of at most ``STREAM_SEGMENT_WINDOWS``
+        windows, each seeded by its absolute row offset (so a top-up equals a
+        cache generated whole) and uploaded once
+        (``SpeechEmbeddings.featurize_stream_device``); segment i + 1 is
+        synthesised on the host while the card featurizes segment i.
+        """
+        from heybuddy_tpu_torch.data.streams import (
+            stream_window_count,
+            synth_adversarial_stream,
+            synth_collision_salad_stream,
+            synth_speech_stream,
+        )
+        from heybuddy_tpu_torch.models.featurizer import STREAM_SEGMENT_WINDOWS
+
         if collision and adversarial:
             raise ValueError("collision and adversarial are mutually exclusive")
         seed = self.seed if seed is None else seed
         kind = "collision-stream" if collision else "adversarial-stream" if adversarial else "speech-stream"
         slug = safe_name(self.phrase_key)
         name = f"{slug}-{kind}-{seed}" if (adversarial or collision) else f"negative-{kind}-{seed}-x{slug}"
-        path, _, existing = self._open_store(name)
+        _, store, existing = self._open_store(name)
         if existing < num_samples:
-            raise MissingFeaturesError(
-                f"feature cache {path} holds {existing} rows of {kind} window features but {num_samples} "
-                f"are needed ({num_samples - existing} missing). Generating stream-window features needs "
-                "data/streams.py, which is not yet ported: build the cache with the JAX package or ask for "
-                "fewer samples."
-            )
-        logger.info(f"Using {num_samples} cached {kind} window features for '{name}'")
+            missing = num_samples - existing
+            logger.info(f"Generating {missing} {kind} window features for '{name}'")
+            embeddings = self._embeddings()
+            stride = RUNTIME_WINDOW_STRIDE
+            written = segments = 0
+            pending: Optional[Tuple[torch.Tensor, int]] = None
+            while written < missing or pending is not None:
+                dispatched = None
+                if written < missing:
+                    seg_windows = min(missing - written, STREAM_SEGMENT_WINDOWS)
+                    seg_seconds = (seg_windows * stride + CLIP_SAMPLES) / SAMPLE_RATE
+                    seg_seed = seed + 7919 * (existing + written)
+                    # the phrase as one string: JAX passes a multi-phrase list
+                    # on, and its streams then fail on list.lower()
+                    options = dict(tts_backend=self.tts_backend, device=self.device)
+                    if collision:
+                        stream = synth_collision_salad_stream(self.phrase_key, seg_seconds / 60.0, seg_seed, **options)
+                    elif adversarial:
+                        stream = synth_adversarial_stream(self.phrase_key, seg_seconds / 60.0, seg_seed, **options)
+                    else:
+                        stream = synth_speech_stream(
+                            seg_seconds / 60.0, seg_seed, exclude_phrase=self.phrase_key, **options
+                        )
+                    n = min(stream_window_count(stream), seg_windows)
+                    dispatched = embeddings.featurize_stream_device(stream, n, stride)
+                    segments += 1
+                    written += dispatched[1]
+                if pending is not None:
+                    device_arr, n_real = pending
+                    store.append(device_arr[:n_real].cpu().numpy().astype(np.float32))
+                pending = dispatched
+            logger.info(f"Featurized {written} stream windows into {os.path.basename(store.path)} in "
+                        f"{segments} segment(s) of up to {STREAM_SEGMENT_WINDOWS}")
+        else:
+            logger.info(f"Using {num_samples} cached {kind} window features for '{name}'")
         iterator = PrecalculatedDatasetIterator(name, directory=self.directory, seed=seed)
         # rows in temporal order at the runtime stride: gate-aware consumers
         # (the trainer's validation) count fires per true stream hour

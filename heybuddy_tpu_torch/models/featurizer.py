@@ -21,6 +21,7 @@ only to bound XLA compiles. A (b, 23040) clip batch in int16 range gives
 from __future__ import annotations
 
 import os
+import threading
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -29,6 +30,7 @@ import torch
 from heybuddy_tpu_torch.constants import (
     AUDIO_WINDOW_SIZE,
     AUDIO_WINDOW_STRIDE,
+    CLIP_SAMPLES,
     EMBEDDING_WINDOW_SIZE,
     EMBEDDING_WINDOW_STRIDE,
     MEL_HOP_LENGTH,
@@ -46,9 +48,13 @@ from heybuddy_tpu_torch.ops.windows import embedding_window_starts
 from heybuddy_tpu_torch.utils.audio_io import audio_to_bct_array
 from heybuddy_tpu_torch.utils.log import logger
 
-__all__ = ["featurize_batch", "SpeechEmbeddings", "get_speech_embeddings", "POOLINGS"]
+__all__ = [
+    "featurize_batch", "SpeechEmbeddings", "get_speech_embeddings", "POOLINGS", "STREAM_SEGMENT_WINDOWS",
+]
 
 POOLINGS = ("fused", "mega", "banded", "gather")
+# sliding windows featurized from one uploaded stream segment at most
+STREAM_SEGMENT_WINDOWS = 1024
 
 
 def featurize_batch(
@@ -62,17 +68,20 @@ def featurize_batch(
     (batch, n_windows, 96) embeddings, by the formulation ``pooling`` names
     (module docstring; ``"auto"`` is ``"fused"``). The kernels of ``"fused"``
     and ``"mega"`` compute in bf16, so another ``compute_dtype`` runs
-    ``"banded"`` instead, as in the JAX function.
+    ``"banded"`` instead, as in the JAX function. ``"fused"`` takes a
+    row-strided view of overlapping windows as it is (``mel_patches``); the
+    other formulations take a contiguous copy.
     """
     if audio.ndim == 1:
         audio = audio[None, :]
-    audio = audio.contiguous()
     if pooling == "auto":
         pooling = "fused"
     if pooling in ("mega", "fused") and compute_dtype != torch.bfloat16:
         pooling = "banded"
     if pooling not in POOLINGS:
         raise ValueError(f"unknown pooling {pooling!r}; expected auto or one of {POOLINGS}")
+    if pooling != "fused":  # K1 alone reads a row-strided view in place
+        audio = audio.contiguous()
     starts = embedding_window_starts(audio.shape[1])
     if pooling == "mega":
         return fused_featurize(net, audio, starts)
@@ -139,6 +148,27 @@ class SpeechEmbeddings:
         return out, audio_batch.shape[0]
 
     @torch.no_grad()
+    def featurize_stream_device(self, stream: np.ndarray, count: int, stride: int) -> Tuple[torch.Tensor, int]:
+        """
+        Featurize the first ``count`` (at most ``STREAM_SEGMENT_WINDOWS``)
+        sliding windows, ``CLIP_SAMPLES`` wide and ``stride`` apart, of a
+        float32 stream in [-1, 1]. The segment they span is uploaded once,
+        zero-filled past the stream's end, and scaled on the device; the
+        windows are a row-strided view of it that K1 reads in place, so no
+        window is copied. Returns the device tensor (not synchronised) and
+        ``count``. Unlike the JAX function nothing pads to a fixed window count.
+        """
+        count = min(count, STREAM_SEGMENT_WINDOWS)
+        if count < 1:
+            raise ValueError(f"a stream of {len(stream)} samples holds no window of {CLIP_SAMPLES}")
+        seg = np.zeros((count - 1) * stride + CLIP_SAMPLES, dtype=np.float32)
+        take = min(len(stream), seg.shape[0])
+        seg[:take] = stream[:take]
+        segment = torch.from_numpy(seg).to(self.device).mul_(32767.0)
+        windows = segment.as_strided((count, CLIP_SAMPLES), (stride, 1))
+        return featurize_batch(self.net, windows, self.compute_dtype, "fused"), count
+
+    @torch.no_grad()
     def __call__(
         self,
         audio: Any,
@@ -190,18 +220,21 @@ class SpeechEmbeddings:
         return embeddings
 
 
-# one shared featurizer per device
+# one shared featurizer per device; the lock keeps two model threads of
+# ``listen`` from building two
 _GLOBAL_EMBEDDINGS: Dict[str, SpeechEmbeddings] = {}
+_GLOBAL_LOCK = threading.Lock()
 
 
 def get_speech_embeddings(device: DeviceLike = "cuda", **kwargs: Any) -> SpeechEmbeddings:
     """The shared featurizer of ``device``, built on first use."""
     key = str(resolve_device(device))
-    if key not in _GLOBAL_EMBEDDINGS:
-        _GLOBAL_EMBEDDINGS[key] = SpeechEmbeddings(device=device, **kwargs)
-    elif kwargs:
-        logger.warning(
-            f"get_speech_embeddings ignoring {sorted(kwargs)}: the shared featurizer "
-            "was already constructed with different settings."
-        )
-    return _GLOBAL_EMBEDDINGS[key]
+    with _GLOBAL_LOCK:
+        if key not in _GLOBAL_EMBEDDINGS:
+            _GLOBAL_EMBEDDINGS[key] = SpeechEmbeddings(device=device, **kwargs)
+        elif kwargs:
+            logger.warning(
+                f"get_speech_embeddings ignoring {sorted(kwargs)}: the shared featurizer "
+                "was already constructed with different settings."
+            )
+        return _GLOBAL_EMBEDDINGS[key]

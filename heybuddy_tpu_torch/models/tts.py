@@ -18,7 +18,7 @@ Backends behind the same interface:
 * :class:`VitsTTS` raises: the VITS backend needs a Piper checkpoint, and
   none is ported.
 
-``trim_silence`` raises too: it needs the VAD, which is not ported.
+``trim_silence`` cuts synthesis silence with the shared VAD (``models/vad.py``).
 """
 
 from __future__ import annotations
@@ -102,9 +102,9 @@ class BaseTTS:
     # ---------------------------------------------------------------------------
 
     def trim_silence(self, sample: np.ndarray, threshold: float = 0.05) -> np.ndarray:
-        raise NotImplementedError(
-            "trim_silence needs the VAD (models/vad.py), which is not yet ported to heybuddy_tpu_torch"
-        )
+        from heybuddy_tpu_torch.models.vad import get_vad_model
+
+        return get_vad_model(device=getattr(self, "device", "cuda")).trim(sample, threshold=threshold)
 
     def __call__(
         self,

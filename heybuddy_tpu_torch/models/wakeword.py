@@ -21,6 +21,7 @@ model's device (``jax.random``'s draws cannot be reproduced).
 Checkpoints are the JAX package's flat npz: ``a/0/b`` keys in the JAX
 parameter tree's layout (dense weights (in, out)) plus ``__config__``, so a
 checkpoint written by either package loads in the other.
+``WakeWordMLPModel.from_torch_file`` imports a reference ``.pt`` state dict.
 """
 
 from __future__ import annotations
@@ -329,6 +330,49 @@ class WakeWordMLPModel(WakeWordInferenceMixin, nn.Module):
         for layer in self.layers:
             states = layer(states)
         return torch.sigmoid(self.mlp_out(self.norm_out(states)))
+
+    @classmethod
+    def from_torch_file(cls, path: str, device: DeviceLike = "cuda") -> "WakeWordMLPModel":
+        """
+        Import a reference ``.pt`` state dict (``torch.load(weights_only=True)``):
+        the layer width from ``norm_out``, the layer count, gating and half
+        layers from the keys present, the weights (out, in) transposed into
+        the JAX parameter tree, as the JAX package imports it.
+        """
+        state = torch.load(path, weights_only=True, map_location="cpu")
+        layer_dim = state["norm_out.weight"].shape[0]
+        num_layers = 0
+        while f"layers.{num_layers}.0.weight" in state:
+            num_layers += 1
+        n_half = 0
+        while f"half_layers.{n_half}.0.weight" in state:
+            n_half += 1
+
+        def t(name: str) -> np.ndarray:
+            return state[name].float().numpy()
+
+        def mlp(prefix: str) -> Dict[str, Any]:
+            p = {
+                "hidden": {"w": t(f"{prefix}.hidden.weight").T, "b": t(f"{prefix}.hidden.bias")},
+                "output": {"w": t(f"{prefix}.output.weight").T, "b": t(f"{prefix}.output.bias")},
+            }
+            if f"{prefix}.gate.weight" in state:
+                p["gate"] = {"w": t(f"{prefix}.gate.weight").T, "b": t(f"{prefix}.gate.bias")}
+            return p
+
+        def norm_mlp(prefix: str) -> Dict[str, Any]:
+            return {"norm": {"g": t(f"{prefix}.0.weight"), "b": t(f"{prefix}.0.bias")}, "mlp": mlp(f"{prefix}.1")}
+
+        params = {
+            "norm_in": {"g": t("norm_in.weight"), "b": t("norm_in.bias")},
+            "mlp_in": mlp("mlp_in"),
+            "half_layers": [norm_mlp(f"half_layers.{i}") for i in range(n_half)],
+            "layers": [norm_mlp(f"layers.{i}") for i in range(num_layers)],
+            "norm_out": {"g": t("norm_out.weight"), "b": t("norm_out.bias")},
+            "mlp_out": mlp("mlp_out"),
+        }
+        return cls(layer_dim=layer_dim, num_layers=num_layers, use_gating="mlp_in.gate.weight" in state,
+                   use_half_layers=n_half > 0, params=params, device=device)
 
     def save_onnx(self, path: str, opset_version: int = 19) -> None:
         from heybuddy_tpu_torch.export.onnx_export import export_mlp_model

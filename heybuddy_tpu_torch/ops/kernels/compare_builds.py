@@ -11,7 +11,8 @@ one phase of a kernel deleted). Its ``mel_patches.cu``,
 beside them, are built with this checkout's flags into
 ``heybuddy_tpu_torch/_build/other-<hash>/`` and launched through this
 checkout's wrappers (``build.library_from``): both versions get the same
-inputs and the same launch code, so their C entries must match; an entry
+inputs and the same launch code, so their C entries must match (a K1
+build from before its row-stride argument is launched without it); an entry
 the other build lacks is skipped. On 2048 seeded clips of 23040 samples, as
 ``chip_smoke.py`` times them, each of 10 pairs times both versions by CUDA
 events (the median of 11 runs after 3 warm-ups), this checkout first in
@@ -36,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from heybuddy_tpu_torch.constants import MEL_BINS
 from heybuddy_tpu_torch.models.featurizer import SpeechEmbeddings
 from heybuddy_tpu_torch.ops.kernels import build
 from heybuddy_tpu_torch.ops.kernels import embedding_kernel as ek
@@ -106,6 +108,21 @@ def compare(fn: Callable[[], torch.Tensor], name: str, other_lib: str, pairs: in
 ENTRY_LIBRARY = {"mel_patches_fat_bf16": "mel_patches_fat"}
 
 
+def _k1(audio: torch.Tensor) -> torch.Tensor:
+    """K1 on dense ``audio`` through whichever build of ``mel_patches`` is
+    loaded: one without the row-stride argument (its ``mel_patches_row_stride``
+    symbol) is launched with the ints it takes."""
+    if hasattr(build.library("mel_patches"), "mel_patches_row_stride"):
+        return mk.mel_patches(audio)[0]
+    b, t = audio.shape
+    usable, _, p_pad = mk.patch_geometry(t)
+    taps, _, fb = mk.kernel_constants(audio.device)
+    out = torch.empty((b, p_pad, mk.PATCH_FRAMES * MEL_BINS), device=audio.device, dtype=torch.float32)
+    build.launch("mel_patches", audio.device, [audio.data_ptr(), taps.data_ptr(), fb.data_ptr(), out.data_ptr()],
+                 [b, t, usable, p_pad])
+    return out
+
+
 def kernel_runs(dev: torch.device) -> Dict[str, Callable[[], torch.Tensor]]:
     """One launch of each timed entry on the seeded 2048-clip batch that chip_smoke.py times."""
     net = SpeechEmbeddings(device=dev).net
@@ -115,7 +132,7 @@ def kernel_runs(dev: torch.device) -> Dict[str, Callable[[], torch.Tensor]]:
     starts = embedding_window_starts(CLIP)
     patches, n = mk.mel_patches(audio)
     return {
-        "mel_patches": lambda: mk.mel_patches(audio)[0],
+        "mel_patches": lambda: _k1(audio),
         "mel_patches_fat": lambda: mk.mel_patches(audio, "fat")[0],
         "mel_patches_fat_bf16": lambda: mk.mel_patches(audio, "fat", torch.bfloat16)[0],
         "embedding_pool": lambda: ek.fused_embedding_from_patches(net, patches, starts, n),

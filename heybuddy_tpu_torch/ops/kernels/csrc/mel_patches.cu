@@ -27,6 +27,13 @@
 // audio staging and mel tail overlap the others' products. Chunks that hold no real frame only write the zero pad rows.
 // The frame-selector and lane-placement matmuls of the Pallas kernel are
 // plain indexed stores here.
+//
+// Clips lie `ld` floats apart (dense batches pass ld = t). Sliding windows of
+// one stream segment are a view with ld = the window stride, rows
+// overlapping, so the segment is read where it lies instead of being copied
+// out window by window; each block reads its own clip's samples either way.
+// The float4 loads stay whenever every clip pointer is 16-byte aligned
+// (mel_common.cuh tests each one).
 
 #include "mel_common.cuh"
 
@@ -36,19 +43,19 @@ template <int TERMS>
 __global__ void __launch_bounds__(mel::THREADS, 3)
 mel_patches_kernel(const float* __restrict__ audio, const float* __restrict__ basis,
                    const float* __restrict__ fb, float* __restrict__ out,
-                   int t, int usable, int p_pad) {
+                   int t, long ld, int usable, int p_pad) {
   extern __shared__ float4 smem4[];
   const int clip = blockIdx.x;
   const int f0 = blockIdx.y * mel::FCHUNK;
   float* out_clip = out + static_cast<size_t>(clip) * p_pad * 4 * mel::NMEL;
-  mel::logmel_chunk<TERMS>(audio + static_cast<size_t>(clip) * t, t, f0, usable, 4 * p_pad, basis,
+  mel::logmel_chunk<TERMS>(audio + static_cast<size_t>(clip) * ld, t, f0, usable, 4 * p_pad, basis,
                            fb, reinterpret_cast<unsigned char*>(smem4),
                            [&](int fl, int m, float v) { out_clip[(f0 + fl) * mel::NMEL + m] = v; });
 }
 
 template <int TERMS>
 int launch(const void* audio, const void* basis, const void* fb, void* out, int b, int t,
-           int usable, int p_pad, void* stream) {
+           int ld, int usable, int p_pad, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(mel_patches_kernel<TERMS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(mel::SMEM_BYTES));
@@ -57,7 +64,8 @@ int launch(const void* audio, const void* basis, const void* fb, void* out, int 
   dim3 grid(b, chunks);
   mel_patches_kernel<TERMS><<<grid, mel::THREADS, mel::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(audio), static_cast<const float*>(basis),
-      static_cast<const float*>(fb), static_cast<float*>(out), t, usable, p_pad);
+      static_cast<const float*>(fb), static_cast<float*>(out), t, static_cast<long>(ld), usable,
+      p_pad);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -65,15 +73,19 @@ int launch(const void* audio, const void* basis, const void* fb, void* out, int 
 
 extern "C" int mel_patches_smem_bytes() { return static_cast<int>(mel::SMEM_BYTES); }
 
+// the entries take the row stride `ld` after t; a build that says so here
+// (compare_builds.py reads it) is launched with it
+extern "C" int mel_patches_row_stride() { return 1; }
+
 // the split DFT, fp16 pairs (K1)
 extern "C" int mel_patches_launch(const void* audio, const void* basis, const void* fb, void* out,
-                                  int b, int t, int usable, int p_pad, void* stream) {
-  return launch<3>(audio, basis, fb, out, b, t, usable, p_pad, stream);
+                                  int b, int t, int ld, int usable, int p_pad, void* stream) {
+  return launch<3>(audio, basis, fb, out, b, t, ld, usable, p_pad, stream);
 }
 
 // the bf16 DFT, x_hi b_hi alone (dft_dtype=bfloat16)
 extern "C" int mel_patches_bf16_launch(const void* audio, const void* basis, const void* fb,
-                                       void* out, int b, int t, int usable, int p_pad,
+                                       void* out, int b, int t, int ld, int usable, int p_pad,
                                        void* stream) {
-  return launch<1>(audio, basis, fb, out, b, t, usable, p_pad, stream);
+  return launch<1>(audio, basis, fb, out, b, t, ld, usable, p_pad, stream);
 }

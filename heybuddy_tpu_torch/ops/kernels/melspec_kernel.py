@@ -7,7 +7,9 @@ Counterparts of the JAX package's ``ops/pallas/melspec_kernel.py``:
   a (b, t) float32 int16-range batch -> ``(patches, num_patches)``, patches
   (b, p_pad, 128) where patch p holds frames 4p..4p+3 (32 mel bins each),
   ``num_patches = frames // 4`` and ``p_pad`` rounds it up to 8; rows
-  ``num_patches..p_pad-1`` are exact zeros. ``dft_mode="fat"`` is K1b, the
+  ``num_patches..p_pad-1`` are exact zeros. K1 also reads a row-strided
+  view in place (the overlapping windows of a stream segment, one row per
+  window, ``stride(0)`` apart). ``dft_mode="fat"`` is K1b, the
   same function computed as one product of the hop rows against the three
   hop-aligned basis blocks side by side, then shifted sums.
 * ``mel_spectrogram(audio)`` is K3 (``mel_spectrogram_pallas``): (b, t) ->
@@ -307,14 +309,30 @@ def mel_spectrogram_plain(audio: torch.Tensor, dft_dtype: torch.dtype = torch.fl
     return _logmel_taps(audio, num_frames(audio.shape[1]), dft_dtype)
 
 
-def check_audio(audio: torch.Tensor, what: str) -> None:
-    """Raise unless ``audio`` is what the audio kernels take: 2-D float32, contiguous, CPU or CUDA."""
+def check_audio(audio: torch.Tensor, what: str, row_strided: bool = False) -> None:
+    """
+    Raise unless ``audio`` is what the audio kernels take: 2-D float32 on the
+    CPU or CUDA, contiguous. With ``row_strided`` (K1) it may also be a view
+    whose rows lie ``stride(0) >= 1`` elements apart, each one contiguous and
+    possibly overlapping the next, as long as its storage holds the last row
+    whole: the kernel reads each row's ``t`` samples from where it starts.
+    """
     if not isinstance(audio, torch.Tensor) or audio.dtype != torch.float32 or audio.ndim != 2:
         raise ValueError(f"{what} takes a 2-D float32 tensor (batch, samples)")
-    if not audio.is_contiguous():
-        raise ValueError(f"{what} needs a contiguous audio tensor")
     if audio.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {audio.device}")
+    if audio.is_contiguous():
+        return
+    if not row_strided:
+        raise ValueError(f"{what} needs a contiguous audio tensor")
+    b, t = audio.shape
+    if audio.stride(1) != 1 or audio.stride(0) < 1:
+        raise ValueError(f"{what} takes rows of contiguous samples at a positive row stride, "
+                         f"not strides {audio.stride()}")
+    end = audio.storage_offset() + (b - 1) * audio.stride(0) + t
+    held = audio.untyped_storage().nbytes() // audio.element_size()
+    if end > held:
+        raise ValueError(f"{what}: the last row of the view ends at element {end} of a storage of {held}")
 
 
 def check_dft_dtype(dft_dtype: torch.dtype) -> None:
@@ -329,12 +347,14 @@ def mel_patches(
     (b, t) float32 int16-range audio -> ((b, p_pad, 128) patches, num_patches).
     ``dft_mode`` "chunked" is K1, "fat" K1b; ``dft_dtype=torch.bfloat16`` the
     bf16-DFT variant of either. Launches the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU one.
+    plain version for a CPU one. K1 (both DFT types) also takes a row-strided
+    view (``check_audio``), such as the overlapping sliding windows of one
+    stream segment, and reads it where it lies; K1b takes contiguous audio only.
     """
     if dft_mode not in DFT_MODES:
         raise ValueError(f"unknown dft_mode {dft_mode!r}; expected one of {DFT_MODES}")
     check_dft_dtype(dft_dtype)
-    check_audio(audio, "mel_patches")
+    check_audio(audio, "mel_patches", row_strided=dft_mode == "chunked")
     b, t = audio.shape
     usable, num_patches, p_pad = patch_geometry(t)
     if num_patches < 1 or b < 1:
@@ -345,11 +365,13 @@ def mel_patches(
     basis = blocks if dft_mode == "fat" else taps
     name = "mel_patches_fat" if dft_mode == "fat" else "mel_patches"
     out = torch.empty((b, p_pad, PATCH_FRAMES * MEL_BINS), device=audio.device, dtype=torch.float32)
+    # K1 takes the row stride after t; a single row's stride can be anything
+    ints = [b, t, usable, p_pad] if dft_mode == "fat" else [b, t, audio.stride(0) if b > 1 else t, usable, p_pad]
     build.launch(
         name,
         audio.device,
         [audio.data_ptr(), basis.data_ptr(), fb.data_ptr(), out.data_ptr()],
-        [b, t, usable, p_pad],
+        ints,
         entry=f"{name}_bf16" if dft_dtype == torch.bfloat16 else name,
     )
     return out, num_patches

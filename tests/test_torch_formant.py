@@ -12,7 +12,8 @@ import torch
 from heybuddy_tpu.models import formant as jax_formant
 from heybuddy_tpu.models import formant_device as jax_fd
 from heybuddy_tpu.models import tts as jax_tts
-from heybuddy_tpu_torch.models import formant, formant_device, tts
+from heybuddy_tpu.models import vad as jax_vad
+from heybuddy_tpu_torch.models import formant, formant_device, tts, vad
 from heybuddy_tpu_torch.ops.kernels.melspec_kernel import mel_spectrogram
 
 L_MAX = 24000  # 1.5 s, as the JAX package's device-render tests: a quick CPU compile
@@ -156,7 +157,7 @@ def test_render_log_mel_matches_host_synthesizer(planned):
         assert np.mean(corr) > 0.9, (text, float(np.mean(corr)))
 
 
-def test_device_tts_contract_on_the_cpu():
+def test_device_tts_contract_on_the_cpu(monkeypatch):
     """``DeviceFormantTTS`` through the BaseTTS call: the grids and int16
     normalisation as JAX's; the plans (as_plans) equal to JAX's."""
     port = tts.DeviceFormantTTS(max_samples=L_MAX, harmonics=48, device="cpu")
@@ -171,7 +172,13 @@ def test_device_tts_contract_on_the_cpu():
     for (t1, p1), (t2, p2) in zip(got, want):
         assert t1 == t2
         np.testing.assert_array_equal(p1.tracks, p2.tracks)
-    with pytest.raises(NotImplementedError, match="VAD"):
-        port(["hey buddy"], num_samples=1, trim_silence=True)
+    # trim_silence cuts with the shared VAD (it raised while the VAD was not
+    # ported): the energy VAD's trim of the untrimmed clip, as JAX's trims it
+    monkeypatch.setattr(vad, "_GLOBAL_VAD", {})
+    (_, pcm), = port(["hey buddy"], num_samples=1, seed=2)
+    (_, trimmed), = port(["hey buddy"], num_samples=1, seed=2, trim_silence=True)
+    want = jax_vad.EnergyVAD().trim(pcm.astype(np.float32) / 32768.0, threshold=0.05)
+    np.testing.assert_array_equal(trimmed, np.clip(want * 32767.0, -32768, 32767).astype(np.int16))
+    assert trimmed.dtype == np.int16 and 2000 < len(trimmed) <= len(pcm)
     with pytest.raises(NotImplementedError, match="checkpoint"):
         tts.VitsTTS()

@@ -33,7 +33,7 @@ from heybuddy_tpu_torch.cli import main as cli_main
 from heybuddy_tpu_torch.data import features
 from heybuddy_tpu_torch.data import tts_generator as port_tts_generator
 from heybuddy_tpu_torch.data.augmented import AugmentedAudioGenerator
-from heybuddy_tpu_torch.data.features import MissingFeaturesError, TrainingFeaturesGenerator
+from heybuddy_tpu_torch.data.features import TrainingFeaturesGenerator
 from heybuddy_tpu_torch.data.tts_generator import SpeechSampleGenerator
 from heybuddy_tpu_torch.models import featurizer, formant_device, tts
 from heybuddy_tpu_torch.ops.augment import AugmentConfig
@@ -314,11 +314,23 @@ def test_fused_route_generates_and_tops_up(tmp_path, monkeypatch):
 
 
 def test_stream_windows_still_raise(tmp_path):
+    """Stream-window caches are generated (they raised while data/streams.py
+    was not ported): speech and collision windows on the host route, and
+    adversarial windows rendered on the device backend's 128-clip batches."""
     gen = TrainingFeaturesGenerator("hey buddy", directory=str(tmp_path), device="cpu")
-    with pytest.raises(MissingFeaturesError, match="streams.py"):
-        gen.get_stream_window_features(4)
-    with pytest.raises(MissingFeaturesError, match="streams.py"):
-        gen.get_stream_window_features(4, collision=True)
+    for kwargs, name in (({}, "negative-speech-stream-0-xhey-buddy"), ({"collision": True},
+                                                                       "hey-buddy-collision-stream-0")):
+        it = gen.get_stream_window_features(4, **kwargs)
+        rows = np.load(tmp_path / f"{name}.npy")
+        assert it.name == name and it.stream_stride_seconds == 0.12 and len(it) == 4
+        assert rows.shape == (4, 16, 96) and np.isfinite(rows).all() and rows.std() > 0.01
+    device_gen = TrainingFeaturesGenerator("hey buddy", directory=str(tmp_path / "device"), device="cpu",
+                                           tts_backend="formant-device")
+    it = device_gen.get_stream_window_features(3, adversarial=True)
+    rows = np.load(tmp_path / "device" / "hey-buddy-adversarial-stream-0.npy")
+    assert rows.shape == (3, 16, 96) and np.isfinite(rows).all()
+    with open(tmp_path / "device" / "hey-buddy-adversarial-stream-0.space.json") as f:
+        assert json.load(f)["tts"].startswith("formant-device:")
 
 
 def test_autoconfigure_batch_sizes_on_the_cpu():

@@ -39,6 +39,16 @@ GENERATION_MODULES = (
     "heybuddy_tpu_torch.data.features",
 )
 
+# the modules of the stream and listen slice: stream synthesis, the VAD and
+# the runtime
+STREAM_LISTEN_MODULES = (
+    "heybuddy_tpu_torch.data.streams",
+    "heybuddy_tpu_torch.models.vad",
+    "heybuddy_tpu_torch.runtime.onnx_model",
+    "heybuddy_tpu_torch.runtime.model_thread",
+    "heybuddy_tpu_torch.runtime.listen",
+)
+
 
 def test_port_imports_no_jax_and_no_jax_package():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -52,3 +62,4 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert count >= 26  # every module of the port was walked
     walked = set(lines[-1].split())
     assert set(GENERATION_MODULES) <= walked, sorted(set(GENERATION_MODULES) - walked)
+    assert set(STREAM_LISTEN_MODULES) <= walked, sorted(set(STREAM_LISTEN_MODULES) - walked)

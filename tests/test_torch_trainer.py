@@ -23,7 +23,6 @@ from heybuddy_tpu_torch import constants
 from heybuddy_tpu_torch.cli import main as cli_main
 from heybuddy_tpu_torch.convert import wakeword_params_to_numpy
 from heybuddy_tpu_torch.data import precalculated, training
-from heybuddy_tpu_torch.data.features import MissingFeaturesError
 from heybuddy_tpu_torch.data.space import active_space, write_space_sidecar
 from heybuddy_tpu_torch.models import wakeword
 from heybuddy_tpu_torch.training import trainer
@@ -374,8 +373,9 @@ TRAIN_ARGS = [
 def test_train_with_missing_cache_raises(tmp_dataset_dir, tmp_path, monkeypatch, capsys):
     """A short cache is topped up as JAX tops it up (its 20 rows kept, 28
     generated), the missing validation cache is generated, and training
-    completes; only the stream-window caches, whose generation is not ported,
-    still raise MissingFeaturesError."""
+    completes; so does training with stream-window negatives, whose cache
+    (which raised MissingFeaturesError while data/streams.py was not ported)
+    is generated."""
     monkeypatch.setenv("HEYBUDDY_OFFLINE", "1")
     _seed_caches(tmp_dataset_dir, {"hey-buddy": (48, 1), "hey-buddy-adversarial": (20, -1)})
     adversarial = os.path.join(tmp_dataset_dir, "hey-buddy-adversarial.npy")
@@ -390,9 +390,12 @@ def test_train_with_missing_cache_raises(tmp_dataset_dir, tmp_path, monkeypatch,
     validation = np.load(os.path.join(tmp_dataset_dir, "hey-buddy-testing-validation.npy"))
     assert validation.shape == (16, 16, 96) and np.isfinite(validation).all()
     assert os.path.exists(os.path.join(tmp_dataset_dir, "hey-buddy-adversarial.texts.json"))
-    with pytest.raises(MissingFeaturesError, match="streams.py"):
-        cli_main(["train", "hey buddy", *TRAIN_ARGS, "--stream-negative-samples", "8",
-                  "--checkpoint-dir", str(tmp_path / "ckpt2")])
+    ckpt2 = tmp_path / "ckpt2"
+    assert cli_main(["train", "hey buddy", *TRAIN_ARGS, "--stream-negative-samples", "8",
+                     "--checkpoint-dir", str(ckpt2)]) == 0
+    assert capsys.readouterr().out.strip() == f"Training complete; final checkpoint: {ckpt2}/hey-buddy_final.npz"
+    stream = np.load(os.path.join(tmp_dataset_dir, "negative-speech-stream-0-xhey-buddy.npy"))
+    assert stream.shape == (8, 16, 96) and np.isfinite(stream).all()
 
 
 def test_default_device_is_the_card(tmp_path):

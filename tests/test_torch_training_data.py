@@ -13,7 +13,7 @@ from heybuddy_tpu.runtime import detection as jax_detection
 from heybuddy_tpu.text.tokens import BERTTokenizer as JaxTokenizer
 from heybuddy_tpu.utils import strings as jax_strings
 from heybuddy_tpu_torch.data import precalculated, space, training
-from heybuddy_tpu_torch.data.features import MissingFeaturesError, TrainingFeaturesGenerator
+from heybuddy_tpu_torch.data.features import TrainingFeaturesGenerator
 from heybuddy_tpu_torch.models import featurizer
 from heybuddy_tpu_torch.runtime import detection
 from heybuddy_tpu_torch.text.tokens import BERTTokenizer
@@ -207,9 +207,14 @@ def test_cache_names_and_iterators_match_jax(tmp_path, fresh_featurizers, monkey
     grown = np.load(str(tmp_path / "hey-buddy.npy"))
     np.testing.assert_array_equal(grown[:10], first)
     assert grown.shape == (11, 16, 96) and np.isfinite(grown[10]).all()
-    # stream windows need data/streams.py, not ported: a short cache still raises
-    with pytest.raises(MissingFeaturesError, match="needed"):
-        port.get_stream_window_features(11, seed=9)
+    # a short stream-window cache is topped up too (it raised while
+    # data/streams.py was not ported), its rows kept
+    stream_path = str(tmp_path / "negative-speech-stream-9-xhey-buddy.npy")
+    first = np.load(stream_path)
+    assert len(port.get_stream_window_features(11, seed=9)) == 11
+    grown = np.load(stream_path)
+    np.testing.assert_array_equal(grown[:10], first)
+    assert grown.shape == (11, 16, 96) and np.isfinite(grown[10]).all()
 
 
 def test_hosted_sets_on_a_local_file(tmp_path, fresh_featurizers, monkeypatch):
