@@ -36,7 +36,15 @@ on the materialised windows bit for bit, a top-up against the whole, and
 ``listen --input-wav`` through the CLI entry with the head that run wrote
 and its ONNX export, without and with ``--vad``, on the card against the CPU
 (detections, chunk scores, one K1 and one K2 per head and scored chunk), and
-``SileroStyleVAD`` on the card against the CPU. It checks what each path returns, times kernels and
+``SileroStyleVAD`` on the card against the CPU; then embedding pretraining:
+one pretrain step (gather, augment, K3 on both views, the embedding's
+forward and backward) on the card against the CPU from the bundled npz with
+the same indices and draws (and once with TF32 on, which the limits must
+reject), ``pretrain-embedding`` through the CLI entry (K3 twice a step), 20
+profiled steps, the new npz in a fresh ``SpeechEmbeddings`` (K1 -> K2 against
+the plain path), the browser bundle exported from it and run by the numpy
+runner against the card, and the neural G2P trained and decoding on the
+card. It checks what each path returns, times kernels and
 plain versions with CUDA events, prints one JSON line of kernel numbers and
 ends with one JSON line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero; it also fails without a CUDA device.
@@ -1454,9 +1462,355 @@ def listen_phase(dev: torch.device, tmp: str, head: str) -> Dict:
     return out
 
 
+# The pretrain phase: embedding pretraining (K3 on both views' mels, autograd
+# through the embedding), the new npz in the featurizer and the browser
+# bundle, and the neural G2P on the card. The CLI run takes JAX's defaults
+# (512 texts x 4 speakers, batch 64, lr 1e-3, temperature 0.1, seed 0) with
+# the fused TTS route, a quarter of the pool in phonetic-neighbour clusters and
+# "hey buddy"'s focus cluster; its steps are cut from 1,000 to PRETRAIN_STEPS.
+PRETRAIN_PHRASE = "hey buddy"
+PRETRAIN_STEPS = 300
+PRETRAIN_LOG_EVERY = 50  # the CLI's (JAX's) default
+PRETRAIN_PROFILE_STEPS = 20
+# (a)'s pool: enough texts for one batch of 64 with the focus cluster, two
+# renderings each, on the fused route
+PRETRAIN_CHECK_TEXTS, PRETRAIN_CHECK_SPEAKERS = 128, 2
+# (a) one step card vs CPU from the bundled npz, the same indices and draws.
+# The log-mel is ill-conditioned where a view is near silence (log(power +
+# 1e-6) of int16-range audio): a sample exactly 0 on one device and not on the
+# other, or the 22-bit operands of K3's split DFT against float32's 24, move a
+# frame's quiet bins far, and the whole step's loss by 0.3-0.5% and its
+# gradient by 5-6% of its norm (PERF.md). So the step is held in parts:
+# (a1) the views: the augment bound of the generate phase (AUGMENT_ATOL);
+# (a2) K3 on the views against the float64 mel: max(MEL_ATOL, this x the plain
+#     float32 mel's own distance from float64). The split keeps 22 of
+#     float32's 24 significant bits and the tensor cores accumulate in their
+#     own float32, so on these frames K3 reads 5-6.7x the plain version's
+#     distance (1.06e-2 / 1.22e-2 against 2.1e-3 / 1.8e-3 on an H100). K3's
+#     bf16-DFT entry (8-bit operands) must fail the same limit;
+K3_SPLIT_SPREAD = 10.0
+# (a3) the step after the mel (embedding forward, losses, backward) on the same
+#     spectrograms: loss (relative) and gradient (max |d| over its norm).
+#     float32 compute: each limit between the sound step (3.3e-7, 3.5e-7) and
+#     the same step on the card with TF32 on (5.3e-5, 6.2e-4), which must fail.
+#     bf16 compute (the path's): float32 summation order flips bf16 roundings,
+#     so the sound step reads 9.1e-5 / 1.5e-3 and TF32 on, whose operands the
+#     rounding to bf16 has already made exact in TF32, 7.9e-6 / 4.6e-4: TF32 is
+#     not separable there, and the limits sit 10x / 6.5x above the sound step
+#     (PERF.md);
+PRETRAIN_LOSS_RTOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+PRETRAIN_GRAD_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
+# (a4) the whole step on each device from its own views and mels: printed, with
+#     how far the CPU's own step moves on the card's views; finite.
+# (d) the exported browser pipeline in the numpy runner against the card's
+# float32 featurizer: the bound of JAX's test_browser_pipeline_end_to_end
+BROWSER_ATOL = 1e-3
+# (e) the neural G2P: 300 steps on the rule engine's table over the wordlist;
+# the card's torch forward against the numpy forward on the same parameters
+G2P_STEPS, G2P_LR = 300, 1e-3
+G2P_FORWARD_ATOL = 1e-5
+G2P_WORDS = ("hey", "buddy", "hello", "world", "computer", "lights", "kitchen", "please", "zephyr", "quokka",
+             "thermostat", "alexa", "jarvis", "banana", "wednesday", "rhythm")
+
+
+class PretrainLog(logging.Handler):
+    """The pretrainer's and the G2P trainer's logged losses."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.INFO)
+        self.rows: List[Tuple[int, float, float, float]] = []  # step, loss, nt-xent, hard-pair
+        self.g2p: List[Tuple[int, float]] = []
+        self.clips = 0
+
+    def emit(self, record: logging.LogRecord) -> None:
+        msg = record.getMessage()
+        if m := re.match(r"Synthesizing clip pool: (\d+) texts x (\d+) speakers", msg):
+            self.clips = int(m[1]) * int(m[2])
+        elif m := re.match(r"pretrain step (\d+)/\d+: loss (\S+) \(nt-xent (\S+), hard-pair (\S+)\)", msg):
+            self.rows.append((int(m[1]), float(m[2]), float(m[3]), float(m[4])))
+        elif m := re.match(r"neural-g2p step (\d+)/\d+: loss=(\S+)", msg):
+            self.g2p.append((int(m[1]), float(m[2])))
+
+
+def step_grads(pre, batch, draws, dtype: torch.dtype) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """One pretrain step's (loss, nt-xent, hard-pair) and gradient, without the update."""
+    pre.net.zero_grad(set_to_none=True)
+    return backward(pre, *pre.loss(batch, 0, draws=draws, compute_dtype=dtype))
+
+
+def spec_step(pre, specs, pair_mask: torch.Tensor, dtype: torch.dtype) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """``step_grads`` from the two views' spectrograms on: the embedding, the losses, the gradient."""
+    from heybuddy_tpu_torch.training.embedding_pretrain import contrastive_loss
+
+    pre.net.zero_grad(set_to_none=True)
+    starts = embedding_window_starts(CLIP)
+    z1, z2 = (pre.net.apply_spectrogram(sp, starts, compute_dtype=dtype).mean(dim=1) for sp in specs)
+    return backward(pre, *contrastive_loss(z1, z2, pair_mask, pre.temperature, pre.hard_pair_margin,
+                                           pre.hard_pair_weight))
+
+
+def backward(pre, loss: torch.Tensor, base: torch.Tensor, hard: torch.Tensor
+             ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """The losses and the gradient of ``loss`` in ``pre.net``'s parameters, in float64 on the host."""
+    loss.backward()
+    grads = {k: p.grad.detach().double().cpu().numpy() for k, p in pre.net.named_parameters()}
+    return torch.stack([loss, base, hard]).detach().double().cpu().numpy(), grads
+
+
+def rel_gap(got: np.ndarray, ref: np.ndarray) -> float:
+    """|got - ref| / |ref| of the total loss."""
+    return float(abs(got[0] - ref[0]) / abs(ref[0]))
+
+
+def grad_gap(got: Dict[str, np.ndarray], ref: Dict[str, np.ndarray]) -> float:
+    """max |got - ref| over every parameter, as a fraction of ref's norm."""
+    norm = np.sqrt(sum(float(np.sum(v ** 2)) for v in ref.values()))
+    return max(float(np.abs(got[k] - ref[k]).max()) for k in ref) / norm
+
+
+def pretrain_phase(dev: torch.device, tmp: str) -> Dict:
+    """(a) one pretrain step card vs CPU (and TF32 on, which must fail); (b)
+    ``pretrain-embedding`` through the CLI entry, its stage times and 20
+    profiled steps; (c) its npz in a fresh featurizer (space id, K1 -> K2 vs
+    plain); (d) the browser bundle exported from it (and from the bundled npz,
+    bytes against browser/models) run by the numpy runner; (e) the neural G2P
+    trained and run on the card."""
+    from heybuddy_tpu_torch.export.onnx_export import export_embedding_net, export_mel_spectrogram
+    from heybuddy_tpu_torch.models import embedding_net
+    from heybuddy_tpu_torch.text.neural_g2p import NeuralG2P, NeuralPhonemizer, encode_word, train_neural_g2p
+    from heybuddy_tpu_torch.text.phonemizer import SimplePhonemizer
+    from heybuddy_tpu_torch.text.wordlist import WORDS
+    from heybuddy_tpu_torch.training.embedding_pretrain import DRAW_NAMESPACE, EmbeddingPretrainer, pretrain_views
+    from heybuddy_tpu_torch.utils import profiling
+
+    cpu = torch.device("cpu")
+    bundled = embedding_net.bundled_weights_path()
+    summary: Dict = {}
+    launches: Dict[str, Dict[str, int]] = {}
+    # ---- (a) one step, card vs CPU ------------------------------------------------------
+    kwargs = dict(num_texts=PRETRAIN_CHECK_TEXTS, speakers_per_text=PRETRAIN_CHECK_SPEAKERS,
+                  adversarial_fraction=0.25, focus_phrase=PRETRAIN_PHRASE, tts_backend="formant-device",
+                  init_weights=bundled)
+    card = EmbeddingPretrainer(device=dev, **kwargs)
+    card.build_clip_pool()
+    host = EmbeddingPretrainer(device=cpu, **kwargs)
+    host._pool, host._pool_lengths = card._pool, card._pool_lengths
+    res = card.resident()
+    batch = card.sample_step(card._cluster_members(), res["pool"].shape[0], res["pool"].shape[1])
+    check(bool(batch.pair_mask.any()), "(a)'s batch holds no phonetic-neighbour pair")
+    cfg = card.augment_config
+    draws_cpu = tuple(draw_augment(seeded_generator(cpu, card.seed, DRAW_NAMESPACE, 0, v), card.batch_size, CLIP,
+                                   cfg, cpu) for v in range(2))
+    draws_dev = tuple({k: t.to(dev) for k, t in d.items()} for d in draws_cpu)
+    # (a1) the views
+    views_card = [v.cpu() for v in pretrain_views(card.resident(), card.upload(batch), cfg, draws=draws_dev)]
+    views_host = pretrain_views(host.resident(), host.upload(batch), cfg, draws=draws_cpu)
+    view_err = max(float((a - b).abs().max()) for a, b in zip(views_card, views_host))
+    zero_flips = sum(int(((a == 0) != (b == 0)).sum()) for a, b in zip(views_card, views_host))
+    mel_jump = max(float((mk.mel_spectrogram_plain(a * 32767.0) - mk.mel_spectrogram_plain(b * 32767.0)).abs().max())
+                   for a, b in zip(views_card, views_host))
+    print(f"pretrain (a1) the two views card vs CPU, same draws: max |d| {view_err:.3e} (limit {AUGMENT_ATOL}); "
+          f"{zero_flips} samples exactly 0 on one device only; the plain mel (CPU) of the card's views vs of the "
+          f"CPU's: max |d| {mel_jump:.3e}")
+    check(view_err <= AUGMENT_ATOL, "the pretrain views disagree")
+    # (a2) K3 on the card's views against the plain mel in float32 and float64
+    k3_err, k3_bf16_err, k3_limit = 0.0, 0.0, 0.0
+    for view in views_card:
+        audio = view.to(dev) * 32767.0
+        k3 = mk.mel_spectrogram(audio)
+        ref64 = mk._logmel_taps(audio, k3.shape[1], torch.float32, torch.float64)
+        spread = float((mk.mel_spectrogram_plain(audio) - ref64).abs().max())
+        err = float((k3 - ref64).abs().max())
+        err16 = float((mk.mel_spectrogram(audio, dft_dtype=torch.bfloat16) - ref64).abs().max())
+        k3_err, k3_bf16_err = max(k3_err, err), max(k3_bf16_err, err16)
+        k3_limit = max(k3_limit, MEL_ATOL, K3_SPLIT_SPREAD * spread)
+        print(f"pretrain (a2) K3 on a view: vs the float64 mel max |d| {err:.3e}, mean "
+              f"{float((k3 - ref64).abs().mean()):.3e}; the plain float32 mel vs float64 {spread:.3e}; K3's "
+              f"bf16-DFT entry {err16:.3e}")
+    print(f"pretrain (a2) K3 on the views: {k3_err:.3e} (limit {k3_limit:.3e}); its bf16-DFT entry {k3_bf16_err:.3e} "
+          f"(must exceed it)")
+    check(k3_err <= k3_limit, f"K3 on the pretrain views: {k3_err:.3e} from the float64 mel (limit {k3_limit:.3e})")
+    check(k3_bf16_err > k3_limit, "the K3 limit on the pretrain views passes the bf16 DFT")
+    # (a3) the step from K3 on: the CPU's plain mel of the CPU's views on both devices
+    specs_host = [mk.mel_spectrogram_plain(v * 32767.0) for v in views_host]
+    specs_card = [sp.to(dev) for sp in specs_host]
+    mask = torch.from_numpy(batch.pair_mask)
+    step_report: Dict = {}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        ref_loss, ref_grads = spec_step(host, specs_host, mask, dtype)
+        got_loss, got_grads = spec_step(card, specs_card, mask.to(dev), dtype)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32_loss, tf32_grads = spec_step(card, specs_card, mask.to(dev), dtype)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        gaps = {"loss": rel_gap(got_loss, ref_loss), "grad": grad_gap(got_grads, ref_grads),
+                "tf32_loss": rel_gap(tf32_loss, ref_loss), "tf32_grad": grad_gap(tf32_grads, ref_grads)}
+        # (a4) the whole step (views, K3, the rest) on each device, and the CPU's step on the card's views
+        (whole_loss, whole_grads), counts = run_path(
+            f"pretrain step {name}", lambda: step_grads(card, batch, draws_dev, dtype), ("mel_spectrogram",))
+        cpu_loss, cpu_grads = step_grads(host, batch, draws_cpu, dtype)
+        cv_loss, cv_grads = spec_step(host, [mk.mel_spectrogram_plain(v * 32767.0) for v in views_card], mask, dtype)
+        gaps.update({"whole_loss": rel_gap(whole_loss, cpu_loss), "whole_grad": grad_gap(whole_grads, cpu_grads),
+                     "views_loss": rel_gap(cv_loss, cpu_loss), "views_grad": grad_gap(cv_grads, cpu_grads)})
+        step_report[name] = {"loss_cpu": cpu_loss.tolist(), "loss_card": whole_loss.tolist(), **gaps,
+                             "launches": counts}
+        print(f"pretrain (a3) one step {name} at batch {card.batch_size} from the same spectrograms, card vs CPU: "
+              f"loss relative {gaps['loss']:.3e} (limit {PRETRAIN_LOSS_RTOL[dtype]:.0e}, TF32 on "
+              f"{gaps['tf32_loss']:.3e}); gradient max |d| / norm {gaps['grad']:.3e} (limit "
+              f"{PRETRAIN_GRAD_TOL[dtype]:.0e}, TF32 on {gaps['tf32_grad']:.3e})")
+        print(f"pretrain (a4) the whole step {name} card vs CPU (their own views and mels): loss {whole_loss.tolist()} "
+              f"vs {cpu_loss.tolist()}, relative {gaps['whole_loss']:.3e}, gradient {gaps['whole_grad']:.3e}; the "
+              f"CPU's step on the card's views instead of its own: {gaps['views_loss']:.3e} / {gaps['views_grad']:.3e}; "
+              f"launches {counts}")
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        gaps = step_report[name]
+        check(gaps["loss"] <= PRETRAIN_LOSS_RTOL[dtype] and gaps["grad"] <= PRETRAIN_GRAD_TOL[dtype],
+              f"pretrain step {name}: the card disagrees with the CPU")
+        if dtype == torch.float32:  # in bf16 TF32 is not separable (the limits' comment)
+            check(gaps["tf32_loss"] > PRETRAIN_LOSS_RTOL[dtype] or gaps["tf32_grad"] > PRETRAIN_GRAD_TOL[dtype],
+                  f"pretrain step {name}: the limits pass a step with TF32 on")
+        check(gaps["launches"] == {"mel_spectrogram": 2}, "a pretrain step launched K3 other than twice")
+        check(bool(np.isfinite(gaps["loss_card"]).all()), "the whole step's loss is not finite")
+    summary["step"] = {"views_max_abs_err": view_err, "zero_flips": zero_flips, "mel_jump": mel_jump,
+                       "k3_vs_f64": k3_err,
+                       "k3_bf16_vs_f64": k3_bf16_err, "k3_limit": k3_limit, **step_report}
+    del host
+
+    # ---- (b) pretrain-embedding through the CLI entry ---------------------------------------
+    npz = os.path.join(tmp, "embedding-pretrained.npz")
+    profiling.GLOBAL_STAGE_TIMES = profiling.StageTimes()
+    log = PretrainLog()
+    logger.addHandler(log)
+    try:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc, launches["pretrain"] = run_path(
+                "pretrain", lambda: cli_main(["pretrain-embedding", "-o", npz, "--tts-backend", "formant-device",
+                                              "--adversarial-fraction", "0.25", "--focus-phrase", PRETRAIN_PHRASE,
+                                              "--steps", str(PRETRAIN_STEPS)]),
+                ("mel_spectrogram",))
+        cli_s = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(log)
+    times = profiling.GLOBAL_STAGE_TIMES
+    check(rc == 0 and out.getvalue().strip() == f"Wrote {npz}; set HEYBUDDY_EMBEDDING_WEIGHTS={npz} to use it.",
+          f"pretrain-embedding: rc {rc}, {out.getvalue()!r}")
+    check(launches["pretrain"]["mel_spectrogram"] == 2 * PRETRAIN_STEPS, f"K3 launches {launches['pretrain']}")
+    rows = log.rows
+    check(len(rows) >= 6 and rows[0][0] == 0 and rows[-1][0] == PRETRAIN_STEPS - 1, f"logged rows {rows}")
+    first, last = float(np.mean([r[1] for r in rows[:3]])), float(np.mean([r[1] for r in rows[-3:]]))
+    n_clips = log.clips
+    summary["cli"] = {
+        "wall_s": cli_s, "logged": rows, "first3": first, "last3": last,
+        "pool_s": times.total["pretrain/clip_pool"], "pool_clips_per_s": n_clips / times.total["pretrain/clip_pool"],
+        "steps_s": times.total["pretrain/steps"], "steps_per_s": PRETRAIN_STEPS / times.total["pretrain/steps"],
+        "stages": {k: {"total_s": times.total[k], "count": times.count[k]} for k in times.total},
+    }
+    print(f"pretrain (b) pretrain-embedding --steps {PRETRAIN_STEPS} (cli): {cli_s:.1f} s, launches "
+          f"{launches['pretrain']}; clip pool {n_clips} clips in {times.total['pretrain/clip_pool']:.2f} s "
+          f"({summary['cli']['pool_clips_per_s']:.1f} clips/s); {PRETRAIN_STEPS} steps in "
+          f"{times.total['pretrain/steps']:.2f} s ({summary['cli']['steps_per_s']:.2f} steps/s); logged "
+          f"(step, loss, nt-xent, hard-pair) {rows}; mean loss of the first 3 logged {first:.4f}, last 3 {last:.4f}")
+    print("  stage times:\n    " + times.summary().replace("\n", "\n    "))
+    check(rows[0][3] > 0.0, "the hard-pair term is 0 at step 0")
+    check(last < first, "the pretrain loss did not fall")
+    # 20 steps of (a)'s pretrainer under the profiler: the busy share of the step
+    card.train(steps=2, log_every=2)  # warm
+    busy = device_busy(lambda: card.train(steps=PRETRAIN_PROFILE_STEPS, log_every=PRETRAIN_PROFILE_STEPS))
+    summary["profile"] = {**busy, "steps": PRETRAIN_PROFILE_STEPS,
+                          "steps_per_s": PRETRAIN_PROFILE_STEPS / busy["wall_ms"] * 1e3,
+                          "busy_share": None if busy["busy_ms"] is None else busy["busy_ms"] / busy["wall_ms"]}
+    print(f"pretrain {PRETRAIN_PROFILE_STEPS} profiled steps: wall {busy['wall_ms']:.1f} ms "
+          f"({summary['profile']['steps_per_s']:.2f} steps/s), kernels {busy['kernels']}, device busy "
+          f"{busy['busy_ms']} ms = {summary['profile']['busy_share']}")
+    del card, res
+
+    # ---- (c) the new npz in the featurizer ---------------------------------------------------
+    params = embedding_net.load_params(npz)
+    space = embedding_net.embedding_space_id(params)
+    os.environ["HEYBUDDY_EMBEDDING_WEIGHTS"] = npz
+    try:
+        fresh = SpeechEmbeddings(device=dev)
+        check(fresh.space_id == space != embedding_net.embedding_space_id(embedding_net.load_params(bundled)),
+              f"the featurizer's space {fresh.space_id} is not the npz's {space}")
+        rng = np.random.default_rng(SEED + 8)
+        clips = np.clip(rng.normal(0.0, 0.05, (BATCH, CLIP)), -1.0, 1.0).astype(np.float32)
+        audio = torch.from_numpy(clips * 32767.0).to(dev)
+        feats, launches["pretrain_features"] = run_path(
+            "pretrain_features", lambda: fresh(clips), ("mel_patches", "embedding_pool"))
+        patches, n = mk.mel_patches(audio)
+        k2_err, k2_limit = check_k2(fresh.net, patches, n, CLIP)
+        check_path("the new npz's fused features vs the plain path", torch.from_numpy(feats).to(dev),
+                   fk.fused_featurize_plain(fresh.net, audio, embedding_window_starts(CLIP)), k2_limit)
+    finally:
+        del os.environ["HEYBUDDY_EMBEDDING_WEIGHTS"]
+    summary["features"] = {"space_id": space, "k2_max_abs_err": k2_err, "k2_limit": k2_limit}
+    print(f"pretrain (c) the new npz (space {space}) in a fresh SpeechEmbeddings: {BATCH} clips, launches "
+          f"{launches['pretrain_features']}, K2 vs plain {k2_err:.3e} (limit {k2_limit:.3e})")
+
+    # ---- (d) the browser bundle ---------------------------------------------------------------
+    bundle = {}
+    for label, tree in (("bundled", None), ("pretrained", params)):
+        mel_path, emb_path = os.path.join(tmp, f"{label}-mel.onnx"), os.path.join(tmp, f"{label}-emb.onnx")
+        export_mel_spectrogram(mel_path)
+        export_embedding_net(emb_path, params=tree if tree is not None else embedding_net.load_params(bundled))
+        bundle[label] = (mel_path, emb_path)
+    for path, shipped in zip(bundle["bundled"], ("mel-spectrogram.onnx", "speech-embedding.onnx")):
+        with open(path, "rb") as a, open(os.path.join(ROOT, "browser", "models", shipped), "rb") as b:
+            check(a.read() == b.read(), f"{shipped} exported from the bundled npz differs from browser/models")
+    audio = np.random.default_rng(SEED + 9).normal(0, 1000.0, (1, 17280)).astype(np.float32)
+    spec = OnnxRunner.from_file(bundle["pretrained"][0])(input=audio)["output"][0]
+    n_win = (spec.shape[0] - 76) // 8 + 1
+    windows = np.stack([spec[i * 8: i * 8 + 76] for i in range(n_win)]).astype(np.float32)
+    browser = OnnxRunner.from_file(bundle["pretrained"][1])(input=windows)["output"]
+    native = SpeechEmbeddings(params=params, device=dev, compute_dtype=torch.float32)(audio / 32767.0)
+    browser_err = float(np.abs(browser[None] - native).max())
+    summary["browser"] = {"max_abs_err": browser_err, "windows": n_win}
+    print(f"pretrain (d) browser bundle from the new npz: numpy runner (mel -> {n_win} windows -> embedding) vs "
+          f"the card's float32 featurizer max |d| {browser_err:.3e} (limit {BROWSER_ATOL}); the bundled npz's "
+          f"export equals browser/models byte for byte")
+    check(browser.shape == (n_win, 96) and browser_err <= BROWSER_ATOL, "the browser bundle disagrees with the card")
+
+    # ---- (e) the neural G2P on the card ---------------------------------------------------------
+    rule = SimplePhonemizer(use_cmudict=False)
+    table = {w: re.findall(r"\[([A-Z]+)\]", rule(w)) for w in sorted(set(WORDS))}
+    log = PretrainLog()
+    logger.addHandler(log)
+    try:
+        t0 = time.perf_counter()
+        model, g2p_params = train_neural_g2p(table, steps=G2P_STEPS, lr=G2P_LR, log_every=G2P_STEPS // 3, device=dev)
+        torch.cuda.synchronize()
+        g2p_s = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(log)
+    losses = log.g2p
+    words = sorted(table)
+    chars = np.stack([encode_word(w, model.max_word) for w in words])
+    with torch.no_grad():
+        card_logits = model.apply_torch(g2p_params, chars).double().cpu().numpy()
+    fwd_err = float(np.abs(card_logits - model.apply_np(g2p_params, chars)).max())
+    bundled_model, bundled_params = NeuralG2P.load(os.path.join(ROOT, "heybuddy_tpu", "assets", "g2p-neural.npz"))
+    card_words = bundled_model.to(dev).decode(bundled_params, list(G2P_WORDS))
+    phonemizer = NeuralPhonemizer()
+    host_words = [phonemizer.word_phones(w) for w in G2P_WORDS]
+    summary["g2p"] = {"table_words": len(table), "steps": G2P_STEPS, "seconds": g2p_s, "losses": losses,
+                      "forward_max_abs_err": fwd_err}
+    print(f"pretrain (e) neural G2P: {len(table)} words, {G2P_STEPS} steps on the card in {g2p_s:.2f} s, logged "
+          f"losses {losses}; torch forward on the card vs apply_np max |d| {fwd_err:.3e} (limit "
+          f"{G2P_FORWARD_ATOL}); the bundled checkpoint on the card phonemizes {len(G2P_WORDS)} words as the "
+          f"numpy NeuralPhonemizer: {card_words == host_words}")
+    check(len(losses) >= 2 and losses[-1][1] < losses[0][1], f"the G2P loss did not fall: {losses}")
+    check(fwd_err <= G2P_FORWARD_ATOL, "the G2P torch forward on the card disagrees with apply_np")
+    check(card_words == host_words, f"the G2P on the card decodes {card_words} where the host gives {host_words}")
+    return {"summary": summary, "launches": launches}
+
+
 def device_busy(fn: Callable[[], object]) -> Dict[str, float]:
     """Host-clock ms of ``fn`` under ``torch.profiler`` and the ms its CUDA
-    kernels ran (None when the trace holds no device events)."""
+    kernels ran (None when the trace holds no device events; the device
+    spans of ``record_function`` annotations are not kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1465,7 +1819,9 @@ def device_busy(fn: Callable[[], object]) -> Dict[str, float]:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device events, less the device-side spans of record_function (stage_timer's names)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 if kernels else None
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels": len(kernels)}
 
@@ -1690,6 +2046,9 @@ def main() -> int:
         paths["stream"], paths["stream_train"] = stream["launches"]["speech"], stream["train_launches"]
         listen = listen_phase(dev, tmp, stream["head"])
         paths["listen"], paths["listen_vad"] = listen["listen"]["launches"], listen["listen_vad"]["launches"]
+        # ---- embedding pretraining, the new npz in the featurizer and the browser bundle, the G2P ----
+        pretrain = pretrain_phase(dev, tmp)
+        paths.update(pretrain["launches"])
     score_err = float(np.abs(s_gpu - s_cpu).max())
     print(f"predict scores card {np.round(s_gpu, 4).tolist()} vs plain path "
           f"{np.round(s_cpu, 4).tolist()}: max |d| {score_err:.3e}")
@@ -1792,7 +2151,7 @@ def main() -> int:
         "K1": ("mel_patches", "mel_patches.cu", "melspec_kernel.py:199", "fused"),
         "K1b": ("mel_patches_fat", "mel_patches_fat.cu", "melspec_kernel.py:346", "fat"),
         "K2": ("embedding_pool", "embedding_pool.cu", "embedding_kernel.py:309", "fused"),
-        "K3": ("mel_spectrogram", "mel_spectrogram.cu", "melspec_kernel.py:96", "spectrograms"),
+        "K3": ("mel_spectrogram", "mel_spectrogram.cu", "melspec_kernel.py:96", "pretrain"),
         "K4": ("featurize", "featurize.cu", "featurize_kernel.py:105", "mega"),
         "K1-bf16": ("mel_patches_bf16", "mel_patches.cu", "melspec_kernel.py:204", "bf16_dft"),
         "K3-bf16": ("mel_spectrogram_bf16", "mel_spectrogram.cu", "melspec_kernel.py:101",
@@ -1824,7 +2183,8 @@ def main() -> int:
                       "mega_ms": mega_ms, "mega_wins": mega_wins, "clips_per_s": BATCH / fused_ms * 1e3,
                       "call_ms": call_ms, "predict_ms": predict_s * 1e3, "batch": BATCH,
                       "train": train["summary"], "generate": generate["summary"],
-                      "stream": {**stream["summary"], "train": stream["train"]}, "listen": listen, **extract}))
+                      "stream": {**stream["summary"], "train": stream["train"]}, "listen": listen,
+                      "pretrain": pretrain["summary"], **extract}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

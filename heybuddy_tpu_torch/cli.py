@@ -11,6 +11,8 @@ Command line of the port (argparse):
         [--hours H] [--device cuda|cpu] [Hugging Face dataset options]
     python -m heybuddy_tpu_torch combine SOURCE... TARGET [--directory D] [--no-reset] [--half]
         [--delete] [--batch-size N]
+    python -m heybuddy_tpu_torch pretrain-embedding [-o OUTPUT] [the JAX command's options]
+        [--device cuda|cpu]
 
 ``train`` trains a wake-word head for PHRASE end to end with the JAX
 ``heybuddy train``'s options, names and defaults: the feature caches in
@@ -42,7 +44,11 @@ as ``heybuddy extract`` does. Its multi-device ``--mesh`` option is not
 ported. ``combine`` merges feature shards (paths or globs, also looked up in
 ``--directory``) into one appendable ``.npy`` (TARGET, or
 ``DIRECTORY/TARGET.npy``) and prints "Combined N rows from K shard(s) into
-PATH"; it is numpy only.
+PATH"; it is numpy only. ``pretrain-embedding`` trains the embedding network
+contrastively (``training/embedding_pretrain.py``) with the JAX command's
+options and defaults, writes its npz to OUTPUT and prints "Wrote OUTPUT; set
+HEYBUDDY_EMBEDDING_WEIGHTS=OUTPUT to use it."; the npz loads in either
+package.
 """
 
 from __future__ import annotations
@@ -121,7 +127,35 @@ def build_parser() -> argparse.ArgumentParser:
     convert.add_argument("output", nargs="?", default=None, help="output .onnx path")
     convert.add_argument("--opset-version", type=int, default=19)
     _add_train_parser(commands)
+    _add_pretrain_parser(commands)
     return parser
+
+
+def _add_pretrain_parser(commands: Any) -> None:
+    pretrain = commands.add_parser("pretrain-embedding",
+                                   help="contrastively pretrain the speech-embedding network")
+    add = pretrain.add_argument
+    add("--output", "-o", default="embedding-pretrained.npz")
+    add("--num-texts", type=int, default=512)
+    add("--speakers-per-text", type=int, default=4)
+    add("--steps", type=int, default=1000)
+    add("--batch-size", type=int, default=64)
+    add("--learning-rate", type=float, default=1e-3)
+    add("--temperature", type=float, default=0.1)
+    add("--tts-backend", choices=["vits", "formant", "formant-device"], default=None)
+    add("--adversarial-fraction", type=float, default=0.0,
+        help="share of the text pool built as phonetic-neighbour clusters (a base phrase + 3 near-collisions)")
+    add("--focus-phrase", default=None,
+        help="wake phrase whose deep near-collision cluster joins every batch under the margin loss")
+    add("--focus-swap-depth", type=int, default=0,
+        help="add this many texts with words of the focus phrase swapped for phonetic neighbours")
+    add("--focus-swap-max-swaps", type=int, default=1, help="the most words swapped in such a text")
+    add("--hard-pair-margin", type=float, default=0.4,
+        help="cosine-similarity ceiling for same-cluster rendered pairs")
+    add("--hard-pair-weight", type=float, default=1.0, help="weight of the margin loss against NT-Xent")
+    add("--seed", type=int, default=0)
+    add("--debug", action=argparse.BooleanOptionalAction, default=False)
+    add("--device", default="cuda", help="cuda (default) or cpu")
 
 
 # (option, type, default, AugmentConfig field) of train's augmentation options,
@@ -465,9 +499,39 @@ def _convert(args: argparse.Namespace) -> int:
     return 0
 
 
+def _pretrain_embedding(args: argparse.Namespace) -> int:
+    from heybuddy_tpu_torch.training.embedding_pretrain import EmbeddingPretrainer
+    from heybuddy_tpu_torch.utils.log import logger
+    from heybuddy_tpu_torch.utils.profiling import GLOBAL_STAGE_TIMES
+
+    if args.debug:
+        logger.setLevel(logging.DEBUG)
+    pretrainer = EmbeddingPretrainer(
+        num_texts=args.num_texts,
+        speakers_per_text=args.speakers_per_text,
+        batch_size=args.batch_size,
+        learning_rate=args.learning_rate,
+        temperature=args.temperature,
+        tts_backend=args.tts_backend,
+        adversarial_fraction=args.adversarial_fraction,
+        focus_phrase=args.focus_phrase,
+        focus_swap_depth=args.focus_swap_depth,
+        focus_swap_max_swaps=args.focus_swap_max_swaps,
+        hard_pair_margin=args.hard_pair_margin,
+        hard_pair_weight=args.hard_pair_weight,
+        seed=args.seed,
+        device=args.device,
+    )
+    pretrainer.train(steps=args.steps)
+    pretrainer.save(args.output)
+    logger.info(f"Stage times:\n{GLOBAL_STAGE_TIMES.summary()}")
+    print(f"Wrote {args.output}; set HEYBUDDY_EMBEDDING_WEIGHTS={args.output} to use it.")
+    return 0
+
+
 _COMMANDS = {
     "train": _train, "convert": _convert, "predict": _predict, "listen": _listen, "extract": _extract,
-    "combine": _combine,
+    "combine": _combine, "pretrain-embedding": _pretrain_embedding,
 }
 
 

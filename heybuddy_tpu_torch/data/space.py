@@ -43,10 +43,7 @@ _LEGACY_TTS = "formant:2"
 
 
 def _g2p_name() -> str:
-    """The name of the phonemizer synthesis uses (``text/phonemizer.py``);
-    "neural", which the port does not run, is named as the JAX package names it."""
-    if os.environ.get("HEYBUDDY_PHONEMIZER", "").lower() == "neural":
-        return "neural"
+    """The name of the phonemizer synthesis uses (``text/phonemizer.py``)."""
     from heybuddy_tpu_torch.text.phonemizer import get_phonemizer
 
     return getattr(get_phonemizer(), "name", "simple")

@@ -16,10 +16,19 @@ are rounded to bf16 and multiplied in float32 (``a.bfloat16().float() @
 w.bfloat16().float()``), because a bare bf16 CPU matmul rounds its output.
 
 Weights come from an npz in the flat ``patch_proj/w``, ``trunk/0/up/w``, ...
-layout (``load_params``): ``HEYBUDDY_EMBEDDING_WEIGHTS`` or the bundled
+layout (``load_params``, written by ``save_params``, the JAX package's
+format both ways): ``HEYBUDDY_EMBEDDING_WEIGHTS`` or the bundled
 ``heybuddy_tpu/assets/embedding-pretrained.npz``, read by path. With neither
 there is no fallback: the JAX package's seeded initialisation uses
 ``jax.random``, which torch cannot reproduce, so ``default_params`` raises.
+``init_params`` draws a fresh parameter tree from a ``torch.Generator`` with
+the JAX function's distributions, for pretraining from scratch.
+
+An ``EmbeddingNet``'s parameters are created frozen (``requires_grad=False``):
+the featurizer never trains them. Pretraining builds its own copy and calls
+``requires_grad_(True)`` on it. The bf16 rounding points (``_q``,
+``x.to(bf16).float()``) carry gradients, rounding the cotangent to bf16 where
+JAX's ``astype`` does.
 """
 
 from __future__ import annotations
@@ -39,6 +48,8 @@ from heybuddy_tpu_torch.utils.log import logger
 __all__ = [
     "EmbeddingNetConfig",
     "EmbeddingNet",
+    "init_params",
+    "save_params",
     "load_params",
     "default_params",
     "bundled_weights_path",
@@ -315,6 +326,50 @@ def unflatten_params(flat: Dict[str, np.ndarray]) -> Params:
         return items
 
     return listify(root)
+
+
+def init_params(generator: torch.Generator, config: Optional[EmbeddingNetConfig] = None) -> Params:
+    """
+    A fresh parameter tree (float32 numpy, the JAX layout) drawn from
+    ``generator`` on its device with the JAX function's distributions and in
+    its order of draws: dense weights uniform in +-1/sqrt(fan_in) (patch_proj,
+    then each block's up and down, pool_query, head), biases zero, ``pos``
+    0.02 N(0, 1) (drawn after the blocks). ``jax.random`` streams cannot be
+    reproduced, so the values differ from the JAX function's for any seed.
+    """
+    cfg = config or EmbeddingNetConfig()
+    dev = generator.device
+
+    def dense(fan_in: int, fan_out: int) -> np.ndarray:
+        scale = 1.0 / np.sqrt(fan_in)
+        u = torch.rand((fan_in, fan_out), generator=generator, device=dev)
+        return (u * (2.0 * scale) - scale).cpu().numpy()
+
+    def zeros(n: int) -> np.ndarray:
+        return np.zeros((n,), dtype=np.float32)
+
+    patch_w = dense(cfg.patch_dim, cfg.hidden_dim)
+    blocks = []
+    for _ in range(cfg.trunk_blocks):
+        up_w = dense(cfg.hidden_dim, cfg.trunk_hidden_dim)
+        down_w = dense(cfg.trunk_hidden_dim, cfg.hidden_dim)
+        blocks.append({"up": {"w": up_w, "b": zeros(cfg.trunk_hidden_dim)},
+                       "down": {"w": down_w, "b": zeros(cfg.hidden_dim)}})
+    pos = (0.02 * torch.randn((cfg.window_patches, cfg.hidden_dim), generator=generator, device=dev)).cpu().numpy()
+    pool_query = dense(cfg.hidden_dim, cfg.pool_heads)
+    head_w = dense(cfg.hidden_dim * cfg.pool_heads, cfg.embedding_dim)
+    return {
+        "patch_proj": {"w": patch_w, "b": zeros(cfg.hidden_dim)},
+        "trunk": blocks,
+        "pos": pos,
+        "pool_query": pool_query,
+        "head": {"w": head_w, "b": zeros(cfg.embedding_dim)},
+    }
+
+
+def save_params(params: Any, path: str) -> None:
+    """Write a parameter tree (or an ``EmbeddingNet``) as the flat npz both packages' ``load_params`` read."""
+    np.savez(path, **{k: np.asarray(v, dtype=np.float32) for k, v in flatten_params(params).items()})
 
 
 def load_params(path: str) -> Params:

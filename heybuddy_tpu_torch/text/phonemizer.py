@@ -10,9 +10,9 @@ upgrades accuracy to dictionary quality; the rule engine remains the
 out-of-vocabulary fallback.
 
 ``get_phonemizer`` chooses in the JAX package's order: ``HEYBUDDY_PHONEMIZER``,
-then espeak when libespeak-ng loads, then the rule engine. The neural
-phonemizer (``HEYBUDDY_PHONEMIZER=neural``) is not ported: its inference runs
-in JAX.
+then espeak when libespeak-ng loads, then the rule engine.
+``HEYBUDDY_PHONEMIZER=neural`` selects the trained G2P model
+(``text/neural_g2p.NeuralPhonemizer``, numpy inference).
 """
 
 from __future__ import annotations
@@ -350,18 +350,18 @@ def get_phonemizer(**_compat_kwargs: object) -> "SimplePhonemizer":
     Shared phonemizer instance. Prefers the espeak-ng binding when
     libespeak-ng is installed; the rule engine (+ optional CMUdict) remains
     the dependency-free fallback. ``HEYBUDDY_PHONEMIZER=simple`` forces the
-    rule engine; ``HEYBUDDY_PHONEMIZER=neural`` raises: the trained G2P
-    model's inference is not ported.
+    rule engine; ``HEYBUDDY_PHONEMIZER=neural`` builds the trained G2P
+    model's ``NeuralPhonemizer`` (``HEYBUDDY_G2P_WEIGHTS`` or the bundled
+    checkpoint; it raises without one).
     """
     global _GLOBAL_PHONEMIZER
     if _GLOBAL_PHONEMIZER is None:
         backend = os.environ.get("HEYBUDDY_PHONEMIZER", "").lower()
         if backend == "neural":
-            raise NotImplementedError(
-                "HEYBUDDY_PHONEMIZER=neural: the neural G2P is not yet ported to "
-                "heybuddy_tpu_torch (its inference runs in JAX); use simple or espeak"
-            )
-        if backend != "simple":
+            from heybuddy_tpu_torch.text.neural_g2p import NeuralPhonemizer
+
+            _GLOBAL_PHONEMIZER = NeuralPhonemizer()
+        elif backend != "simple":
             try:
                 from heybuddy_tpu_torch.text.espeak import EspeakPhonemizer
 

@@ -6,7 +6,7 @@ read_wav_any`` adds IEEE-float WAV), resampling by polyphase filtering
 (``scipy.signal.resample_poly``), and the universal ``audio_to_bct_array``
 loader that turns paths, WAV bytes, arrays or lists into float32
 ``(batch, channels, time)`` in [-1, 1]. Other containers (mp3, flac, ogg)
-are not ported yet and raise.
+decode through ``codecs.decode_audio``, which needs ffmpeg.
 """
 
 from __future__ import annotations
@@ -40,8 +40,8 @@ def read_wav(path_or_bytes: Union[str, bytes]) -> Tuple[np.ndarray, int]:
             raw = wav.readframes(wav.getnframes())
     except wave.Error as exc:
         raise NotImplementedError(
-            f"only integer-PCM WAV is supported by this port so far ({exc}); "
-            "other codecs are not yet ported"
+            f"the wave module reads integer-PCM WAV only ({exc}); codecs.read_wav_any "
+            "reads IEEE-float WAV"
         ) from exc
 
     if sample_width == 1:  # unsigned 8-bit
@@ -94,10 +94,10 @@ def _coerce_single(item: AudioLike, sample_rate: Optional[int]) -> Tuple[np.ndar
     """One item as (channels, time) float32 plus its native sample rate."""
     if isinstance(item, (str, bytes)):
         if isinstance(item, str) and os.path.splitext(item)[1].lower() not in _WAV_EXTENSIONS:
-            raise NotImplementedError(
-                f"{item!r}: only WAV files are supported by this port so far; "
-                "the other codecs are not yet ported"
-            )
+            # non-WAV containers go through the codec layer (ffmpeg)
+            from heybuddy_tpu_torch.utils.codecs import decode_audio
+
+            return decode_audio(item, sample_rate=sample_rate)
         from heybuddy_tpu_torch.utils.codecs import read_wav_any
 
         return read_wav_any(item)

@@ -49,6 +49,16 @@ STREAM_LISTEN_MODULES = (
     "heybuddy_tpu_torch.runtime.listen",
 )
 
+# the modules of the pretraining slice: the pretrainer, the neural G2P, the
+# browser exporters' module, codecs and profiling
+PRETRAIN_MODULES = (
+    "heybuddy_tpu_torch.training.embedding_pretrain",
+    "heybuddy_tpu_torch.text.neural_g2p",
+    "heybuddy_tpu_torch.export.onnx_export",
+    "heybuddy_tpu_torch.utils.codecs",
+    "heybuddy_tpu_torch.utils.profiling",
+)
+
 
 def test_port_imports_no_jax_and_no_jax_package():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -63,3 +73,4 @@ def test_port_imports_no_jax_and_no_jax_package():
     walked = set(lines[-1].split())
     assert set(GENERATION_MODULES) <= walked, sorted(set(GENERATION_MODULES) - walked)
     assert set(STREAM_LISTEN_MODULES) <= walked, sorted(set(STREAM_LISTEN_MODULES) - walked)
+    assert set(PRETRAIN_MODULES) <= walked, sorted(set(PRETRAIN_MODULES) - walked)

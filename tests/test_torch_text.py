@@ -51,14 +51,20 @@ def test_phonemes_equal_jax_over_the_word_list_and_goldens():
 
 
 def test_phonemizer_choice_follows_jax(monkeypatch):
-    """No libespeak-ng here: both choose the rule engine; neural is not ported."""
+    """No libespeak-ng here: both choose the rule engine; with neural both build
+    a NeuralPhonemizer on the bundled checkpoint that phonemizes alike."""
     monkeypatch.delenv("HEYBUDDY_PHONEMIZER")
     assert espeak.espeak_library_path() == jax_espeak.espeak_library_path()
     assert type(phonemizer.get_phonemizer()).__name__ == type(jax_phonemizer.get_phonemizer()).__name__
-    monkeypatch.setattr(phonemizer, "_GLOBAL_PHONEMIZER", None)
+    for mod in (phonemizer, jax_phonemizer):
+        monkeypatch.setattr(mod, "_GLOBAL_PHONEMIZER", None)
     monkeypatch.setenv("HEYBUDDY_PHONEMIZER", "neural")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        phonemizer.get_phonemizer()
+    monkeypatch.delenv("HEYBUDDY_G2P_WEIGHTS", raising=False)
+    port, ref = phonemizer.get_phonemizer(), jax_phonemizer.get_phonemizer()
+    assert type(port).__name__ == type(ref).__name__ == "NeuralPhonemizer"
+    assert port.name == ref.name == "neural"
+    for text in ("hello world", "hey buddy", "please turn on the lights", "zephyr quokka"):
+        assert port(text) == ref(text), text
     for ipa in ("həlˈoʊ", "wˈɜːld", "bˈʌdi", "tʃˈɪps"):
         assert espeak.EspeakPhonemizer.ipa_word_to_arpabet(ipa) == jax_espeak.EspeakPhonemizer.ipa_word_to_arpabet(ipa)
 
