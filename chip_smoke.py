@@ -44,7 +44,19 @@ reject), ``pretrain-embedding`` through the CLI entry (K3 twice a step), 20
 profiled steps, the new npz in a fresh ``SpeechEmbeddings`` (K1 -> K2 against
 the plain path), the browser bundle exported from it and run by the numpy
 runner against the card, and the neural G2P trained and decoding on the
-card. It checks what each path returns, times kernels and
+card; then the ONNX importer: the bundled ``speech-embedding.onnx`` as
+``SpeechEmbeddings``' "onnx" backend (K3 once a call, then the graph on
+every window) against the card's float32 trunk-pool features, the graph on
+the card against the CPU, ``mel-spectrogram.onnx`` against K3 and the plain
+mel, and a Silero-layout graph through ``SileroOnnxVAD`` card against CPU;
+then the VITS TTS at full width from seeded weights: a Piper ``.pt``
+through ``import_torch_checkpoint`` bit for bit, ``infer`` card against CPU
+(and with TF32 on, which the limit must reject), ``infer`` at batch 64,
+``train --tts-backend vits`` from an empty directory (K1 -> K2 per embed
+batch), one full-width ``training_forward`` step card against CPU (with a
+TF32 control) and 20 timed and profiled Adam steps, and the tiny voice of
+``tools/train_tiny_voice``. ``python3 chip_smoke.py onnx vits`` builds the
+kernels and runs those two phases alone. It checks what each path returns, times kernels and
 plain versions with CUDA events, prints one JSON line of kernel numbers and
 ends with one JSON line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero; it also fails without a CUDA device.
@@ -90,14 +102,26 @@ from heybuddy_tpu_torch.data.training import WakeWordTrainingDatasetIterator
 from heybuddy_tpu_torch.data.tts_generator import SpeechSampleGenerator
 from heybuddy_tpu_torch.export.onnx_numpy import OnnxRunner
 from heybuddy_tpu_torch.models import formant_device as fd
+from heybuddy_tpu_torch.export.onnx_to_torch import OnnxTorchFunction
+from heybuddy_tpu_torch.models.embedding_net import load_from_onnx
 from heybuddy_tpu_torch.models.featurizer import (
     STREAM_SEGMENT_WINDOWS,
     SpeechEmbeddings,
     featurize_batch,
+    featurize_batch_per_window,
     get_speech_embeddings,
 )
-from heybuddy_tpu_torch.models.tts import get_tts_model
-from heybuddy_tpu_torch.models.vad import SileroStyleVAD, get_vad_model
+from heybuddy_tpu_torch.models.tts import VitsTTS, get_tts_model
+from heybuddy_tpu_torch.models.vad import SileroOnnxVAD, SileroStyleVAD, get_vad_model
+from heybuddy_tpu_torch.models.vits import Vits, VitsConfig, import_torch_checkpoint
+from heybuddy_tpu_torch.models.vits import init_params as vits_init_params
+from heybuddy_tpu_torch.models.vits.training import (
+    ALIGN_SECONDS,
+    PosteriorEncoder,
+    posterior_encoder_init,
+    sdp_posterior_init,
+    training_forward,
+)
 from heybuddy_tpu_torch.models.wakeword import (
     WakeWordMLPModel,
     WakeWordTransformerModel,
@@ -113,12 +137,16 @@ from heybuddy_tpu_torch.ops.augment import AugmentConfig, augment_batch, draw_au
 from heybuddy_tpu_torch.ops.melspec import mel_filterbank, num_frames
 from heybuddy_tpu_torch.ops.windows import embedding_window_starts
 from heybuddy_tpu_torch.text.tokens import BERTTokenizer
+from heybuddy_tpu_torch.tools.train_tiny_voice import train as train_tiny_voice
 from heybuddy_tpu_torch.utils.audio_io import write_wav
 from heybuddy_tpu_torch.utils.codecs import read_wav_any
 from heybuddy_tpu_torch.utils.cuda_timing import cuda_ms, nvidia_smi_line
 from heybuddy_tpu_torch.utils.log import logger
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+from torch_fixtures import perturbed_vits, silero_v4_graph  # noqa: E402  (the port's tests' fixtures)
+
 CHECKPOINT = os.path.join(ROOT, "reports", "quality-v26-embedv8.npz")
 SEED = 20261016
 BATCH = 2048
@@ -1807,6 +1835,323 @@ def pretrain_phase(dev: torch.device, tmp: str) -> Dict:
     return {"summary": summary, "launches": launches}
 
 
+@contextlib.contextmanager
+def tf32(enabled: bool):
+    """TF32 for matmuls and cuDNN inside the block (off outside it, as device.py sets it)."""
+    torch.backends.cuda.matmul.allow_tf32 = enabled
+    torch.backends.cudnn.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+# The onnx phase: the bundled browser graphs through the port's ONNX importer.
+# The embedding graph as SpeechEmbeddings' "onnx" backend (K3, then the graph
+# on every window) on the BATCH clips, held to the card's float32 trunk-pool
+# features at JAX's browser bound; the graph on the card against the same
+# graph on the CPU on ONNX_CPU_CLIPS clips' windows, and both against the
+# graph's float64 run on the CPU; the mel graph against K3
+# and the plain float32 mel; a Silero-v4-layout graph through SileroOnnxVAD,
+# card against CPU over SILERO_ONNX_CHUNKS chunks with the state carried.
+SPEECH_EMBEDDING_ONNX = os.path.join(ROOT, "browser", "models", "speech-embedding.onnx")
+MEL_SPECTROGRAM_ONNX = os.path.join(ROOT, "browser", "models", "mel-spectrogram.onnx")
+ONNX_FEATURE_ATOL = BROWSER_ATOL
+# one float32 graph, the card's kernels against the CPU's. The embedding
+# graph's outputs reach ~5 and its float32 run on the CPU lies ~2e-5 from its
+# float64 run (3.8e-6 of the largest output on 256 clips of this noise), so
+# the limit is relative to the largest output: card against CPU, and each
+# against float64; the card with TF32 on must fail it. The VAD's probability
+# and state are held absolutely.
+ONNX_GRAPH_RTOL = 1e-5
+ONNX_DEVICE_ATOL = 1e-5
+ONNX_CPU_CLIPS = 256
+SILERO_ONNX_CHUNKS = 20
+
+
+def onnx_phase(net, dev: torch.device, clips: np.ndarray, audio: torch.Tensor, tmp: str) -> Dict:
+    cpu = torch.device("cpu")
+    summary: Dict = {}
+    emb = SpeechEmbeddings(onnx_path=SPEECH_EMBEDDING_ONNX, device=dev)
+    feats, launches = run_path("onnx", lambda: emb(clips), ("mel_spectrogram",))
+    check(launches == {"mel_spectrogram": 1}, f"onnx: launched {launches}, expected K3 once a featurize call")
+    check(feats.shape == (BATCH, 16, 96) and bool(np.isfinite(feats).all()), f"onnx features {feats.shape}")
+    native = featurize_batch(net, audio, compute_dtype=torch.float32).cpu().numpy()
+    feat_err = float(np.abs(feats - native).max())
+    print(f"path onnx (SpeechEmbeddings(onnx_path=speech-embedding.onnx), {BATCH} x {CLIP}): launches {launches}; "
+          f"vs the card's float32 trunk-pool features max |d| {feat_err:.3e} (limit {ONNX_FEATURE_ATOL}); space "
+          f"{emb.space_id} (trunkpool {get_speech_embeddings(device=dev).space_id})")
+    check(feat_err <= ONNX_FEATURE_ATOL, "the ONNX embedding disagrees with the float32 trunk-pool features")
+
+    sub = audio[:ONNX_CPU_CLIPS]
+    spec = mk.mel_spectrogram(sub)
+    starts = np.asarray(embedding_window_starts(CLIP))
+    idx = torch.as_tensor(starts[:, None] + np.arange(76)[None, :], device=dev)
+    windows = spec[:, idx].reshape(-1, 76, 32)
+    graph64 = OnnxTorchFunction.from_file(SPEECH_EMBEDDING_ONNX, cpu)
+    with torch.no_grad():
+        card = emb.onnx_net.apply(windows).cpu()
+        with tf32(True):
+            card32 = emb.onnx_net.apply(windows).cpu()
+        host = load_from_onnx(SPEECH_EMBEDDING_ONNX, cpu).apply(windows.cpu())
+        exact = graph64({k: v.double() for k, v in graph64.params.items()}, windows.cpu().double())
+    scale = float(exact.abs().max())
+
+    def gap(got: torch.Tensor, ref: torch.Tensor) -> float:
+        return float((got.double() - ref.double()).abs().max()) / scale
+
+    graph_err, graph_err32 = gap(card, host), gap(card32, host)
+    card64, host64 = gap(card, exact), gap(host, exact)
+    print(f"onnx: the embedding graph on {windows.shape[0]} windows, max |d| over the largest output {scale:.4f}: "
+          f"card vs CPU {graph_err:.3e} ({graph_err * scale:.3e} absolute), TF32 on {graph_err32:.3e}; against the "
+          f"CPU's float64 run: card {card64:.3e} ({card64 * scale:.3e}), CPU {host64:.3e} ({host64 * scale:.3e}) "
+          f"(limit {ONNX_GRAPH_RTOL} of the largest output)")
+    check(max(graph_err, card64, host64) <= ONNX_GRAPH_RTOL,
+          "the imported embedding graph disagrees between card, CPU and float64")
+    check(graph_err32 > ONNX_GRAPH_RTOL, "TF32 on passes the embedding graph's card-vs-CPU limit")
+
+    x = audio[:1, :17280].contiguous()
+    mel_fn = OnnxTorchFunction.from_file(MEL_SPECTROGRAM_ONNX, dev)
+    with torch.no_grad():
+        mel = mel_fn(mel_fn.params, x)
+    k3, plain = mk.mel_spectrogram(x), mk.mel_spectrogram_plain(x)
+    check(tuple(mel.shape) == (1, 105, 32) == tuple(k3.shape), f"mel graph {tuple(mel.shape)}, K3 {tuple(k3.shape)}")
+    mel_k3, mel_plain = check_mel("mel-spectrogram.onnx vs K3", mel, k3), check_mel(
+        "mel-spectrogram.onnx vs the plain mel", mel, plain)
+    print(f"onnx: mel-spectrogram.onnx on the card (1, 17280) vs K3 max |d| {mel_k3:.3e}, vs the plain float32 "
+          f"mel {mel_plain:.3e} (limit {MEL_ATOL} + {MEL_RTOL} |ref|)")
+
+    path, _ = silero_v4_graph(os.path.join(tmp, "silero-v4.onnx"), seed=SEED % 1000)
+    card_vad, host_vad = SileroOnnxVAD(path, device=dev), SileroOnnxVAD(path, device=cpu)
+    signal = tonal_audio(np.random.default_rng(SEED + 11), 1, 512 * SILERO_ONNX_CHUNKS)[0] / 32767.0
+    gaps, chunk_ms = [], []
+    for i in range(SILERO_ONNX_CHUNKS):
+        chunk = signal[512 * i: 512 * (i + 1)]
+        t0 = time.perf_counter()
+        p = card_vad(chunk)
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        gaps.append(max([abs(p - host_vad(chunk))] + [float((a.cpu() - b).abs().max())
+                                                    for a, b in zip(card_vad._state, host_vad._state)]))
+    vad_err = max(gaps)
+    print(f"onnx: SileroOnnxVAD (a v4-layout graph with its If, written by the port's writer) card vs CPU over "
+          f"{SILERO_ONNX_CHUNKS} chunks of 512, state carried: probability and state max |d| {vad_err:.3e} "
+          f"(limit {ONNX_DEVICE_ATOL}); per chunk (host clock) median {np.median(chunk_ms):.3f} ms")
+    check(vad_err <= ONNX_DEVICE_ATOL, "SileroOnnxVAD disagrees between card and CPU")
+
+    onnx_ms = cuda_ms(lambda: featurize_batch_per_window(emb.onnx_net.apply, audio))
+    fused_ms = cuda_ms(lambda: featurize_batch(net, audio))
+    n_windows = BATCH * len(starts)
+    print(f"onnx vs fused in one call, {BATCH} x {CLIP} (CUDA events, median of 11): onnx {onnx_ms:.4f} ms = "
+          f"{BATCH / onnx_ms * 1e3:.0f} clips/s, {n_windows / onnx_ms * 1e3:.0f} windows/s; fused {fused_ms:.4f} ms = "
+          f"{BATCH / fused_ms * 1e3:.0f} clips/s, {n_windows / fused_ms * 1e3:.0f} windows/s")
+    summary.update(feature_err=feat_err, graph_rel_err=graph_err, graph_rel_err_tf32=graph_err32,
+                   graph_rel_err_card_f64=card64, graph_rel_err_cpu_f64=host64, mel_vs_k3=mel_k3,
+                   mel_vs_plain=mel_plain, silero_err=vad_err, silero_chunk_ms=float(np.median(chunk_ms)), onnx_ms=onnx_ms,
+                   fused_ms=fused_ms, onnx_clips_per_s=BATCH / onnx_ms * 1e3,
+                   fused_clips_per_s=BATCH / fused_ms * 1e3)
+    return {"summary": summary, "launches": launches}
+
+
+# The vits phase: the VITS TTS at the full piper-libritts-en-r-medium width
+# (VitsConfig()) from seeded weights, the flows' zero-initialised layers made
+# non-zero as the tests make them, written as a Piper .pt. (b) infer card vs
+# CPU on the same weights and draws; the audio's limit lies between the sound
+# run and the same run with TF32 on, which must fail it. (c) infer
+# throughput. (d) train from an empty directory on the vits route, small
+# counts. (e) one training_forward step at full width (posterior 513 -> 16 WN
+# layers), card vs CPU: the alignment equal, the loss 1e-5 relative, the
+# gradient's norm gap between the sound step and TF32 on; then
+# VITS_TRAIN_STEPS Adam steps timed and profiled. (f) the tiny voice.
+VITS_TEXTS = ("hey buddy", "what time is it", "turn on the lights", "good morning to you",
+              "play some music please", "set a timer for ten minutes", "hello there", "stop the alarm")
+VITS_INFER_BATCH = 4
+VITS_THROUGHPUT_BATCH = 64
+# limits between the sound run and the same run with TF32 on (PERF.md, section 2):
+# infer's audio (seeded weights; the run prints its peak), the step's loss relative
+# to it, the step's gradient as the norm of the gap over the gradient's norm
+VITS_AUDIO_ATOL = 1e-6
+VITS_LOSS_RTOL = 1e-5
+VITS_GRAD_RTOL = 1e-4
+VITS_STEP_FRAMES = (120, 100, 90, 110)
+VITS_TRAIN_STEPS = 20
+VITS_GEN_ROWS = {"hey-buddy": 128, "hey-buddy-adversarial": 128, "hey-buddy-testing-validation": 32}
+VITS_GEN_STEPS = 100
+
+
+def vits_infer(model, ids, lengths, spk, max_frames, noise_dur, noise_prior):
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        audio, n = model.infer(torch.from_numpy(ids).long().to(dev), torch.from_numpy(lengths).to(dev),
+                               torch.from_numpy(spk).to(dev), max_frames=max_frames, noise_dur=noise_dur.to(dev),
+                               noise_prior=noise_prior.to(dev))
+    return audio.cpu(), n.cpu()
+
+
+def vits_step(model, posterior, batch: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor]):
+    """One training_forward + backward (the tiny voice's loss without its reconstruction term):
+    (loss, alignment, the gradients as one vector), all on the CPU."""
+    dev = next(model.parameters()).device
+    model.zero_grad(set_to_none=True)
+    posterior.zero_grad(set_to_none=True)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    out = training_forward(model, posterior, b["ids"], b["id_len"], b["spec"], b["spec_len"],
+                           model.emb_g.weight[b["speakers"]], segment_size=32,
+                           draws={k: v.to(dev) for k, v in draws.items()})
+    loss = out["kl_loss"] + out["duration_loss"] + out["audio_segment"].square().mean()
+    loss.backward()
+    grads = torch.cat([p.grad.reshape(-1) for m in (model, posterior) for p in m.parameters() if p.grad is not None])
+    return float(loss), out["attn"].cpu(), grads.cpu()
+
+
+def vits_phase(dev: torch.device, tmp: str) -> Dict:
+    cpu = torch.device("cpu")
+    cfg = VitsConfig()
+    summary: Dict = {}
+    # ---- (a) a seeded full-width voice as a Piper .pt, through the importer -------------------
+    gen = torch.Generator().manual_seed(SEED)
+    tree = perturbed_vits(vits_init_params(gen, cfg), SEED % 1000)  # every flow non-trivial
+    model = Vits.from_jax_params(tree, cfg, device=dev).eval()
+    ckpt = os.path.join(tmp, "vits-seeded.pt")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+    loaded = import_torch_checkpoint(ckpt, cfg, dev)
+    same = all(torch.equal(a, b) for a, b in zip(loaded.state_dict().values(), model.state_dict().values()))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"vits (a): VitsConfig() seeded, {n_params} parameters, {os.path.getsize(ckpt)} bytes as a Piper .pt; "
+          f"import_torch_checkpoint equals the module bit for bit: {same}")
+    check(same and list(loaded.state_dict()) == list(model.state_dict()), "the imported checkpoint differs")
+
+    # ---- (b) infer card vs CPU, the same weights and draws -------------------------------------
+    tts = VitsTTS(checkpoint_path=ckpt, device=dev)
+    host = import_torch_checkpoint(ckpt, cfg, cpu).eval()
+    texts = list(VITS_TEXTS[:VITS_INFER_BATCH])
+    speakers = [(i, i + 1) for i in range(VITS_INFER_BATCH)]
+    ids, lengths, spk, max_frames = tts.batch_inputs(texts, speakers, 0.5, 1.0)
+    draw = torch.Generator().manual_seed(SEED + 3)
+    noise_dur = torch.randn((VITS_INFER_BATCH, 2, ids.shape[1]), generator=draw)
+    noise_prior = torch.randn((VITS_INFER_BATCH, cfg.inter_channels, max_frames), generator=draw)
+    want, want_n = vits_infer(host, ids, lengths, spk, max_frames, noise_dur, noise_prior)
+    got, got_n = vits_infer(tts.model, ids, lengths, spk, max_frames, noise_dur, noise_prior)
+    with tf32(True):
+        got32, got32_n = vits_infer(tts.model, ids, lengths, spk, max_frames, noise_dur, noise_prior)
+    err, err32 = float((got - want).abs().max()), float((got32 - want).abs().max())
+    print(f"vits (b) infer, batch {VITS_INFER_BATCH}, t_x {ids.shape[1]}, max_frames {max_frames}: lengths card "
+          f"{got_n.tolist()} CPU {want_n.tolist()} (TF32 on: {got32_n.tolist()}); audio max |d| card vs CPU "
+          f"{err:.3e}, TF32 on {err32:.3e} (limit {VITS_AUDIO_ATOL}; the peak {float(want.abs().max()):.3f})")
+    check(torch.equal(got_n, want_n), f"infer lengths differ between card and CPU (a ceil(w) flip): "
+          f"{got_n.tolist()} vs {want_n.tolist()}")
+    check(err <= VITS_AUDIO_ATOL, "infer audio disagrees between card and CPU")
+    check(err32 > VITS_AUDIO_ATOL or not torch.equal(got32_n, want_n), "TF32 on passes the infer limit")
+    summary["infer"] = {"max_abs_err": err, "tf32_max_abs_err": err32, "lengths": got_n.tolist()}
+
+    # ---- (c) infer throughput at batch VITS_THROUGHPUT_BATCH ---------------------------------
+    n = VITS_THROUGHPUT_BATCH
+    texts = [VITS_TEXTS[i % len(VITS_TEXTS)] for i in range(n)]
+    ids, lengths, spk, max_frames = tts.batch_inputs(texts, [(i % 904, (i + 7) % 904) for i in range(n)], 0.5, 1.0)
+    args = [torch.from_numpy(a).to(dev) for a in (ids.astype(np.int64), lengths, spk)]
+    infer_gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def infer_batch():
+        with torch.no_grad():
+            return tts.model.infer(*args, max_frames=max_frames, generator=infer_gen)
+
+    infer_ms = cuda_ms(infer_batch)
+    audio_s = n * max_frames * cfg.hop_samples / cfg.sample_rate
+    print(f"vits (c) infer throughput, batch {n}, t_x {ids.shape[1]}, max_frames {max_frames} ({audio_s:.1f} s of "
+          f"22.05 kHz audio a call): {infer_ms:.3f} ms (CUDA events, median of 11) = {n / infer_ms * 1e3:.1f} clips/s")
+    summary["throughput"] = {"batch": n, "ms": infer_ms, "clips_per_s": n / infer_ms * 1e3, "max_frames": max_frames}
+
+    # ---- (d) train from an empty directory on the vits route ----------------------------------
+    saved = os.environ.get("HEYBUDDY_TTS_CHECKPOINT")
+    os.environ["HEYBUDDY_TTS_CHECKPOINT"] = ckpt
+    try:
+        route = generate_route("vits", "vits", VITS_GEN_ROWS, VITS_GEN_STEPS, dev, tmp)
+    finally:
+        if saved is None:
+            os.environ.pop("HEYBUDDY_TTS_CHECKPOINT", None)
+        else:
+            os.environ["HEYBUDDY_TTS_CHECKPOINT"] = saved
+    summary["generate"] = route["summary"]
+
+    # ---- (e) one training step at full width, card vs CPU, then Adam steps -------------------
+    post_tree = posterior_encoder_init(gen, in_channels=513, out_channels=cfg.inter_channels,
+                                       hidden_channels=cfg.hidden_channels, n_layers=16,
+                                       gin_channels=cfg.gin_channels)
+    sdp_post = sdp_posterior_init(gen, cfg.hidden_channels)
+    modules = {d: (Vits.from_jax_params(tree, cfg, sdp_posterior=sdp_post, device=d),
+                   PosteriorEncoder.from_jax_params(post_tree, device=d)) for d in (dev, cpu)}
+    rng = np.random.default_rng(SEED + 5)
+    b = len(VITS_STEP_FRAMES)
+    ids, lengths, _, _ = tts.batch_inputs(list(VITS_TEXTS[:b]), [(0, 1)] * b, 0.5, 1.0)
+    t_y = max(VITS_STEP_FRAMES)
+    batch = {"ids": torch.from_numpy(ids.astype(np.int64)), "id_len": torch.from_numpy(lengths.astype(np.int64)),
+             "spec": torch.from_numpy(rng.normal(0, 1, (b, 513, t_y)).astype(np.float32)),
+             "spec_len": torch.tensor(VITS_STEP_FRAMES), "speakers": torch.arange(b)}
+    draw = torch.Generator().manual_seed(SEED + 6)
+    draws = {"post": torch.randn((b, cfg.inter_channels, t_y), generator=draw),
+             "slice": torch.rand((b,), generator=draw), "dur": torch.randn((b, 2, ids.shape[1]), generator=draw)}
+    loss_cpu, attn_cpu, grad_cpu = vits_step(*modules[cpu], batch, draws)
+    loss_card, attn_card, grad_card = vits_step(*modules[dev], batch, draws)
+    with tf32(True):
+        loss32, attn32, grad32 = vits_step(*modules[dev], batch, draws)
+    norm = float(grad_cpu.norm())
+    loss_gap, loss_gap32 = abs(loss_card - loss_cpu) / abs(loss_cpu), abs(loss32 - loss_cpu) / abs(loss_cpu)
+    grad_gap, grad_gap32 = float((grad_card - grad_cpu).norm()) / norm, float((grad32 - grad_cpu).norm()) / norm
+    aligned, aligned32 = torch.equal(attn_card, attn_cpu), torch.equal(attn32, attn_cpu)
+    print(f"vits (e) training_forward at full width (batch {b}, t_x {ids.shape[1]}, t_y {t_y}, posterior 513 -> 16 "
+          f"WN layers), card vs CPU: alignment equal {aligned} (TF32 on: {aligned32}); loss {loss_cpu:.6f}, "
+          f"relative gap {loss_gap:.3e} (TF32 on {loss_gap32:.3e}; limit {VITS_LOSS_RTOL}); gradient norm gap "
+          f"{grad_gap:.3e} of its norm {norm:.4e} (TF32 on {grad_gap32:.3e}; limit {VITS_GRAD_RTOL})")
+    check(aligned, "the alignment differs between card and CPU")
+    check(loss_gap <= VITS_LOSS_RTOL and grad_gap <= VITS_GRAD_RTOL, "the VITS step disagrees between card and CPU")
+    check(not aligned32 or loss_gap32 > VITS_LOSS_RTOL or grad_gap32 > VITS_GRAD_RTOL,
+          "TF32 on passes the VITS step's limits")
+    model_t, posterior_t = modules[dev]
+    optimizer = torch.optim.Adam(list(model_t.parameters()) + list(posterior_t.parameters()), lr=2e-4)
+    step_gen = torch.Generator(device=dev).manual_seed(SEED)
+    dev_batch = {k: v.to(dev) for k, v in batch.items()}
+
+    def adam_steps(steps: int) -> None:
+        for _ in range(steps):
+            out = training_forward(model_t, posterior_t, dev_batch["ids"], dev_batch["id_len"], dev_batch["spec"],
+                                   dev_batch["spec_len"], model_t.emb_g.weight[dev_batch["speakers"]],
+                                   segment_size=32, generator=step_gen)
+            loss = out["kl_loss"] + out["duration_loss"] + out["audio_segment"].square().mean()
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optimizer.step()
+
+    adam_steps(2)  # warm-up: cuDNN's algorithm choice, Adam's state
+    torch.cuda.synchronize()
+    ALIGN_SECONDS[0] = 0.0
+    t0 = time.perf_counter()
+    adam_steps(VITS_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / VITS_TRAIN_STEPS
+    align_ms = ALIGN_SECONDS[0] / VITS_TRAIN_STEPS * 1e3
+    busy = device_busy(lambda: adam_steps(VITS_TRAIN_STEPS))
+    kernels = busy["kernels"] / VITS_TRAIN_STEPS
+    share = "not measured" if busy["busy_ms"] is None else f"{busy['busy_ms'] / busy['wall_ms']:.4f}"
+    print(f"vits (e) {VITS_TRAIN_STEPS} Adam steps at full width: {1 / step_s:.2f} steps/s (host clock), the host "
+          f"alignment (copy off the card, C++ DP, copy back) {align_ms:.3f} ms a step; under torch.profiler "
+          f"{kernels:.0f} kernels a step, device busy {share}")
+    summary["step"] = {"aligned": aligned, "loss_gap": loss_gap, "grad_gap": grad_gap, "tf32_loss_gap": loss_gap32,
+                       "tf32_grad_gap": grad_gap32, "steps_per_s": 1 / step_s, "align_ms": align_ms,
+                       "kernels_per_step": kernels, "busy": busy}
+    del modules, model_t, posterior_t, optimizer
+
+    # ---- (f) the tiny voice ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    metrics = train_tiny_voice(device=dev)["metrics"]
+    print(f"vits (f) tools/train_tiny_voice, {metrics['steps']} steps on the card in {time.perf_counter() - t0:.1f} "
+          f"s: {json.dumps(metrics)}")
+    check(metrics["loss_last20"] < metrics["loss_first20"], "the tiny voice's loss did not fall")
+    check(metrics["envelope_distance_trained"] < metrics["envelope_distance_init"],
+          "the tiny voice's envelope distance did not fall")
+    summary["tiny_voice"] = metrics
+    return {"summary": summary, "launches": route["launches"]}
+
+
 def device_busy(fn: Callable[[], object]) -> Dict[str, float]:
     """Host-clock ms of ``fn`` under ``torch.profiler`` and the ms its CUDA
     kernels ran (None when the trace holds no device events; the device
@@ -1824,6 +2169,13 @@ def device_busy(fn: Callable[[], object]) -> Dict[str, float]:
                and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 if kernels else None
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels": len(kernels)}
+
+
+START = time.perf_counter()
+
+
+def elapsed(phase: str) -> None:
+    print(f"[{time.perf_counter() - START:.1f} s] {phase} done")
 
 
 def main() -> int:
@@ -2036,19 +2388,32 @@ def main() -> int:
         s_gpu = np.array(load_model(CHECKPOINT, device=dev).predict(windows, return_scores=True))
         s_cpu = np.array(load_model(CHECKPOINT, device="cpu").predict(windows, return_scores=True))
         # ---- the training path: caches on the card, train, convert, predict ----------------
+        elapsed("the featurizer paths, extract and predict")
         train = train_phase(net, dev, tmp)
         paths["train_cache"], paths["train_predict"] = train["train_cache"], train["train_predict"]
         # ---- feature generation: train from an empty dataset directory ---------------
+        elapsed("train")
         generate = generate_phase(net, dev, tmp)
         paths["generate_fused"], paths["generate_formant"] = generate["generate_fused"], generate["generate_formant"]
         # ---- stream-window negatives, then listen with the head they trained ------------
+        elapsed("generate")
         stream = stream_phase(net, dev, tmp)
         paths["stream"], paths["stream_train"] = stream["launches"]["speech"], stream["train_launches"]
+        elapsed("stream")
         listen = listen_phase(dev, tmp, stream["head"])
         paths["listen"], paths["listen_vad"] = listen["listen"]["launches"], listen["listen_vad"]["launches"]
         # ---- embedding pretraining, the new npz in the featurizer and the browser bundle, the G2P ----
+        elapsed("listen")
         pretrain = pretrain_phase(dev, tmp)
         paths.update(pretrain["launches"])
+        elapsed("pretrain")
+        # ---- the ONNX importer (K3 under the bundled embedding graph), then the VITS TTS ----
+        onnx = onnx_phase(net, dev, clips, audio, tmp)
+        paths["onnx"] = onnx["launches"]
+        elapsed("onnx")
+        vits = vits_phase(dev, tmp)
+        paths["vits_generate"] = vits["launches"]
+        elapsed("vits")
     score_err = float(np.abs(s_gpu - s_cpu).max())
     print(f"predict scores card {np.round(s_gpu, 4).tolist()} vs plain path "
           f"{np.round(s_cpu, 4).tolist()}: max |d| {score_err:.3e}")
@@ -2170,6 +2535,7 @@ def main() -> int:
             "source": f"heybuddy_tpu_torch/ops/kernels/csrc/{src}",
             "replaces": f"heybuddy_tpu/ops/pallas/{replaces}",
             "launches": paths[path][name], "path": path,
+            "launches_by_path": {p: c[name] for p, c in paths.items() if name in c},
             "max_abs_err": errs[kid], "ms": times[kid][0], "plain_ms": times[kid][1],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
@@ -2184,7 +2550,9 @@ def main() -> int:
                       "call_ms": call_ms, "predict_ms": predict_s * 1e3, "batch": BATCH,
                       "train": train["summary"], "generate": generate["summary"],
                       "stream": {**stream["summary"], "train": stream["train"]}, "listen": listen,
-                      "pretrain": pretrain["summary"], **extract}))
+                      "pretrain": pretrain["summary"], "onnx": onnx["summary"], "vits": vits["summary"],
+                      "seconds": time.perf_counter() - START, **extract}))
+    print(f"chip_smoke.py: {time.perf_counter() - START:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

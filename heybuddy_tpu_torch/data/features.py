@@ -350,13 +350,13 @@ class TrainingFeaturesGenerator:
         return written
 
     def _use_fused_pipeline(self) -> bool:
-        """The fused plans -> features path: the device TTS backend, unless
-        ``HEYBUDDY_FUSED_TTS=0`` (the port's featurizer is always the native
-        embedding the fused path needs)."""
+        """The fused plans -> features path: the device TTS backend and the
+        native embedding (an imported ONNX embedding has no K2 to fuse
+        into), unless ``HEYBUDDY_FUSED_TTS=0``."""
         if os.environ.get("HEYBUDDY_FUSED_TTS", "1") == "0":
             return False
         resolved = self.tts_backend or os.environ.get("HEYBUDDY_TTS_BACKEND")
-        return resolved in ("formant-device", "device")
+        return resolved in ("formant-device", "device") and self._embeddings().backend == "trunkpool"
 
     def _speech(self, adversarial: bool, seed: int, **overrides: Any) -> SpeechSampleGenerator:
         """A sample generator of the phrase with the generator options, ``overrides`` applied."""

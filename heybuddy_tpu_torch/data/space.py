@@ -11,9 +11,10 @@ warnings:
    (``HEYBUDDY_KEEP_STALE_FEATURES=1`` keeps it); one without a sidecar is
    stamped.
 2. The hosted precalculated sets were featurized by the reference's frozen
-   ONNX embedding, which the port does not run, so they are disabled unless a
-   local file of that name carries a sidecar of the active space
-   (``HEYBUDDY_ALLOW_SPACE_MISMATCH=1`` forces them).
+   ONNX embedding, so they are used when the active featurizer is that
+   imported graph (``HEYBUDDY_EMBEDDING_ONNX``, backend "onnx"), or when a
+   local file of that name carries a sidecar of the active space, and are
+   disabled otherwise (``HEYBUDDY_ALLOW_SPACE_MISMATCH=1`` forces them).
 
 ``device`` names the shared featurizer whose space is active; it defaults to
 the card, as every entry point of the port does.
@@ -189,6 +190,8 @@ def hosted_sets_compatible(
             return False
 
     emb = get_speech_embeddings(device=device)
+    if emb.backend == "onnx":
+        return True
     if os.environ.get("HEYBUDDY_ALLOW_SPACE_MISMATCH"):
         logger.warning(
             f"{context}: hosted precalculated features are in the reference Google embedding "
@@ -200,7 +203,8 @@ def hosted_sets_compatible(
     logger.warning(
         f"{context}: hosted precalculated features are in the reference Google embedding "
         f"space, which does not match the active embedding '{emb.backend}' ({emb.space_id}) "
-        "— disabling them. Place a store of this space (with its .space.json sidecar) at the "
-        "hosted name, or set HEYBUDDY_ALLOW_SPACE_MISMATCH=1 to force."
+        "— disabling them. Point HEYBUDDY_EMBEDDING_ONNX at the reference speech-embedding.onnx to "
+        "use hosted sets, place a store of this space (with its .space.json sidecar) at the hosted "
+        "name, or set HEYBUDDY_ALLOW_SPACE_MISMATCH=1 to force."
     )
     return False

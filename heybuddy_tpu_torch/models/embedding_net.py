@@ -24,6 +24,11 @@ there is no fallback: the JAX package's seeded initialisation uses
 ``init_params`` draws a fresh parameter tree from a ``torch.Generator`` with
 the JAX function's distributions, for pretraining from scratch.
 
+``EmbeddingNet.apply`` is the per-window forward ((n, 76, 32) windows ->
+(n, 96)). ``OnnxEmbeddingNet`` (``load_from_onnx``) is a frozen embedding
+imported from an ``.onnx`` file instead, run by the ONNX importer; the
+featurizer's "onnx" backend.
+
 An ``EmbeddingNet``'s parameters are created frozen (``requires_grad=False``):
 the featurizer never trains them. Pretraining builds its own copy and calls
 ``requires_grad_(True)`` on it. The bf16 rounding points (``_q``,
@@ -48,6 +53,8 @@ from heybuddy_tpu_torch.utils.log import logger
 __all__ = [
     "EmbeddingNetConfig",
     "EmbeddingNet",
+    "OnnxEmbeddingNet",
+    "load_from_onnx",
     "init_params",
     "save_params",
     "load_params",
@@ -284,6 +291,65 @@ class EmbeddingNet(nn.Module):
         compute_dtype: torch.dtype = torch.bfloat16,
     ) -> torch.Tensor:
         return self.apply_spectrogram_banded(spectrogram, window_starts, compute_dtype)
+
+    def apply(self, windows: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        """
+        Per-window forward: (n, 76, 32) or (n, 76, 32, 1) log-mel windows ->
+        (n, 96), the gather formulation with each row one window at frame 0.
+        """
+        if windows.ndim == 4:
+            windows = windows[..., 0]
+        return self.apply_spectrogram(windows, [0], compute_dtype)[:, 0]
+
+
+class OnnxEmbeddingNet:
+    """
+    A frozen speech-embedding model imported from an ``.onnx`` file (the
+    bundled ``browser/models/speech-embedding.onnx``, or the reference's
+    Google model) and run on ``device`` by ``OnnxTorchFunction``.
+
+    ``apply(windows)`` takes (n, 76, 32) or (n, 76, 32, 1) log-mel windows
+    and returns (n, 96) float32. The output is ``conv2d_19`` when the graph
+    has it (the name the browser runtime reads), else the sole output.
+    """
+
+    def __init__(self, fn: Any, input_name: str, output_name: str, input_rank: int) -> None:
+        self._fn = fn
+        self.input_name = input_name
+        self.output_name = output_name
+        self.input_rank = input_rank
+        self.params: Dict[str, torch.Tensor] = fn.params
+
+    @classmethod
+    def from_file(cls, path: str, device: Any = "cuda") -> "OnnxEmbeddingNet":
+        from heybuddy_tpu_torch.export.onnx_to_torch import OnnxTorchFunction
+
+        fn = OnnxTorchFunction.from_file(path, device)
+        if len(fn.input_names) != 1:
+            raise ValueError(f"Expected a single graph input, got {fn.input_names}: not a frozen embedding model")
+        output = "conv2d_19" if "conv2d_19" in fn.output_names else fn.output_names[0]
+        declared = {i.name: i.shape for i in fn.graph.inputs}
+        rank = len(declared.get(fn.input_names[0], (0, 0, 0, 0)))
+        return cls(fn, fn.input_names[0], output, rank)
+
+    def params_numpy(self) -> Dict[str, np.ndarray]:
+        """The float initializers as numpy arrays (what the space id hashes)."""
+        return {k: v.detach().cpu().numpy() for k, v in self.params.items()}
+
+    def apply(self, windows: torch.Tensor) -> torch.Tensor:
+        if windows.ndim == 3 and self.input_rank == 4:
+            windows = windows[..., None]  # NHWC channel dim
+        elif windows.ndim == 4 and self.input_rank == 3:
+            windows = windows[..., 0]
+        out = self._fn(self.params, windows)
+        if isinstance(out, (list, tuple)):
+            out = out[self._fn.output_names.index(self.output_name)]
+        return out.reshape(out.shape[0], -1).float()  # (n, 1, 1, 96) -> (n, 96)
+
+
+def load_from_onnx(path: str, device: Any = "cuda") -> OnnxEmbeddingNet:
+    """Import a frozen embedding model from an ``.onnx`` file onto ``device``."""
+    return OnnxEmbeddingNet.from_file(path, device)
 
 
 # --- weights -------------------------------------------------------------------

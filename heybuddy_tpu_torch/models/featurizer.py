@@ -12,6 +12,9 @@ takes the JAX function's ``pooling`` values:
   ``EmbeddingNet.apply_spectrogram_banded`` / ``apply_spectrogram`` in plain
   PyTorch, as the JAX package leaves those formulations to XLA.
 
+``featurize_batch_per_window`` serves an imported ONNX embedding
+(``SpeechEmbeddings(onnx_path=...)``): K3, then the graph on every window.
+
 On a CUDA device the kernels are the hand-written ones; on the CPU the
 wrappers run their plain versions. The batch is not padded: padding existed
 only to bound XLA compiles. A (b, 23040) clip batch in int16 range gives
@@ -49,7 +52,8 @@ from heybuddy_tpu_torch.utils.audio_io import audio_to_bct_array
 from heybuddy_tpu_torch.utils.log import logger
 
 __all__ = [
-    "featurize_batch", "SpeechEmbeddings", "get_speech_embeddings", "POOLINGS", "STREAM_SEGMENT_WINDOWS",
+    "featurize_batch", "featurize_batch_per_window", "SpeechEmbeddings", "get_speech_embeddings", "POOLINGS",
+    "STREAM_SEGMENT_WINDOWS",
 ]
 
 POOLINGS = ("fused", "mega", "banded", "gather")
@@ -93,6 +97,25 @@ def featurize_batch(
     return apply_fn(spec, starts, compute_dtype=compute_dtype)
 
 
+def featurize_batch_per_window(apply_fn: Any, audio: torch.Tensor) -> torch.Tensor:
+    """
+    For imported frozen models whose graph runs one 76 x 32 window at a time
+    (the ONNX embedding): K3's mel spectrogram once for the batch, every
+    window gathered by the static plan, then one batched forward over
+    (b * windows, 76, 32). (b, t) int16-range audio -> (b, windows, 96).
+    """
+    if audio.ndim == 1:
+        audio = audio[None, :]
+    b, t = audio.shape
+    spec = mel_spectrogram(audio.contiguous())  # (b, frames, 32)
+    starts = np.asarray(embedding_window_starts(t))
+    idx = torch.as_tensor(starts[:, None] + np.arange(EMBEDDING_WINDOW_SIZE)[None, :], device=spec.device)
+    windows = spec[:, idx]  # (b, W, 76, 32)
+    w = windows.shape[1]
+    emb = apply_fn(windows.reshape(b * w, EMBEDDING_WINDOW_SIZE, -1))
+    return emb.reshape(b, w, -1)
+
+
 class SpeechEmbeddings:
     """
     User-facing featurizer: accepts paths / arrays / lists, resamples to
@@ -101,9 +124,12 @@ class SpeechEmbeddings:
     log-mel spectrograms truncated to whole embedding windows.
 
     ``params`` is the JAX-layout numpy tree (default: ``default_params()``)
-    or an ``EmbeddingNet``. ``device`` defaults to ``"cuda"`` and raises
-    without it. ``compute_dtype`` is ``featurize_batch``'s (bf16 runs the
-    fused kernels). ``seed`` seeds the generator of ``_repair_nan``'s row
+    or an ``EmbeddingNet``. ``onnx_path`` (or, without ``params``,
+    ``HEYBUDDY_EMBEDDING_ONNX``) selects the "onnx" backend instead: the
+    imported frozen graph per window after K3 (``featurize_batch_per_window``),
+    a space id of its own; a path that does not exist raises. ``device``
+    defaults to ``"cuda"`` and raises without it. ``compute_dtype`` is
+    ``featurize_batch``'s (bf16 runs the fused kernels). ``seed`` seeds the generator of ``_repair_nan``'s row
     choice.
     """
 
@@ -117,25 +143,40 @@ class SpeechEmbeddings:
     ) -> None:
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
-        if onnx_path or os.environ.get("HEYBUDDY_EMBEDDING_ONNX"):
-            raise NotImplementedError(
-                "the imported ONNX embedding (HEYBUDDY_EMBEDDING_ONNX / onnx_path) is not yet "
-                "ported to heybuddy_tpu_torch"
-            )
+        self.generator = torch.Generator().manual_seed(seed)
+        self._space_id: Optional[str] = None
+        if onnx_path is None and params is None:
+            onnx_path = os.environ.get("HEYBUDDY_EMBEDDING_ONNX") or None
+        self.onnx_net: Optional[embedding_net.OnnxEmbeddingNet] = None
+        self.net: Optional[EmbeddingNet] = None
+        if onnx_path:
+            if not os.path.exists(onnx_path):
+                raise FileNotFoundError(
+                    f"HEYBUDDY_EMBEDDING_ONNX / onnx_path {onnx_path!r} does not exist; the trunkpool "
+                    "embedding would be a different feature space"
+                )
+            self.onnx_net = embedding_net.load_from_onnx(onnx_path, self.device)
+            self.backend = "onnx"
+            return
         if params is None:
             params = embedding_net.default_params()
         net = params if isinstance(params, EmbeddingNet) else embedding_params_from_numpy(params)
         self.net = net.to(self.device).eval()
         self.backend = "trunkpool"
-        self.generator = torch.Generator().manual_seed(seed)
-        self._space_id: Optional[str] = None
 
     @property
     def space_id(self) -> str:
         """Stable identifier of the feature space (backend + weights hash)."""
         if self._space_id is None:
-            self._space_id = embedding_net.embedding_space_id(self.net, self.backend)
+            weights = self.net if self.onnx_net is None else self.onnx_net.params_numpy()
+            self._space_id = embedding_net.embedding_space_id(weights, self.backend)
         return self._space_id
+
+    def _featurize(self, audio: torch.Tensor) -> torch.Tensor:
+        """(b, t) int16-range audio on the device -> (b, windows, 96) by the active backend."""
+        if self.onnx_net is not None:
+            return featurize_batch_per_window(self.onnx_net.apply, audio)
+        return featurize_batch(self.net, audio, self.compute_dtype)
 
     @torch.no_grad()
     def featurize_device(self, audio_batch: np.ndarray) -> Tuple[torch.Tensor, int]:
@@ -144,8 +185,7 @@ class SpeechEmbeddings:
         returns the device tensor (not synchronised) and the row count.
         """
         mono = torch.from_numpy(np.ascontiguousarray(audio_batch, dtype=np.float32) * 32767.0)
-        out = featurize_batch(self.net, mono.to(self.device), self.compute_dtype)
-        return out, audio_batch.shape[0]
+        return self._featurize(mono.to(self.device)), audio_batch.shape[0]
 
     @torch.no_grad()
     def featurize_stream_device(self, stream: np.ndarray, count: int, stride: int) -> Tuple[torch.Tensor, int]:
@@ -166,7 +206,7 @@ class SpeechEmbeddings:
         seg[:take] = stream[:take]
         segment = torch.from_numpy(seg).to(self.device).mul_(32767.0)
         windows = segment.as_strided((count, CLIP_SAMPLES), (stride, 1))
-        return featurize_batch(self.net, windows, self.compute_dtype, "fused"), count
+        return self._featurize(windows), count
 
     @torch.no_grad()
     def __call__(
@@ -180,7 +220,7 @@ class SpeechEmbeddings:
         mono = np.ascontiguousarray(batch.mean(axis=1) * 32767.0, dtype=np.float32)
         b, t = mono.shape
         mono_dev = torch.from_numpy(mono).to(self.device)
-        embeddings = featurize_batch(self.net, mono_dev, self.compute_dtype).cpu().numpy()
+        embeddings = self._featurize(mono_dev).cpu().numpy()
 
         if remove_nan:
             embeddings = self._repair_nan(embeddings, self.generator)

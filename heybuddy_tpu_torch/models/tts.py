@@ -15,8 +15,12 @@ Backends behind the same interface:
 * :class:`DeviceFormantTTS` ("formant-device") — the same synthesis planned
   on the host and rendered on ``device`` (``models/formant_device.py``); its
   plans also feed the fused plans -> features path.
-* :class:`VitsTTS` raises: the VITS backend needs a Piper checkpoint, and
-  none is ported.
+* :class:`VitsTTS` ("vits") — the VITS synthesizer (``models/vits``) on
+  ``device``: a Piper checkpoint from ``HEYBUDDY_TTS_CHECKPOINT`` (``.pt`` or
+  ``.safetensors``; an optional voice config JSON at ``HEYBUDDY_TTS_CONFIG``
+  supplies the phoneme-id and speaker maps), or, without one, seeded random
+  weights and a warning. Texts are phonemized by the rule G2P and mapped
+  ARPAbet -> IPA -> ids.
 
 ``trim_silence`` cuts synthesis silence with the shared VAD (``models/vad.py``).
 """
@@ -24,11 +28,13 @@ Backends behind the same interface:
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import random
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from heybuddy_tpu_torch.constants import (
     DEFAULT_TTS_LENGTH_SCALES,
@@ -37,10 +43,11 @@ from heybuddy_tpu_torch.constants import (
     DEFAULT_TTS_SLERP_WEIGHTS,
     SAMPLE_RATE,
 )
-from heybuddy_tpu_torch.device import DeviceLike
+from heybuddy_tpu_torch.device import DeviceLike, resolve_device
 from heybuddy_tpu_torch.models.formant import FormantSynthesizer
 from heybuddy_tpu_torch.text.phonemizer import get_phonemizer
 from heybuddy_tpu_torch.utils.audio_io import resample_audio
+from heybuddy_tpu_torch.utils.log import logger
 
 __all__ = [
     "BaseTTS",
@@ -48,6 +55,7 @@ __all__ = [
     "DeviceFormantTTS",
     "VitsTTS",
     "get_tts_model",
+    "arpabet_to_ipa",
     "SAMPLING_VERSION",
 ]
 
@@ -57,6 +65,23 @@ TextsType = Union[str, List[str], List[Tuple[str, float]]]
 # grid traversal), the JAX package's: chunked generation advances the grid
 # offsets per batch since version 2.
 SAMPLING_VERSION = 2
+
+# ARPAbet -> espeak-style IPA used by Piper voices
+_ARPA_TO_IPA: Dict[str, str] = {
+    "AA": "ɑ", "AE": "æ", "AH": "ʌ", "AO": "ɔ", "AW": "aʊ", "AY": "aɪ",
+    "EH": "ɛ", "ER": "ɚ", "EY": "eɪ", "IH": "ɪ", "IY": "i", "OW": "oʊ",
+    "OY": "ɔɪ", "UH": "ʊ", "UW": "u",
+    "B": "b", "CH": "tʃ", "D": "d", "DH": "ð", "F": "f", "G": "ɡ",
+    "HH": "h", "JH": "dʒ", "K": "k", "L": "l", "M": "m", "N": "n",
+    "NG": "ŋ", "P": "p", "R": "ɹ", "S": "s", "SH": "ʃ", "T": "t",
+    "TH": "θ", "V": "v", "W": "w", "Y": "j", "Z": "z", "ZH": "ʒ",
+}
+
+
+def arpabet_to_ipa(phones: List[List[str]]) -> str:
+    """Word-phone lists -> IPA string with spaces between words."""
+    words = ["".join(_ARPA_TO_IPA.get(p, "") for p in word) for word in phones]
+    return " ".join(w for w in words if w)
 
 
 class BaseTTS:
@@ -347,13 +372,131 @@ class DeviceFormantTTS(BaseTTS):
 
 
 class VitsTTS(BaseTTS):
-    """The VITS backend: not ported (it needs a Piper checkpoint)."""
+    """
+    The VITS backend on ``device``. The weights come from ``checkpoint_path``
+    or ``HEYBUDDY_TTS_CHECKPOINT`` (``import_torch_checkpoint``); without a
+    file, ``init_params`` from a CPU generator seeded with 0 (random
+    weights make noise-like audio: the formant backends are the offline
+    voices). A batch pads its ids to a multiple of 16 and synthesizes into a
+    static frame budget, ``max_frames`` = 64 * ceil(2 t_x max(length scale, 1) / 64),
+    which clips the longest clips as the JAX backend does; its noise comes
+    from a generator on ``device`` seeded with the batch seed.
+    """
 
-    def __init__(self, *_args: Any, **_kwargs: Any) -> None:
-        raise NotImplementedError(
-            "the VITS TTS backend needs a checkpoint (HEYBUDDY_TTS_CHECKPOINT) and is not ported to "
-            "heybuddy_tpu_torch; use the formant or formant-device backend"
+    model_sample_rate = 22050
+
+    def __init__(
+        self,
+        checkpoint_path: Optional[str] = None,
+        config_path: Optional[str] = None,
+        device: DeviceLike = "cuda",
+    ) -> None:
+        super().__init__()
+        from heybuddy_tpu_torch.models.vits import Vits, VitsConfig, import_torch_checkpoint, init_params
+        from heybuddy_tpu_torch.text.piper_maps import piper_phoneme_id_map, piper_speaker_id_map
+
+        self.device = resolve_device(device)
+        self.config = VitsConfig()
+        self.sample_rate = self.model_sample_rate
+        checkpoint_path = checkpoint_path or os.environ.get("HEYBUDDY_TTS_CHECKPOINT")
+        config_path = config_path or os.environ.get("HEYBUDDY_TTS_CONFIG")
+
+        # the piper-phonemize tables, unless the voice's own config has them
+        self.phoneme_id_map: Dict[str, List[int]] = dict(piper_phoneme_id_map())
+        self.speaker_id_map: Dict[str, int] = dict(piper_speaker_id_map())
+        if config_path and os.path.exists(config_path):
+            with open(config_path) as f:
+                voice_config = json.load(f)
+            self.phoneme_id_map = voice_config.get("phoneme_id_map", self.phoneme_id_map)
+            self.speaker_id_map = voice_config.get("speaker_id_map", self.speaker_id_map)
+            self.sample_rate = voice_config.get("audio", {}).get("sample_rate", self.model_sample_rate)
+
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            self.model = import_torch_checkpoint(checkpoint_path, self.config, self.device)
+            logger.info(f"Loaded VITS checkpoint from {checkpoint_path}")
+        else:
+            logger.warning(
+                "No VITS checkpoint found; using random weights (noise audio). "
+                "Set HEYBUDDY_TTS_CHECKPOINT, or use the formant backend."
+            )
+            params = init_params(torch.Generator().manual_seed(0), self.config)
+            self.model = Vits.from_jax_params(params, self.config, device=self.device)
+        self.model.eval()
+        self._speaker_table = self.model.emb_g.weight.detach().cpu().numpy()
+
+    @property
+    def num_speakers(self) -> int:
+        return self.config.n_speakers
+
+    def resolve_speaker(self, speaker: Any) -> int:
+        """Speaker NAME (e.g. LibriTTS "3922") or integer id -> integer id."""
+        if isinstance(speaker, str) and not speaker.isdigit():
+            raise KeyError(f"Unknown speaker name {speaker!r}")
+        if isinstance(speaker, str):
+            return int(self.speaker_id_map.get(speaker, speaker))
+        return int(speaker)
+
+    def phonemize_ids(self, text: str) -> List[int]:
+        """Text -> ids interspersed with pad, between BOS and EOS (Piper's convention)."""
+        ipa = arpabet_to_ipa([self.phonemizer.word_phones(w) for w in text.split()])
+        ids: List[int] = list(self.phoneme_id_map.get("^", [1]))
+        pad = self.phoneme_id_map.get("_", [0])
+        for char in ipa:
+            if char in self.phoneme_id_map:
+                ids.extend(self.phoneme_id_map[char])
+                ids.extend(pad)
+        ids.extend(self.phoneme_id_map.get("$", [2]))
+        return ids
+
+    @staticmethod
+    def _slerp(a: np.ndarray, b: np.ndarray, t: float) -> np.ndarray:
+        a_norm = a / (np.linalg.norm(a, axis=-1, keepdims=True) + 1e-9)
+        b_norm = b / (np.linalg.norm(b, axis=-1, keepdims=True) + 1e-9)
+        dot = np.clip((a_norm * b_norm).sum(-1), -1.0, 1.0)
+        if (np.abs(dot) > 0.9995).any():
+            return (1 - t) * a + t * b
+        theta = np.arccos(dot)
+        s1 = np.sin(theta - theta * t) / np.sin(theta)
+        s2 = np.sin(theta * t) / np.sin(theta)
+        return s1[..., None] * a + s2[..., None] * b
+
+    def batch_inputs(
+        self, texts: List[str], speakers: List[Tuple[int, int]], slerp_weight: float, length_scale: float
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+        """(ids (b, t_x) zero-padded to a multiple of 16, lengths, speaker vectors, max_frames)."""
+        id_lists = [self.phonemize_ids(t) for t in texts]
+        lengths = np.array([len(ids) for ids in id_lists], dtype=np.int32)
+        t_x = int(np.ceil(max(lengths) / 16) * 16)
+        ids = np.zeros((len(texts), t_x), dtype=np.int32)
+        for i, lst in enumerate(id_lists):
+            ids[i, : len(lst)] = lst
+        s1 = self._speaker_table[[s[0] for s in speakers]]
+        s2 = self._speaker_table[[s[1] for s in speakers]]
+        speaker_embedding = self._slerp(s1, s2, slerp_weight).astype(np.float32)
+        max_frames = int(np.ceil(t_x * 2 * max(length_scale, 1.0) / 64) * 64)
+        return ids, lengths, speaker_embedding, max_frames
+
+    @torch.no_grad()
+    def synthesize_batch(
+        self,
+        texts: List[str],
+        speakers: List[Tuple[int, int]],
+        slerp_weight: float,
+        length_scale: float,
+        noise_scale: float,
+        noise_scale_w: float,
+        seed: int,
+    ) -> List[np.ndarray]:
+        ids, lengths, speaker_embedding, max_frames = self.batch_inputs(texts, speakers, slerp_weight, length_scale)
+        dev = self.device
+        audio, audio_lengths = self.model.infer(
+            torch.from_numpy(ids).long().to(dev), torch.from_numpy(lengths).to(dev),
+            torch.from_numpy(speaker_embedding).to(dev), noise_scale=noise_scale, length_scale=length_scale,
+            noise_scale_w=noise_scale_w, max_frames=max_frames,
+            generator=torch.Generator(device=dev).manual_seed(seed),
         )
+        audio_np = audio.cpu().numpy()
+        return [audio_np[i, : int(n)] for i, n in enumerate(audio_lengths.cpu().numpy())]
 
 
 _GLOBAL_TTS: Dict[Tuple[str, str], BaseTTS] = {}
@@ -363,7 +506,7 @@ def get_tts_model(backend: Optional[str] = None, device: DeviceLike = "cuda", **
     """
     Shared TTS instance per backend. Resolution as in the JAX package:
     explicit arg > HEYBUDDY_TTS_BACKEND > "vits" if a checkpoint exists >
-    "formant". "formant-device" instances are kept per ``device``.
+    "formant". "formant-device" and "vits" instances are kept per ``device``.
     """
     backend = backend or os.environ.get("HEYBUDDY_TTS_BACKEND")
     if backend is None:
@@ -371,10 +514,10 @@ def get_tts_model(backend: Optional[str] = None, device: DeviceLike = "cuda", **
         backend = "vits" if (ckpt and os.path.exists(ckpt)) else "formant"
     if backend == "device":
         backend = "formant-device"
-    key = (backend, str(device) if backend == "formant-device" else "")
+    key = (backend, str(device) if backend in ("formant-device", "vits") else "")
     if key not in _GLOBAL_TTS:
         if backend == "vits":
-            _GLOBAL_TTS[key] = VitsTTS(**kwargs)
+            _GLOBAL_TTS[key] = VitsTTS(device=device, **kwargs)
         elif backend == "formant-device":
             _GLOBAL_TTS[key] = DeviceFormantTTS(device=device, **kwargs)
         else:

@@ -12,11 +12,15 @@ call (``vad(frame) -> speech probability``) and one ``trim``:
   ``nn.Module`` on an explicit ``device``. Its weights come from an npz of
   the JAX package's keys or from numpy ``default_rng(seed)`` draws as JAX's
   (random weights detect nothing; they make the arithmetic checkable);
-* ``VADGate``: the runtime's speaking-state hysteresis over either.
+* ``SileroOnnxVAD``: a Silero VAD ``.onnx`` file (the v3/v4 layout with
+  ``h`` / ``c`` state or the v5 layout with one ``state``) imported by
+  ``export/onnx_to_torch.py`` and run on ``device``, its state kept there
+  across calls;
+* ``VADGate``: the runtime's speaking-state hysteresis over any of them.
 
-``get_vad_model`` resolves as JAX's does: ``HEYBUDDY_VAD_ONNX`` (the Silero
-ONNX graph, which needs the ONNX importer: not ported, so it raises),
-then ``HEYBUDDY_VAD_WEIGHTS`` (``SileroStyleVAD``), then ``EnergyVAD``.
+``get_vad_model`` resolves as JAX's does: ``HEYBUDDY_VAD_ONNX``
+(``SileroOnnxVAD``), then ``HEYBUDDY_VAD_WEIGHTS`` (``SileroStyleVAD``), then
+``EnergyVAD``.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from torch import nn
 from heybuddy_tpu_torch.constants import SAMPLE_RATE
 from heybuddy_tpu_torch.device import DeviceLike, resolve_device
 
-__all__ = ["EnergyVAD", "SileroStyleVAD", "VADGate", "get_vad_model"]
+__all__ = ["EnergyVAD", "SileroStyleVAD", "SileroOnnxVAD", "VADGate", "get_vad_model"]
 
 
 class _TrimMixin:
@@ -253,6 +257,77 @@ class SileroStyleVAD(_TrimMixin, nn.Module):
         return float(prob[0, 0])
 
 
+class SileroOnnxVAD(_TrimMixin):
+    """
+    The Silero VAD imported from its ``.onnx`` file, on ``device``.
+
+    Both published layouts: v3/v4 (inputs ``input, sr, h, c``; outputs
+    ``output, hn, cn``) and v5 (inputs ``input, state, sr``; outputs
+    ``output, stateN``). The sample rate is passed as a numpy integer, so the
+    graph's sample-rate ``If`` folds on the host; audio at another rate
+    raises. The recurrent state stays on the device across calls until
+    ``reset``. A call zero-pads the audio to whole chunks (512 samples at
+    16 kHz, else 256), runs them in order and returns the largest probability.
+    """
+
+    def __init__(self, onnx_path: str, sample_rate: int = SAMPLE_RATE, device: DeviceLike = "cuda") -> None:
+        from heybuddy_tpu_torch.export.onnx_to_torch import OnnxTorchFunction
+
+        self.device = resolve_device(device)
+        self._fn = OnnxTorchFunction.from_file(onnx_path, self.device)
+        self.params = self._fn.params
+        self.sample_rate = sample_rate
+        self._names = self._fn.input_names
+        self._v5 = "state" in self._names
+        self._state_shape = (2, 1, 128) if self._v5 else (2, 1, 64)
+        expected = {"input", "sr", "state"} if self._v5 else {"input", "sr", "h", "c"}
+        unknown = set(self._names) - expected
+        if unknown:
+            raise ValueError(f"Unrecognized Silero VAD graph inputs: {sorted(unknown)}")
+        self.reset()
+
+    def reset(self) -> None:
+        n_state = 1 if self._v5 else 2
+        self._state: Tuple[torch.Tensor, ...] = tuple(
+            torch.zeros(self._state_shape, dtype=torch.float32, device=self.device) for _ in range(n_state)
+        )
+
+    @torch.no_grad()
+    def step(self, chunk: torch.Tensor) -> torch.Tensor:
+        """One (1, n) chunk on the device -> its probability tensor; advances the state."""
+        state = iter(self._state)
+        ordered = []
+        for name in self._names:
+            if name == "input":
+                ordered.append(chunk)
+            elif name == "sr":
+                ordered.append(np.int64(self.sample_rate))
+            else:
+                ordered.append(next(state))
+        out = self._fn(self.params, *ordered)
+        if not isinstance(out, (list, tuple)):
+            out = [out]
+        self._state = tuple(out[1:])
+        return out[0]
+
+    def __call__(self, audio: np.ndarray, sample_rate: int = SAMPLE_RATE, **_: Any) -> float:
+        if sample_rate != self.sample_rate:
+            raise ValueError(
+                f"SileroOnnxVAD was built for {self.sample_rate} Hz; got {sample_rate} Hz (construct a "
+                "new instance for that rate)"
+            )
+        audio = np.asarray(audio, dtype=np.float32)
+        if audio.ndim == 2:
+            audio = audio.mean(axis=0)
+        chunk = 512 if self.sample_rate == 16000 else 256
+        pad = (-audio.shape[-1]) % chunk
+        if pad or audio.shape[-1] == 0:
+            audio = np.pad(audio, (0, pad if audio.shape[-1] else chunk))
+        x = torch.from_numpy(np.ascontiguousarray(audio)).to(self.device)
+        probs = [self.step(x[None, i: i + chunk]).reshape(-1)[0] for i in range(0, x.shape[0], chunk)]
+        return float(torch.stack(probs).max())
+
+
 # the shared VAD of each device
 _GLOBAL_VAD: Dict[str, _TrimMixin] = {}
 
@@ -260,7 +335,7 @@ _GLOBAL_VAD: Dict[str, _TrimMixin] = {}
 def get_vad_model(device: DeviceLike = "cuda", **_compat: Any) -> _TrimMixin:
     """
     The shared VAD, resolved as the JAX package resolves it:
-    ``HEYBUDDY_VAD_ONNX`` naming a file raises (its importer is not ported),
+    ``HEYBUDDY_VAD_ONNX`` naming a file gives ``SileroOnnxVAD`` on ``device``,
     then ``HEYBUDDY_VAD_WEIGHTS`` gives ``SileroStyleVAD`` on ``device``, else
     ``EnergyVAD`` (host numpy: ``device`` is not used).
     """
@@ -269,11 +344,8 @@ def get_vad_model(device: DeviceLike = "cuda", **_compat: Any) -> _TrimMixin:
         onnx_path = os.environ.get("HEYBUDDY_VAD_ONNX")
         weights = os.environ.get("HEYBUDDY_VAD_WEIGHTS")
         if onnx_path and os.path.exists(onnx_path):
-            raise NotImplementedError(
-                f"HEYBUDDY_VAD_ONNX={onnx_path}: the Silero ONNX VAD needs the ONNX importer, which is not "
-                "yet ported to heybuddy_tpu_torch; unset it to use HEYBUDDY_VAD_WEIGHTS or the energy VAD"
-            )
-        if weights and os.path.exists(weights):
+            _GLOBAL_VAD[key] = SileroOnnxVAD(onnx_path, device=device)
+        elif weights and os.path.exists(weights):
             _GLOBAL_VAD[key] = SileroStyleVAD(weights, device=device)
         else:
             _GLOBAL_VAD[key] = EnergyVAD()

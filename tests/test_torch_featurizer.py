@@ -117,8 +117,10 @@ def test_default_device_raises_without_cuda():
 
 
 def test_onnx_embedding_is_not_ported(monkeypatch):
+    """The ONNX backend is ported (tests/test_torch_onnx_import.py); a HEYBUDDY_EMBEDDING_ONNX
+    naming no file raises instead of falling back to another feature space."""
     monkeypatch.setenv("HEYBUDDY_EMBEDDING_ONNX", "/nonexistent/speech-embedding.onnx")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(FileNotFoundError, match="does not exist"):
         SpeechEmbeddings(device="cpu")
 
 

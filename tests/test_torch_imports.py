@@ -59,6 +59,19 @@ PRETRAIN_MODULES = (
     "heybuddy_tpu_torch.utils.profiling",
 )
 
+# the modules of the ONNX importer and VITS slice
+ONNX_VITS_MODULES = (
+    "heybuddy_tpu_torch.export.onnx_to_torch",
+    "heybuddy_tpu_torch.models.vits.modules",
+    "heybuddy_tpu_torch.models.vits.attention",
+    "heybuddy_tpu_torch.models.vits.transforms",
+    "heybuddy_tpu_torch.models.vits.synthesizer",
+    "heybuddy_tpu_torch.models.vits.training",
+    "heybuddy_tpu_torch.ops.monotonic_align",
+    "heybuddy_tpu_torch.text.piper_maps",
+    "heybuddy_tpu_torch.tools.train_tiny_voice",
+)
+
 
 def test_port_imports_no_jax_and_no_jax_package():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -74,3 +87,4 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert set(GENERATION_MODULES) <= walked, sorted(set(GENERATION_MODULES) - walked)
     assert set(STREAM_LISTEN_MODULES) <= walked, sorted(set(STREAM_LISTEN_MODULES) - walked)
     assert set(PRETRAIN_MODULES) <= walked, sorted(set(PRETRAIN_MODULES) - walked)
+    assert set(ONNX_VITS_MODULES) <= walked, sorted(set(ONNX_VITS_MODULES) - walked)

@@ -11,6 +11,7 @@ import heybuddy_tpu.models.vad as jax_vad
 from heybuddy_tpu.models.formant import FormantSynthesizer as JaxSynth
 from heybuddy_tpu_torch.models import vad
 from heybuddy_tpu_torch.models.formant import FormantSynthesizer
+from torch_fixtures import silero_v4_graph
 
 FRAME = 320  # 20 ms at 16 kHz, the runtime's VAD frame
 SR = 16000
@@ -141,9 +142,8 @@ def test_get_vad_model_resolution(tmp_path, monkeypatch):
     monkeypatch.setenv("HEYBUDDY_VAD_ONNX", missing)  # no such file: the next backend, as in JAX
     monkeypatch.setattr(vad, "_GLOBAL_VAD", {})
     assert isinstance(vad.get_vad_model(device="cpu"), vad.EnergyVAD)
-    onnx = tmp_path / "silero.onnx"
-    onnx.write_bytes(b"\x08\x07")
-    monkeypatch.setenv("HEYBUDDY_VAD_ONNX", str(onnx))
+    onnx, _ = silero_v4_graph(str(tmp_path / "silero.onnx"))
+    monkeypatch.setenv("HEYBUDDY_VAD_ONNX", onnx)
     monkeypatch.setattr(vad, "_GLOBAL_VAD", {})
-    with pytest.raises(NotImplementedError, match="ONNX importer"):
-        vad.get_vad_model(device="cpu")
+    onnx_vad = vad.get_vad_model(device="cpu")
+    assert isinstance(onnx_vad, vad.SileroOnnxVAD) and onnx_vad.device.type == "cpu"
