@@ -55,8 +55,17 @@ through ``import_torch_checkpoint`` bit for bit, ``infer`` card against CPU
 ``train --tts-backend vits`` from an empty directory (K1 -> K2 per embed
 batch), one full-width ``training_forward`` step card against CPU (with a
 TF32 control) and 20 timed and profiled Adam steps, and the tiny voice of
-``tools/train_tiny_voice``. ``python3 chip_smoke.py onnx vits`` builds the
-kernels and runs those two phases alone. It checks what each path returns, times kernels and
+``tools/train_tiny_voice``; last the mesh (``heybuddy_tpu_torch.parallel``):
+(a) one rank on NCCL, ``WakeWordTrainer(mesh=...)`` for 30 steps of the
+default head and ``SpeechEmbeddings(mesh=...)`` on 2048 clips bit for bit
+against no mesh; (b) two ranks on gloo sharing the card, each a process of
+its own (``chip_smoke.py mesh-rank ...``): the distributed smoke against one
+process's step, ``SpeechEmbeddings(mesh)`` and ``extract --mesh`` bit for bit
+against one rank, 30 trainer steps within the trajectory limits, one float32
+pretrain step at batch 64 within (a3)'s limits (and the step's gradient
+without the division by W outside them), the dryrun's three parts, each
+rank's K1 / K2 / K3 launches, steps/s at one and two ranks and the ms of an
+``all_reduce`` of the flat gradient. It checks what each path returns, times kernels and
 plain versions with CUDA events, prints one JSON line of kernel numbers and
 ends with one JSON line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero; it also fails without a CUDA device.
@@ -568,20 +577,21 @@ def trajectory_iterator(directory: str) -> WakeWordTrainingDatasetIterator:
 
 
 def trajectory_run(architecture: str, device: torch.device, directory: str, ckpt_dir: str,
-                   tf32: bool = False, perturb: bool = False, params=None, steps: int = TRAJECTORY_STEPS) -> Dict:
-    """``steps`` steps of ``architecture``, dropout 0, on the default
+                   tf32: bool = False, perturb: bool = False, params=None, steps: int = TRAJECTORY_STEPS,
+                   mesh=None, dropout: float = 0.0) -> Dict:
+    """``steps`` steps of ``architecture``, dropout 0 (or ``dropout``), on the default
     composition, from ``params`` or else the seed's initial parameters (the
-    model is initialised on the host, then moved); ``tf32`` lets the matmuls
-    run in TF32; ``perturb`` scales every initial parameter by 1 + 1e-7 n
-    (n standard normal, seeded). Returns the history, the flat parameter
-    buffer before and after, the gradient of the first fired step (Adam's
-    first moment over 1 - b1 after one step), the fired-step count, and the
-    trainer with its iterator."""
+    model is initialised on the host, then moved), over ``mesh`` if given;
+    ``tf32`` lets the matmuls run in TF32; ``perturb`` scales every initial
+    parameter by 1 + 1e-7 n (n standard normal, seeded). Returns the history,
+    the flat parameter buffer before and after, the gradient of the first
+    fired step (Adam's first moment over 1 - b1 after one step), the
+    fired-step count, and the trainer with its iterator."""
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
         trainer = WakeWordTrainer(checkpoint_dir=ckpt_dir, device=device, architecture=architecture,
-                                  seed=SEED, dropout=0.0, params=params)
+                                  seed=SEED, dropout=dropout, params=params, mesh=mesh)
         flat = trainer._adam.flat
         init = flat.cpu().numpy().copy()
         if perturb:
@@ -2152,6 +2162,337 @@ def vits_phase(dev: torch.device, tmp: str) -> Dict:
     return {"summary": summary, "launches": route["launches"]}
 
 
+MESH_RANKS = 2  # ranks of (b), on gloo, sharing one card
+MESH_TIMED_STEPS = 100  # trainer steps timed for steps/s at 1 and at MESH_RANKS ranks
+MESH_ALLREDUCE_RUNS = 50  # all_reduce calls of the flat gradient timed
+MESH_PRETRAIN_BATCH = 64
+MESH_PRETRAIN_TEXTS = 128
+MESH_TIMEOUT = 600  # seconds for the ranks of (b)
+# a launch per rank: K1 and K2 once per featurize call and extract batch, K3
+# twice per pretrain step
+MESH_EXPECT = {"featurize": ("mel_patches", "embedding_pool"), "extract": ("mel_patches", "embedding_pool"),
+               "pretrain": ("mel_spectrogram",), "train": (), "smoke": ()}
+
+
+def speech_pool(n_texts: int, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(texts, 2, CLIP) seeded speech-like clips in [-1, 1] (a gliding tone
+    under an envelope, over noise) and their lengths."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(9000, CLIP, (n_texts, 2)).astype(np.int32)
+    pool = np.zeros((n_texts, 2, CLIP), np.float32)
+    for i in range(n_texts):
+        for j in range(2):
+            n = lengths[i, j]
+            t = np.arange(n) / 16000.0
+            env = np.sin(np.pi * np.arange(n) / n) ** 2
+            f0 = 100 + 7 * i + 40 * j
+            pool[i, j, :n] = 0.5 * env * np.sin(2 * np.pi * f0 * t * (1 + 0.3 * t)) + 0.02 * rng.standard_normal(n)
+    return pool, lengths
+
+
+def mesh_pretrainer(device: torch.device, workdir: str, mesh=None):
+    """The pretrainer of the mesh phase: the bundled npz, the pool and the batch of pretrain-pool.npz."""
+    from heybuddy_tpu_torch.models import embedding_net
+    from heybuddy_tpu_torch.training.embedding_pretrain import EmbeddingPretrainer, PretrainBatch
+
+    data = np.load(os.path.join(workdir, "pretrain-pool.npz"))
+    pre = EmbeddingPretrainer(texts=[f"text {i}" for i in range(data["pool"].shape[0])], speakers_per_text=2,
+                              batch_size=len(data["text_idx"]), seed=SEED, device=device, mesh=mesh,
+                              init_weights=embedding_net.bundled_weights_path())
+    pre._pool, pre._pool_lengths = data["pool"], data["lengths"]
+    batch = PretrainBatch(*(data[k] for k in ("text_idx", "spk_idx", "noise_idx", "imp_idx", "pair_mask")))
+    return pre, batch
+
+
+def pretrain_f32_step(pre, batch) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """One float32 step's losses and its (reduced, on a mesh) gradient, without the update."""
+    losses = pre.backward(batch, 0, compute_dtype=torch.float32)
+    grads = {k: p.grad.detach().double().cpu().numpy() for k, p in pre.net.named_parameters()}
+    return torch.stack(losses).detach().double().cpu().numpy(), grads
+
+
+def allreduce_ms(numel: int, mesh, device: torch.device) -> float:
+    """ms per ``all_reduce`` of a float32 vector of ``numel`` (the flat gradient), over MESH_ALLREDUCE_RUNS."""
+    from heybuddy_tpu_torch.parallel.mesh import all_reduce_sum
+
+    flat = torch.ones(numel, device=device)
+    for _ in range(5):
+        all_reduce_sum(flat, mesh)
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(MESH_ALLREDUCE_RUNS):
+        all_reduce_sum(flat, mesh)
+    sync(device)
+    return (time.perf_counter() - t0) * 1e3 / MESH_ALLREDUCE_RUNS
+
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def timed_steps(run: Dict, device: torch.device) -> float:
+    """Steps per second of MESH_TIMED_STEPS more steps of a trajectory run's trainer (host clock, synchronised)."""
+    sync(device)
+    t0 = time.perf_counter()
+    run["trainer"].train_epoch(run["iterator"], num_steps=MESH_TIMED_STEPS, validation_steps=10 ** 6,
+                               checkpoint_steps=10 ** 6)
+    sync(device)
+    return MESH_TIMED_STEPS / (time.perf_counter() - t0)
+
+
+# the collectives the port uses (parallel/mesh.py), and two it does not
+MESH_COLLECTIVES_USED = ("all_reduce", "all_gather", "broadcast", "barrier")
+
+
+def probe_collectives(mesh, device: torch.device) -> Dict[str, str]:
+    """Which collectives the group's backend runs on tensors of ``device``:
+    "ok" or the error each raises (a measurement, nothing falls back)."""
+    import torch.distributed as dist
+
+    def ones() -> torch.Tensor:
+        return torch.ones(4, device=device)
+
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(ones(), group=mesh.group),
+        "all_gather": lambda: dist.all_gather([ones() for _ in range(mesh.size)], ones(), group=mesh.group),
+        "broadcast": lambda: dist.broadcast(ones(), 0, group=mesh.group),
+        "barrier": lambda: dist.barrier(group=mesh.group),
+        "reduce_scatter": lambda: dist.reduce_scatter(ones(), [ones() for _ in range(mesh.size)], group=mesh.group),
+        "all_to_all": lambda: dist.all_to_all([ones() for _ in range(mesh.size)], [ones() for _ in range(mesh.size)],
+                                              group=mesh.group),
+    }
+    result = {}
+    for name, call in calls.items():
+        try:
+            call()
+            sync(device)
+            result[name] = "ok"
+        except RuntimeError as exc:
+            result[name] = str(exc).splitlines()[0][:100]
+    return result
+
+
+def mesh_rank_main(argv: List[str]) -> int:
+    """One rank of the mesh phase's (b): ``chip_smoke.py mesh-rank RANK WORLD WORKDIR DEVICE``.
+    Joins the gloo group through a file in WORKDIR, runs each part with the
+    launch counters from 0 and writes ``rank<RANK>.npz``."""
+    from heybuddy_tpu_torch.parallel import distributed_smoke, dryrun
+    from heybuddy_tpu_torch.parallel.mesh import all_reduce_sum, barrier, distributed_init, get_mesh, shard_batch
+
+    rank, world, workdir, device = int(argv[0]), int(argv[1]), argv[2], torch.device(argv[3])
+    os.environ["HEYBUDDY_OFFLINE"] = "1"
+    distributed_init(f"file://{os.path.join(workdir, 'rendezvous')}", world, rank, backend="gloo", device=device)
+    mesh = get_mesh(device=device)
+    out: Dict[str, object] = {"collectives": json.dumps(probe_collectives(mesh, device))}
+    launches: Dict[str, Dict[str, int]] = {}
+    seconds: Dict[str, float] = {}
+
+    def part(name: str, fn: Callable[[], object]) -> object:
+        barrier(mesh)
+        sync(device)
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        result = fn()
+        sync(device)
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = {k: v for k, v in build.LAUNCHES.items() if v}
+        return result
+
+    x, y = distributed_smoke.local_batch(rank)
+    model, loss, gsum = part("smoke", lambda: distributed_smoke.smoke_step(
+        shard_batch(x, mesh, process_local=True), shard_batch(y, mesh, process_local=True), mesh, device))
+    out.update(smoke_x=x, smoke_y=y, smoke_loss=loss, smoke_gsum=gsum,
+               smoke_params=torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu().numpy())
+
+    clips = np.load(os.path.join(workdir, "clips.npy"))
+    featurizer = SpeechEmbeddings(mesh=mesh)
+    out["featurize"] = part("featurize", lambda: featurizer(clips))
+    shards = os.path.join(workdir, "shards")
+    with contextlib.redirect_stdout(io.StringIO()):
+        out["extract_rc"] = part("extract", lambda: cli_main(
+            ["extract", "noise", os.path.join(workdir, "wavs", "*.wav"), "--local-files", "--directory", shards,
+             "--mesh", "--device", str(device)]))
+
+    run = part("train", lambda: trajectory_run("perceptron", device, os.path.join(workdir, "train-data"),
+                                               os.path.join(workdir, f"ckpt{rank}"), mesh=mesh))
+    out.update(train_loss=run["history"]["loss"], train_recall=run["history"]["recall"],
+               train_fp=run["history"]["false_positive_rate"], train_rate=run["history"]["high_loss_rate"],
+               train_params=run["params"].copy(), train_fired=run["fired"])  # before the timed steps move them
+    out["steps_per_s"] = timed_steps(run, device)
+    out["allreduce_ms"] = allreduce_ms(run["trainer"]._adam.flat.numel() + 1, mesh, device)
+
+    pre, batch = mesh_pretrainer(device, workdir, mesh)
+    pre.resident()
+    losses, grads = part("pretrain", lambda: pretrain_f32_step(pre, batch))
+    out.update(pretrain_loss=losses, **{f"pretrain_grad/{k}": v for k, v in grads.items()})
+    # the control: the same step without the division by W of the gathers' summed backward
+    pre.optimizer.zero_grad(set_to_none=True)
+    pre.loss(batch, 0, compute_dtype=torch.float32)[0].backward()
+    flat = torch.cat([p.grad.reshape(-1) for p in pre.net.parameters()])
+    out["pretrain_grad_unscaled"] = all_reduce_sum(flat, mesh).double().cpu().numpy()
+
+    part("dryrun", lambda: dryrun.run(world, rank, os.path.join(workdir, "dryrun"), str(device), "gloo"))
+    out["launches"] = json.dumps(launches)
+    out["seconds"] = json.dumps(seconds)
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+    barrier(mesh)
+    return 0
+
+
+def mesh_phase(dev: torch.device, tmp: str, clips: np.ndarray, emb: np.ndarray, extract_dir: str) -> Dict:
+    """(a) the mesh over one rank on NCCL (gloo on the CPU) against no mesh, bit
+    for bit; (b) MESH_RANKS ranks on gloo sharing the card, spawned as
+    processes: the distributed smoke, SpeechEmbeddings(mesh), extract --mesh,
+    the trainer's trajectory, one float32 pretrain step and the dryrun,
+    against one rank."""
+    from heybuddy_tpu_torch.parallel import distributed_smoke
+    from heybuddy_tpu_torch.parallel.mesh import get_mesh
+
+    data_dir = os.path.join(tmp, "train-data")
+    summary: Dict = {}
+    paths: Dict[str, Dict[str, int]] = {}
+    # ---- (a) one rank -------------------------------------------------------------------
+    mesh = get_mesh(device=dev)
+    backend = torch.distributed.get_backend(mesh.group)
+    runs = {}
+    for label, m in (("none", None), ("mesh", mesh)):  # the default head: dropout as configured
+        runs[label] = trajectory_run("perceptron", dev, data_dir, os.path.join(tmp, f"mesh-a-{label}"), mesh=m,
+                                     dropout=0.1)
+    same = all(np.array_equal(runs["mesh"]["history"][k], runs["none"]["history"][k]) for k in runs["none"]["history"])
+    same_params = bool(np.array_equal(runs["mesh"]["params"], runs["none"]["params"]))
+    featurizer = SpeechEmbeddings(mesh=mesh)
+    got, paths["mesh_one_rank"] = run_path("mesh_one_rank", lambda: featurizer(clips),
+                                           ("mel_patches", "embedding_pool"))
+    one_ms = allreduce_ms(runs["mesh"]["trainer"]._adam.flat.numel() + 1, mesh, dev)
+    print(f"mesh (a) one rank on {backend}: {TRAJECTORY_STEPS} steps of the default head (dropout 0.1) with the "
+          f"mesh vs without: history equal {same}, parameters equal {same_params}, fired "
+          f"{runs['mesh']['fired']}; SpeechEmbeddings(mesh) on {clips.shape[0]} clips equal to the fused path "
+          f"{bool(np.array_equal(got, emb))}, launches {paths['mesh_one_rank']}; all_reduce of the flat gradient "
+          f"{one_ms:.4f} ms")
+    check(same and same_params, "mesh (a): the one-rank mesh trainer differs from no mesh")
+    check(bool(np.array_equal(got, emb)), "mesh (a): SpeechEmbeddings(mesh) differs from the fused path")
+    summary["one_rank"] = {"backend": backend, "allreduce_ms": one_ms}
+
+    # ---- (b) MESH_RANKS ranks on gloo sharing the card ------------------------------------------
+    workdir = os.path.join(tmp, "mesh-b")
+    os.makedirs(workdir)
+    np.save(os.path.join(workdir, "clips.npy"), clips)
+    os.symlink(os.path.join(tmp, "wavs"), os.path.join(workdir, "wavs"))
+    os.symlink(data_dir, os.path.join(workdir, "train-data"))
+    rng = np.random.default_rng(SEED + 2)
+    pool, lengths = speech_pool(MESH_PRETRAIN_TEXTS, SEED)
+    b = MESH_PRETRAIN_BATCH
+    pair_mask = np.zeros((b, b), bool)
+    for i in range(0, min(8, b), 2):  # four phonetic-neighbour pairs
+        pair_mask[i, i + 1] = pair_mask[i + 1, i] = True
+    np.savez(os.path.join(workdir, "pretrain-pool.npz"), pool=pool, lengths=lengths,
+             text_idx=rng.choice(MESH_PRETRAIN_TEXTS, b, replace=False),
+             spk_idx=np.stack([rng.permutation(2) for _ in range(b)]), noise_idx=rng.integers(0, 256, (2, b)),
+             imp_idx=rng.integers(0, 64, (2, b)), pair_mask=pair_mask)
+    env = {**os.environ, "HEYBUDDY_OFFLINE": "1"}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "mesh-rank", str(r), str(MESH_RANKS),
+                               workdir, str(dev) if dev.type == "cpu" else "cuda:0"],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
+             for r in range(MESH_RANKS)]
+    outputs = []
+    try:
+        for proc in procs:
+            outputs.append(proc.communicate(timeout=MESH_TIMEOUT)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ranks_s = time.perf_counter() - t0
+    for r, (proc, out) in enumerate(zip(procs, outputs)):
+        if proc.returncode != 0:
+            print(out[-6000:])
+        check(proc.returncode == 0, f"mesh rank {r} failed (rc {proc.returncode})")
+    ranks = [dict(np.load(os.path.join(workdir, f"rank{r}.npz"))) for r in range(MESH_RANKS)]
+    check("dryrun(2): OK" in outputs[0], "mesh (b): the dryrun did not finish")
+
+    # the distributed smoke: the ranks agree, and agree with one process's step on the concatenated batch
+    x = torch.from_numpy(np.concatenate([r["smoke_x"] for r in ranks])).to(dev)
+    y = torch.from_numpy(np.concatenate([r["smoke_y"] for r in ranks])).to(dev)
+    model, loss, _ = distributed_smoke.smoke_step(x, y, None, dev)
+    one = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu().numpy()
+    smoke_same = all(np.array_equal(r["smoke_params"], ranks[0]["smoke_params"]) for r in ranks)
+    perr = np.abs(ranks[0]["smoke_params"] - one)
+    smoke_share = float(np.mean(perr <= 1e-5 + 1e-4 * np.abs(one)))
+    print(f"mesh (b) distributed smoke: ranks' parameters equal {smoke_same}; loss {float(ranks[0]['smoke_loss']):.6f} "
+          f"vs one process on the concatenated batch {loss:.6f}; parameters max |d| {perr.max():.3e}, "
+          f"{smoke_share:.4f} within 1e-5 + 1e-4 |x|")
+    check(smoke_same and smoke_share >= TRAJ_PARAM_SHARE and perr.max() <= 2e-4, "mesh (b): the distributed smoke")
+
+    # SpeechEmbeddings(mesh) and extract --mesh: bit for bit
+    feat_same = [bool(np.array_equal(r["featurize"], emb)) for r in ranks]
+    ref_shards = sorted(glob.glob(os.path.join(extract_dir, "noise-*.npy")))
+    got_shards = sorted(glob.glob(os.path.join(workdir, "shards", "noise-*.npy")))
+    shard_same = [os.path.basename(p) for p in got_shards] == [os.path.basename(p) for p in ref_shards] and all(
+        open(a, "rb").read() == open(b_, "rb").read() for a, b_ in zip(got_shards, ref_shards))
+    print(f"mesh (b) SpeechEmbeddings(mesh) on {clips.shape[0]} clips at {MESH_RANKS} ranks vs one: equal "
+          f"{feat_same}; extract --mesh: {len(got_shards)} shard(s), bytes equal to the one-rank run's "
+          f"{shard_same}")
+    check(all(feat_same), "mesh (b): SpeechEmbeddings(mesh) differs from one rank")
+    check(shard_same and all(int(r["extract_rc"]) == 0 for r in ranks), "mesh (b): extract --mesh shards differ")
+
+    # the trainer: MESH_RANKS ranks against one on the card, dropout 0
+    ref = trajectory_run("perceptron", dev, data_dir, os.path.join(tmp, "mesh-b-one"))
+    ref["params"] = ref["params"].copy()  # before the timed steps move them
+    one_steps = timed_steps(ref, dev)
+    run = {"history": {"loss": ranks[0]["train_loss"], "recall": ranks[0]["train_recall"],
+                       "false_positive_rate": ranks[0]["train_fp"],
+                       "high_loss_rate": ranks[0]["train_rate"]}, "params": ranks[0]["train_params"],
+           "fired": int(ranks[0]["train_fired"])}
+    gap = trajectory_gap(run, ref)
+    train_same = all(np.array_equal(r["train_params"], ranks[0]["train_params"]) for r in ranks)
+    print(f"mesh (b) trainer {TRAJECTORY_STEPS} steps at {MESH_RANKS} ranks vs one on the card: loss relative "
+          f"{gap['loss_rel']:.3e} (limit {TRAJ_LOSS_RTOL}); rates {gap['rate_err']:.3e} (limit {TRAJ_RATE_ATOL}); "
+          f"params max |d| {gap['param_max']:.3e} (limit {TRAJ_PARAM_MAX}), share {gap['param_share']:.4f}; fired "
+          f"{gap['fired']}; ranks equal {train_same}; steps/s one rank {one_steps:.1f}, {MESH_RANKS} ranks "
+          f"{float(ranks[0]['steps_per_s']):.1f} (gloo, {MESH_TIMED_STEPS} steps); all_reduce of the flat gradient "
+          f"{float(ranks[0]['allreduce_ms']):.4f} ms (gloo, host-staged)")
+    check(trajectory_within(gap) and train_same, "mesh (b): the trainer at 2 ranks leaves the trajectory limits")
+
+    # one float32 pretrain step at batch 64: MESH_RANKS ranks against one on the same views
+    pre, batch = mesh_pretrainer(dev, workdir)
+    pre.resident()
+    ref_loss, ref_grads = pretrain_f32_step(pre, batch)
+    got_grads = {k[len("pretrain_grad/"):]: v for k, v in ranks[0].items() if k.startswith("pretrain_grad/")}
+    p_loss, p_grad = rel_gap(ranks[0]["pretrain_loss"], ref_loss), grad_gap(got_grads, ref_grads)
+    flat_ref = np.concatenate([ref_grads[k].ravel() for k, _ in pre.net.named_parameters()])
+    control = float(np.abs(ranks[0]["pretrain_grad_unscaled"] - flat_ref).max() / np.linalg.norm(flat_ref))
+    print(f"mesh (b) pretrain step float32 at batch {b}, {MESH_RANKS} ranks vs one: loss relative {p_loss:.3e} "
+          f"(limit {PRETRAIN_LOSS_RTOL[torch.float32]:.0e}); gradient {p_grad:.3e} (limit "
+          f"{PRETRAIN_GRAD_TOL[torch.float32]:.0e}); without the division by W {control:.3e} (must exceed it)")
+    check(p_loss <= PRETRAIN_LOSS_RTOL[torch.float32] and p_grad <= PRETRAIN_GRAD_TOL[torch.float32],
+          "mesh (b): the pretrain step at 2 ranks disagrees with one rank")
+    check(control > PRETRAIN_GRAD_TOL[torch.float32], "mesh (b): the pretrain limit passes a W-times gradient")
+
+    collectives = json.loads(str(ranks[0]["collectives"]))
+    print(f"mesh (b) gloo on {dev.type} tensors: {collectives}")
+    check(all(collectives[name] == "ok" for name in MESH_COLLECTIVES_USED),
+          "mesh (b): gloo does not run a collective the port uses")
+    summary["gloo_collectives"] = collectives
+    launches = [json.loads(str(r["launches"])) for r in ranks]
+    for r, counts in enumerate(launches):
+        for name, kernels in MESH_EXPECT.items():
+            check(sorted(counts[name]) == sorted(kernels), f"mesh rank {r} part {name} launched {counts[name]}")
+            if kernels:
+                paths[f"mesh_{name}_rank{r}"] = counts[name]
+        paths[f"mesh_dryrun_rank{r}"] = counts["dryrun"]
+    print(f"mesh (b) launches per rank: {launches}; part seconds (rank 0): {ranks[0]['seconds']}; "
+          f"{MESH_RANKS} ranks in {ranks_s:.1f} s (host clock, start-up included)")
+    summary.update({"ranks": MESH_RANKS, "backend_b": "gloo", "steps_per_s_one": one_steps,
+                    "steps_per_s_ranks": float(ranks[0]["steps_per_s"]),
+                    "allreduce_ms_gloo": float(ranks[0]["allreduce_ms"]), "trainer_gap": gap,
+                    "pretrain_loss_rel": p_loss, "pretrain_grad": p_grad, "pretrain_control": control,
+                    "launches_per_rank": launches, "ranks_s": ranks_s})
+    return {"paths": paths, "summary": summary}
+
+
 def device_busy(fn: Callable[[], object]) -> Dict[str, float]:
     """Host-clock ms of ``fn`` under ``torch.profiler`` and the ms its CUDA
     kernels ran (None when the trace holds no device events; the device
@@ -2414,6 +2755,10 @@ def main() -> int:
         vits = vits_phase(dev, tmp)
         paths["vits_generate"] = vits["launches"]
         elapsed("vits")
+        # ---- the mesh: one rank on NCCL, then two ranks on gloo sharing the card ----
+        mesh = mesh_phase(dev, tmp, clips, emb, os.path.join(tmp, "shards0"))
+        paths.update(mesh["paths"])
+        elapsed("mesh")
     score_err = float(np.abs(s_gpu - s_cpu).max())
     print(f"predict scores card {np.round(s_gpu, 4).tolist()} vs plain path "
           f"{np.round(s_cpu, 4).tolist()}: max |d| {score_err:.3e}")
@@ -2551,6 +2896,7 @@ def main() -> int:
                       "train": train["summary"], "generate": generate["summary"],
                       "stream": {**stream["summary"], "train": stream["train"]}, "listen": listen,
                       "pretrain": pretrain["summary"], "onnx": onnx["summary"], "vits": vits["summary"],
+                      "mesh": mesh["summary"],
                       "seconds": time.perf_counter() - START, **extract}))
     print(f"chip_smoke.py: {time.perf_counter() - START:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
@@ -2562,4 +2908,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["mesh-rank"]:  # one rank of the mesh phase, started by mesh_phase
+        sys.exit(mesh_rank_main(sys.argv[2:]))
     sys.exit(main())

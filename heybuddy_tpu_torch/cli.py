@@ -1,18 +1,27 @@
 """
 Command line of the port (argparse):
 
-    python -m heybuddy_tpu_torch train PHRASE [the JAX command's options] [--device cuda|cpu]
+    python -m heybuddy_tpu_torch train PHRASE [the JAX command's options] [--mesh/--no-mesh]
+        [--device cuda|cpu]
     python -m heybuddy_tpu_torch convert CHECKPOINT [OUTPUT] [--opset-version 19]
     python -m heybuddy_tpu_torch predict CHECKPOINT AUDIO [--threshold T] [--device cuda|cpu]
     python -m heybuddy_tpu_torch listen CHECKPOINT... [--input-wav WAV] [--vad] [--threshold T]
-        [--buffer-size N] [--consecutive N] [--debug] [--device cuda|cpu]
+        [--buffer-size N] [--consecutive N] [--device cuda|cpu]
     python -m heybuddy_tpu_torch extract NAME SOURCE [--local-files] [--directory D]
         [--samples-per-file N] [--process-batch-size N] [--tokenizer-max-length N]
-        [--hours H] [--device cuda|cpu] [Hugging Face dataset options]
+        [--hours H] [--mesh] [--device cuda|cpu] [Hugging Face dataset options]
     python -m heybuddy_tpu_torch combine SOURCE... TARGET [--directory D] [--no-reset] [--half]
         [--delete] [--batch-size N]
     python -m heybuddy_tpu_torch pretrain-embedding [-o OUTPUT] [the JAX command's options]
         [--device cuda|cpu]
+
+Every command takes ``--debug`` (debug-level logs), as the JAX commands do.
+``train`` and ``extract`` run data-parallel over several cards under
+``torchrun --nproc-per-node W -m heybuddy_tpu_torch ...``: ``train``'s
+``--mesh`` is on by default and takes effect when the world size is above 1;
+``extract --mesh`` is off by default. Rank 0 generates missing feature caches
+while the others wait, and writes the checkpoints, the shards and the
+printed results; the other ranks log warnings only.
 
 ``train`` trains a wake-word head for PHRASE end to end with the JAX
 ``heybuddy train``'s options, names and defaults: the feature caches in
@@ -25,8 +34,7 @@ off; ``--stream-negative-samples``, ``--collision-negative-samples`` and
 featurize their sliding runtime windows), ``--prefix-negative-phrases`` /
 ``--collision-swap-phrases`` add their texts to the adversarial pool,
 checkpoints go to ``--checkpoint-dir``, and it prints "Training complete;
-final checkpoint: DIR/NAME_final.npz". The multi-device ``--mesh`` option is
-not ported. ``convert`` writes a perceptron checkpoint as the ONNX head the
+final checkpoint: DIR/NAME_final.npz". ``convert`` writes a perceptron checkpoint as the ONNX head the
 browser runtime loads (default OUTPUT: the checkpoint's path with ``.onnx``)
 and prints "Wrote OUTPUT"; it reads the npz's numpy arrays and needs no device.
 
@@ -40,8 +48,7 @@ predict`` does. ``predict`` and ``listen`` load npz checkpoints, reference
 negative-feature shards ``NAME-<i>.npy`` ([n, 17, 96] float32) from SOURCE,
 a Hugging Face dataset id or, with ``--local-files``, a glob of WAV files with
 sidecar ``.txt`` transcripts, and prints "Wrote N shard(s):" and their paths,
-as ``heybuddy extract`` does. Its multi-device ``--mesh`` option is not
-ported. ``combine`` merges feature shards (paths or globs, also looked up in
+as ``heybuddy extract`` does. ``combine`` merges feature shards (paths or globs, also looked up in
 ``--directory``) into one appendable ``.npy`` (TARGET, or
 ``DIRECTORY/TARGET.npy``) and prints "Combined N rows from K shard(s) into
 PATH"; it is numpy only. ``pretrain-embedding`` trains the embedding network
@@ -54,6 +61,8 @@ package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import datetime
 import glob
 import logging
 import os
@@ -66,6 +75,14 @@ from heybuddy_tpu_torch.device import DeviceLike
 
 __all__ = ["main", "build_parser"]
 
+# how long the ranks of a mesh wait for each other: rank 0 may generate the
+# feature caches for hours while the others wait at a barrier
+MESH_TIMEOUT = datetime.timedelta(hours=24)
+
+
+def _add_debug(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--debug", action=argparse.BooleanOptionalAction, default=False)
+
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
@@ -77,6 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     predict.add_argument("audio", help="audio file (.wav)")
     predict.add_argument("--threshold", type=float, default=DEFAULT_ACTIVATION_THRESHOLD)
     predict.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    _add_debug(predict)
 
     listen = commands.add_parser("listen", help="score live audio (or a wav) with wake-word checkpoints")
     listen.add_argument("checkpoints", nargs="+", help="wake-word checkpoints (.npz, .pt or .onnx)")
@@ -87,8 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="skip chunks without speech (VAD hysteresis), like the browser runtime")
     listen.add_argument("--consecutive", type=int, default=1,
                         help="consecutive above-threshold chunks needed for a detection")
-    listen.add_argument("--debug", action=argparse.BooleanOptionalAction, default=False)
     listen.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    _add_debug(listen)
 
     combine = commands.add_parser("combine", help="merge feature shards into one appendable .npy")
     combine.add_argument("source", nargs="*", help="shard paths or globs")
@@ -98,6 +116,7 @@ def build_parser() -> argparse.ArgumentParser:
     combine.add_argument("--half", action=argparse.BooleanOptionalAction, default=False)
     combine.add_argument("--delete", action=argparse.BooleanOptionalAction, default=False)
     combine.add_argument("--batch-size", type=int, default=10000, help="rows copied per append")
+    _add_debug(combine)
 
     extract = commands.add_parser(
         "extract", help="extract labeled negative-feature shards from an audio dataset"
@@ -120,12 +139,16 @@ def build_parser() -> argparse.ArgumentParser:
     extract.add_argument("--streaming", action=argparse.BooleanOptionalAction, default=True)
     extract.add_argument("--trust-remote-code", action=argparse.BooleanOptionalAction,
                          default=False)
+    extract.add_argument("--mesh", action=argparse.BooleanOptionalAction, default=False,
+                         help="shard featurization batches over the ranks of the mesh (data parallel)")
     extract.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    _add_debug(extract)
 
     convert = commands.add_parser("convert", help="write a checkpoint as ONNX for the browser runtime")
     convert.add_argument("checkpoint", help="wake-word checkpoint (.npz)")
     convert.add_argument("output", nargs="?", default=None, help="output .onnx path")
     convert.add_argument("--opset-version", type=int, default=19)
+    _add_debug(convert)
     _add_train_parser(commands)
     _add_pretrain_parser(commands)
     return parser
@@ -154,8 +177,8 @@ def _add_pretrain_parser(commands: Any) -> None:
         help="cosine-similarity ceiling for same-cluster rendered pairs")
     add("--hard-pair-weight", type=float, default=1.0, help="weight of the margin loss against NT-Xent")
     add("--seed", type=int, default=0)
-    add("--debug", action=argparse.BooleanOptionalAction, default=False)
     add("--device", default="cuda", help="cuda (default) or cpu")
+    _add_debug(pretrain)
 
 
 # (option, type, default, AugmentConfig field) of train's augmentation options,
@@ -244,9 +267,25 @@ def _add_train_parser(commands: Any) -> None:
     add("--testing-adversarial-samples", type=int, default=C.DEFAULT_TESTING_ADVERSARIAL_SAMPLES)
     add("--checkpoint-dir", default="./checkpoints")
     add("--tts-backend", choices=["vits", "formant", "formant-device"], default=None)
+    add("--mesh", action=argparse.BooleanOptionalAction, default=True,
+        help="train data-parallel over every rank (torchrun) when there is more than one")
     add("--resume", action=argparse.BooleanOptionalAction, default=False)
-    add("--debug", action=argparse.BooleanOptionalAction, default=False)
     add("--device", default="cuda", help="cuda (default) or cpu")
+    _add_debug(train)
+
+
+def _mesh(device: DeviceLike, timeout: Optional[datetime.timedelta] = None) -> Any:
+    """The data-parallel mesh of this process's ranks (torchrun's environment,
+    or one rank); only rank 0 logs below warnings."""
+    from heybuddy_tpu_torch.parallel.mesh import distributed_init, get_mesh
+    from heybuddy_tpu_torch.utils.log import logger
+
+    if int(os.environ.get("RANK", "0")) != 0:
+        logger.setLevel(logging.WARNING)
+    distributed_init(device=device, timeout=timeout)
+    mesh = get_mesh(device=device)
+    logger.info(f"Running over mesh: {mesh}")
+    return mesh
 
 
 def _load_any_model(path: str, device: DeviceLike = "cuda") -> Any:
@@ -274,10 +313,7 @@ def _predict(args: argparse.Namespace) -> int:
 
 def _listen(args: argparse.Namespace) -> int:
     from heybuddy_tpu_torch.runtime.listen import run_listen
-    from heybuddy_tpu_torch.utils.log import logger
 
-    if args.debug:
-        logger.setLevel(logging.DEBUG)
     for path in [*args.checkpoints, *([args.input_wav] if args.input_wav else [])]:
         if not os.path.isfile(path):
             raise FileNotFoundError(f"{path} does not exist")
@@ -327,6 +363,7 @@ def _extract(args: argparse.Namespace) -> int:
     from heybuddy_tpu_torch.data.extract import LabeledFeatureExtractor, iter_hf_dataset, iter_wav_files
     from heybuddy_tpu_torch.data.precalculated import get_default_dataset_dir
 
+    mesh = _mesh(args.device) if args.mesh else None
     extractor = LabeledFeatureExtractor(
         directory=args.directory or get_default_dataset_dir(),
         name=args.name,
@@ -334,6 +371,7 @@ def _extract(args: argparse.Namespace) -> int:
         process_batch_size=args.process_batch_size,
         tokenizer_max_length=args.tokenizer_max_length,
         device=args.device,
+        mesh=mesh,
     )
     if args.local_files:
         source = iter_wav_files(sorted(glob.glob(args.source)))
@@ -350,9 +388,10 @@ def _extract(args: argparse.Namespace) -> int:
             trust_remote_code=args.trust_remote_code,
         )
     paths = extractor(source, max_hours=args.hours)
-    print(f"Wrote {len(paths)} shard(s):")
-    for path in paths:
-        print(f"  {path}")
+    if mesh is None or mesh.rank == 0:
+        print(f"Wrote {len(paths)} shard(s):")
+        for path in paths:
+            print(f"  {path}")
     return 0
 
 
@@ -361,11 +400,61 @@ def _train(args: argparse.Namespace) -> int:
     from heybuddy_tpu_torch.data.training import WakeWordTrainingDatasetIterator
     from heybuddy_tpu_torch.ops.augment import AugmentConfig
     from heybuddy_tpu_torch.text.adversarial import prefix_negative_texts, single_swap_collision_texts
+    from heybuddy_tpu_torch.parallel.mesh import main_process_first, world_size
     from heybuddy_tpu_torch.training.trainer import WakeWordTrainer
     from heybuddy_tpu_torch.utils.log import logger
 
-    if args.debug:
-        logger.setLevel(logging.DEBUG)
+    # as JAX's device_count() > 1 check: a mesh only over several ranks
+    mesh = _mesh(args.device, MESH_TIMEOUT) if args.mesh and world_size() > 1 else None
+    with main_process_first(mesh):  # rank 0 generates missing caches; the others then load them
+        training, validation, testing = _train_data(args, logger, args.device if mesh is None else mesh.device)
+    trainer = WakeWordTrainer(
+        checkpoint_dir=args.checkpoint_dir,
+        learning_rate=args.learning_rate,
+        architecture=args.architecture,
+        layer_dim=args.layer_dim,
+        num_layers=args.num_layers,
+        num_heads=args.num_heads,
+        use_gating=args.use_gating,
+        use_half_layers=args.use_half_layers,
+        device=args.device,
+        mesh=mesh,
+    )
+    name = "-".join(args.phrase.split())
+    if args.resume:
+        trainer.resume(name)
+    trainer(
+        training,
+        validation=validation,
+        testing=testing,
+        num_steps=args.steps,
+        num_stages=args.stages,
+        max_negative_weight=args.negative_weight,
+        logging_steps=args.logging_steps,
+        validation_steps=args.validation_steps,
+        checkpoint_steps=args.checkpoint_steps,
+        target_false_positive_rate=args.target_false_positive_rate,
+        validation_gate_consecutive=args.validation_gate_consecutive,
+        dynamic_negative_weight=args.dynamic_negative_weight,
+        learning_rate=args.learning_rate,
+        high_loss_threshold=args.high_loss_threshold,
+        activation_threshold=args.threshold,
+        wandb_entity=args.wandb_entity,
+        name=name,
+    )
+    if mesh is None or mesh.rank == 0:
+        print(f"Training complete; final checkpoint: {trainer.checkpoint_dir}/{name}_final.npz")
+    return 0
+
+
+def _train_data(args: argparse.Namespace, logger: Any, device: DeviceLike) -> Any:
+    """train's (training, validation, testing) iterators; building them
+    generates the feature caches that are missing or short."""
+    from heybuddy_tpu_torch.data.precalculated import PrecalculatedDatasetIterator
+    from heybuddy_tpu_torch.data.training import WakeWordTrainingDatasetIterator
+    from heybuddy_tpu_torch.ops.augment import AugmentConfig
+    from heybuddy_tpu_torch.text.adversarial import prefix_negative_texts, single_swap_collision_texts
+
     phrase = args.phrase
     phrases = [phrase] + list(args.additional_phrase)
     phrase_arg: Any = phrases if len(phrases) > 1 else phrase
@@ -390,7 +479,7 @@ def _train(args: argparse.Namespace) -> int:
         phrase_augment_prob=args.augment_phrase_prob,
         custom_adversarial_texts=custom_texts or None,
         tts_backend=args.tts_backend,
-        device=args.device,
+        device=device,
     )
     # no hosted negative set at all with --training-no-default-dataset, even
     # when a --training-dataset is given (it is appended below)
@@ -445,42 +534,7 @@ def _train(args: argparse.Namespace) -> int:
             adversarial_samples=args.testing_adversarial_samples,
             **feature_kwargs,
         )
-
-    trainer = WakeWordTrainer(
-        checkpoint_dir=args.checkpoint_dir,
-        learning_rate=args.learning_rate,
-        architecture=args.architecture,
-        layer_dim=args.layer_dim,
-        num_layers=args.num_layers,
-        num_heads=args.num_heads,
-        use_gating=args.use_gating,
-        use_half_layers=args.use_half_layers,
-        device=args.device,
-    )
-    name = "-".join(phrase.split())
-    if args.resume:
-        trainer.resume(name)
-    trainer(
-        training,
-        validation=validation,
-        testing=testing,
-        num_steps=args.steps,
-        num_stages=args.stages,
-        max_negative_weight=args.negative_weight,
-        logging_steps=args.logging_steps,
-        validation_steps=args.validation_steps,
-        checkpoint_steps=args.checkpoint_steps,
-        target_false_positive_rate=args.target_false_positive_rate,
-        validation_gate_consecutive=args.validation_gate_consecutive,
-        dynamic_negative_weight=args.dynamic_negative_weight,
-        learning_rate=args.learning_rate,
-        high_loss_threshold=args.high_loss_threshold,
-        activation_threshold=args.threshold,
-        wandb_entity=args.wandb_entity,
-        name=name,
-    )
-    print(f"Training complete; final checkpoint: {trainer.checkpoint_dir}/{name}_final.npz")
-    return 0
+    return training, validation, testing
 
 
 def _convert(args: argparse.Namespace) -> int:
@@ -504,8 +558,6 @@ def _pretrain_embedding(args: argparse.Namespace) -> int:
     from heybuddy_tpu_torch.utils.log import logger
     from heybuddy_tpu_torch.utils.profiling import GLOBAL_STAGE_TIMES
 
-    if args.debug:
-        logger.setLevel(logging.DEBUG)
     pretrainer = EmbeddingPretrainer(
         num_texts=args.num_texts,
         speakers_per_text=args.speakers_per_text,
@@ -536,5 +588,8 @@ _COMMANDS = {
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from heybuddy_tpu_torch.utils.log import debug_logger
+
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
-    return _COMMANDS[args.command](args)
+    with debug_logger() if args.debug else contextlib.nullcontext():
+        return _COMMANDS[args.command](args)

@@ -8,6 +8,11 @@ quarter clip), featurize each clip to (16, 96) on the device, append the
 transcript's token ids as row 17, and flush ``[n, 17, 96]`` float32 shards to
 numbered appendable ``.npy`` files. Shard names, row counts and token rows
 equal the JAX package's for the same input.
+
+With ``mesh`` (``extract --mesh``) every rank reads the whole source and
+featurizes its rows of each batch through ``SpeechEmbeddings(mesh=...)``;
+rank 0 alone writes the shards, whose bytes equal the one-rank run's, and
+the other ranks wait for it at the end.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import numpy as np
 
 from heybuddy_tpu_torch.constants import CLIP_SAMPLES, SAMPLE_RATE
 from heybuddy_tpu_torch.device import DeviceLike, resolve_device
+from heybuddy_tpu_torch.parallel.mesh import Mesh, barrier, is_main_process
 from heybuddy_tpu_torch.text.tokens import BERTTokenizer
 from heybuddy_tpu_torch.utils.audio_io import resample_audio
 from heybuddy_tpu_torch.utils.codecs import read_wav_any
@@ -79,14 +85,16 @@ class LabeledFeatureExtractor:
         sample_rate: int = SAMPLE_RATE,
         clip_samples: int = CLIP_SAMPLES,
         device: DeviceLike = "cuda",
+        mesh: Optional[Mesh] = None,
     ) -> None:
+        self.mesh = mesh
         self.directory = directory
         self.name = name
         self.samples_per_file = samples_per_file
         self.process_batch_size = process_batch_size
         self.sample_rate = sample_rate
         self.clip_samples = clip_samples
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.tokenizer = BERTTokenizer(length=tokenizer_max_length)
         os.makedirs(directory, exist_ok=True)
 
@@ -107,19 +115,24 @@ class LabeledFeatureExtractor:
         on_progress: Optional[Callable[[float, float], None]] = None,
     ) -> List[str]:
         """Process the stream; returns the list of shard paths written."""
-        from heybuddy_tpu_torch.models.featurizer import get_speech_embeddings
+        from heybuddy_tpu_torch.models.featurizer import SpeechEmbeddings, get_speech_embeddings
 
-        embeddings = get_speech_embeddings(device=self.device)
+        if self.mesh is not None:
+            embeddings: Any = SpeechEmbeddings(mesh=self.mesh)
+        else:
+            embeddings = get_speech_embeddings(device=self.device)
+        writer = is_main_process(self.mesh)
         shard_paths: List[str] = []
         shard_index = 0
         shard: Optional[AppendableNpyFile] = None
+        shard_rows = 0  # the current shard's rows (the file's own count on the writing rank)
         clips: List[np.ndarray] = []
         tokens: List[np.ndarray] = []
         total_seconds = 0.0
         max_seconds = max_hours * 3600.0
 
         def flush() -> None:
-            nonlocal clips, tokens, shard, shard_index
+            nonlocal clips, tokens, shard, shard_index, shard_rows
             if not clips:
                 return
             feats = embeddings(np.stack(clips))  # (n, 16, 96)
@@ -131,13 +144,15 @@ class LabeledFeatureExtractor:
                 return  # every clip of the batch gave NaN features: drop the batch
             token_rows = np.stack(kept_tokens).astype(np.float32)[:, None, :]
             labeled = np.concatenate([feats, token_rows], axis=1)  # (n, 17, 96)
-            if shard is None:
-                path = os.path.join(self.directory, f"{self.name}-{shard_index}.npy")
-                shard = AppendableNpyFile(path)
+            path = os.path.join(self.directory, f"{self.name}-{shard_index}.npy")
+            if not shard_paths or shard_paths[-1] != path:
                 shard_paths.append(path)
-            shard.append(labeled)
-            if len(shard) >= self.samples_per_file:
-                shard = None
+                shard = AppendableNpyFile(path) if writer else None
+                shard_rows = len(shard) if writer else 0
+            if shard is not None:
+                shard.append(labeled)
+            shard_rows += labeled.shape[0]
+            if shard_rows >= self.samples_per_file:
                 shard_index += 1
 
         for sample in source:
@@ -156,5 +171,6 @@ class LabeledFeatureExtractor:
             if total_seconds >= max_seconds:
                 break
         flush()
+        barrier(self.mesh)  # the shards are whole before any rank returns
         logger.info(f"Extracted {total_seconds / 3600:.2f} hours into {len(shard_paths)} shard(s)")
         return shard_paths

@@ -19,6 +19,13 @@ On a CUDA device the kernels are the hand-written ones; on the CPU the
 wrappers run their plain versions. The batch is not padded: padding existed
 only to bound XLA compiles. A (b, 23040) clip batch in int16 range gives
 (b, 16, 96).
+
+``SpeechEmbeddings(mesh=...)`` shards bulk featurization over the mesh's data
+axis (``extract --mesh``): each rank featurizes its rows of the batch,
+padded with zero clips to a multiple of the data axis, through the active
+backend, the rows are gathered in rank order and the padding dropped, and
+every rank returns the whole result. Each clip is featurized on its own, so
+the result equals the one-rank run's.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from heybuddy_tpu_torch.ops.kernels.featurize_kernel import fused_featurize
 from heybuddy_tpu_torch.ops.kernels.melspec_kernel import mel_patches, mel_spectrogram
 from heybuddy_tpu_torch.ops.melspec import num_frames
 from heybuddy_tpu_torch.ops.windows import embedding_window_starts
+from heybuddy_tpu_torch.parallel.mesh import Mesh, gather_rows, row_range
 from heybuddy_tpu_torch.utils.audio_io import audio_to_bct_array
 from heybuddy_tpu_torch.utils.log import logger
 
@@ -128,9 +136,10 @@ class SpeechEmbeddings:
     ``HEYBUDDY_EMBEDDING_ONNX``) selects the "onnx" backend instead: the
     imported frozen graph per window after K3 (``featurize_batch_per_window``),
     a space id of its own; a path that does not exist raises. ``device``
-    defaults to ``"cuda"`` and raises without it. ``compute_dtype`` is
-    ``featurize_batch``'s (bf16 runs the fused kernels). ``seed`` seeds the generator of ``_repair_nan``'s row
-    choice.
+    defaults to ``"cuda"`` and raises without it; with ``mesh`` the device is
+    the rank's and batches are sharded over the data axis (module docstring).
+    ``compute_dtype`` is ``featurize_batch``'s (bf16 runs the fused kernels).
+    ``seed`` seeds the generator of ``_repair_nan``'s row choice.
     """
 
     def __init__(
@@ -140,8 +149,10 @@ class SpeechEmbeddings:
         compute_dtype: torch.dtype = torch.bfloat16,
         onnx_path: Optional[str] = None,
         seed: int = 0,
+        mesh: Optional[Mesh] = None,
     ) -> None:
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.compute_dtype = compute_dtype
         self.generator = torch.Generator().manual_seed(seed)
         self._space_id: Optional[str] = None
@@ -178,14 +189,26 @@ class SpeechEmbeddings:
             return featurize_batch_per_window(self.onnx_net.apply, audio)
         return featurize_batch(self.net, audio, self.compute_dtype)
 
+    def _featurize_sharded(self, mono: np.ndarray) -> torch.Tensor:
+        """(b, t) int16-range host audio -> (b, windows, 96) on every rank of
+        the mesh: this rank's rows (zero clips past ``b``), then the rows of
+        every rank in order."""
+        b = mono.shape[0]
+        lo, hi, per = row_range(b, self.mesh)
+        local = np.zeros((per,) + mono.shape[1:], dtype=np.float32)
+        local[: hi - lo] = mono[lo:hi]
+        return gather_rows(self._featurize(torch.from_numpy(local).to(self.device)), b, self.mesh)
+
     @torch.no_grad()
     def featurize_device(self, audio_batch: np.ndarray) -> Tuple[torch.Tensor, int]:
         """
         Featurize a prepared (b, t) float32 batch in [-1, 1] on the device;
         returns the device tensor (not synchronised) and the row count.
         """
-        mono = torch.from_numpy(np.ascontiguousarray(audio_batch, dtype=np.float32) * 32767.0)
-        return self._featurize(mono.to(self.device)), audio_batch.shape[0]
+        mono = np.ascontiguousarray(audio_batch, dtype=np.float32) * 32767.0
+        if self.mesh is not None:
+            return self._featurize_sharded(mono), audio_batch.shape[0]
+        return self._featurize(torch.from_numpy(mono).to(self.device)), audio_batch.shape[0]
 
     @torch.no_grad()
     def featurize_stream_device(self, stream: np.ndarray, count: int, stride: int) -> Tuple[torch.Tensor, int]:
@@ -219,8 +242,12 @@ class SpeechEmbeddings:
         batch, _sr = audio_to_bct_array(audio, sample_rate=SAMPLE_RATE)
         mono = np.ascontiguousarray(batch.mean(axis=1) * 32767.0, dtype=np.float32)
         b, t = mono.shape
-        mono_dev = torch.from_numpy(mono).to(self.device)
-        embeddings = self._featurize(mono_dev).cpu().numpy()
+        mono_dev: Optional[torch.Tensor] = None
+        if self.mesh is None:
+            mono_dev = torch.from_numpy(mono).to(self.device)
+            embeddings = self._featurize(mono_dev).cpu().numpy()
+        else:
+            embeddings = self._featurize_sharded(mono).cpu().numpy()
 
         if remove_nan:
             embeddings = self._repair_nan(embeddings, self.generator)
@@ -229,6 +256,8 @@ class SpeechEmbeddings:
             # per-audio-window spectrograms concatenated along the frame axis,
             # truncated to whole embedding windows (17280 -> 105 frames -> 100;
             # 23040 -> 4 x 105 = 420); K3 on the card
+            if mono_dev is None:
+                mono_dev = torch.from_numpy(mono).to(self.device)
             spec = mel_spectrogram(mono_dev).cpu().numpy()
             frames_per = num_frames(AUDIO_WINDOW_SIZE)
             hops = AUDIO_WINDOW_STRIDE // MEL_HOP_LENGTH

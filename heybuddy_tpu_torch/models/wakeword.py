@@ -162,11 +162,23 @@ class _NormMLP(nn.Module):
         return self.mlp(self.norm(x))
 
 
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with draws from ``generator``; identity without one."""
+def _dropout(
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+    batch_rows: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """Inverted dropout with draws from ``generator``; identity without one.
+    ``batch_rows`` = (first, total) marks ``x`` as rows ``first..`` of a
+    ``total``-row batch: the draws are the whole batch's, sliced, so ranks of
+    a mesh drop what one device would drop on the whole batch."""
     if generator is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    if batch_rows is None:
+        draws = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        first, total = batch_rows
+        draws = torch.rand((total,) + tuple(x.shape[1:]), generator=generator, device=x.device)
+        draws = draws[first : first + x.shape[0]]
+    keep = draws < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -318,11 +330,12 @@ class WakeWordMLPModel(WakeWordInferenceMixin, nn.Module):
         }
 
     def forward(
-        self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None
+        self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None,
+        batch_rows: Optional[Tuple[int, int]] = None,
     ) -> torch.Tensor:
         x = x.float()
         if train:
-            x = _dropout(x, self.dropout, generator)
+            x = _dropout(x, self.dropout, generator, batch_rows)
         b = x.shape[0]
         states = self.mlp_in(self.norm_in(x.reshape(b, -1)))
         for idx, half in zip(self._half_idx, self.half_layers):
@@ -497,11 +510,12 @@ class WakeWordTransformerModel(WakeWordInferenceMixin, nn.Module):
         }
 
     def forward(
-        self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None
+        self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None,
+        batch_rows: Optional[Tuple[int, int]] = None,
     ) -> torch.Tensor:
         x = x.float()
         if train:
-            x = _dropout(x, self.dropout, generator)
+            x = _dropout(x, self.dropout, generator, batch_rows)
         x = self.act(self.layernorm(self.linear_in(x)))
         for block in self.blocks:
             x = block(x)

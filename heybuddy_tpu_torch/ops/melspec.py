@@ -7,6 +7,7 @@ element for element by the tests. The spectrogram is a matmul DFT: frames
 (hop 160, 512 samples, center=False) times a Hann-windowed real-DFT basis,
 power, the HTK mel filterbank, then ``log(x + 1e-6)/10 + 2``; the mel kernels
 and their plain versions (``ops/kernels/melspec_kernel.py``) compute it.
+``frame_audio`` is the framing as a strided view (torch).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import functools
 from typing import Optional
 
 import numpy as np
+import torch
 
 from heybuddy_tpu_torch.constants import (
     MEL_BINS,
@@ -31,6 +33,7 @@ __all__ = [
     "mel_filterbank",
     "dft_basis",
     "mel_band_freqs",
+    "frame_audio",
 ]
 
 
@@ -109,3 +112,8 @@ def mel_band_freqs(
     """
     bins = int(np.ceil(f_max / (sample_rate / 2) * (n_fft // 2))) + 2
     return min(((bins + 7) // 8) * 8, n_fft // 2 + 1)
+
+
+def frame_audio(audio: torch.Tensor, n_fft: int = MEL_N_FFT, hop: int = MEL_HOP_LENGTH) -> torch.Tensor:
+    """Overlapping frames as a view: (batch, t) -> (batch, n_frames, n_fft)."""
+    return audio.unfold(-1, n_fft, hop)

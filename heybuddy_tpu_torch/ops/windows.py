@@ -13,6 +13,9 @@ from __future__ import annotations
 import functools
 from typing import List, Tuple
 
+import numpy as np
+import torch
+
 from heybuddy_tpu_torch.constants import (
     AUDIO_WINDOW_SIZE,
     AUDIO_WINDOW_STRIDE,
@@ -22,7 +25,7 @@ from heybuddy_tpu_torch.constants import (
 )
 from heybuddy_tpu_torch.ops.melspec import num_frames
 
-__all__ = ["embedding_window_starts"]
+__all__ = ["embedding_window_starts", "num_embedding_windows", "extract_windows"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,3 +55,18 @@ def embedding_window_starts(
         )
     assert max(starts) + window_size <= num_frames(num_samples)
     return tuple(starts)
+
+
+def num_embedding_windows(num_samples: int) -> int:
+    """Number of (16 -> 96) embedding rows produced for a clip of this length."""
+    return len(embedding_window_starts(num_samples))
+
+
+def extract_windows(
+    spectrogram: torch.Tensor,
+    starts: Tuple[int, ...],
+    window_size: int = EMBEDDING_WINDOW_SIZE,
+) -> torch.Tensor:
+    """Gather embedding windows: (batch, frames, mel) -> (batch, n_windows, window_size, mel)."""
+    idx = np.asarray(starts, dtype=np.int64)[:, None] + np.arange(window_size, dtype=np.int64)
+    return spectrogram[:, torch.as_tensor(idx, device=spectrogram.device)]

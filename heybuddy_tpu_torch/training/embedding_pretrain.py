@@ -31,11 +31,23 @@ initial weights from a ``torch.Generator`` seeded with ``seed``; tests inject
 the JAX draws (``step(..., draws=...)``) and start from its parameters
 (``init_weights``).
 
+``mesh`` (``parallel.get_mesh``) shards pretraining over the mesh's data
+axis, as the JAX pretrainer's mesh does: the clip pool's text axis is padded
+to a multiple of the data axis and each rank holds its share of the texts;
+a step gathers the batch's clips across the ranks (each contributes the
+rows it owns, one ``all_reduce``), every rank draws the augmentation of the
+whole batch from the same generator and keeps its rows of the views, runs
+K3 and the embedding on them, and gathers ``z1`` / ``z2`` with autograd to
+build the (2b, 2b) NT-Xent and the margin loss, the same loss on every
+rank. The gather's backward sums the ranks' upstream gradients, which are
+equal, so each rank's gradient comes out W times the loss's: the summed
+parameter gradient is divided by W before Adam. ``batch_size`` must divide
+over the data axis, as in the JAX package.
+
 Left out on purpose: ``steps_per_call`` (the JAX package runs several steps
 per dispatch under ``lax.scan`` to amortise a remote device's per-call cost;
 eager PyTorch queues each step without a host round trip, so there is
-nothing to amortise) and ``mesh`` (sharding the pool over several devices;
-the port has no ``parallel/`` yet).
+nothing to amortise).
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ from heybuddy_tpu_torch.models.embedding_net import EmbeddingNet
 from heybuddy_tpu_torch.ops.augment import AugmentConfig, Draws, augment_batch, seeded_generator
 from heybuddy_tpu_torch.ops.kernels.melspec_kernel import mel_spectrogram
 from heybuddy_tpu_torch.ops.windows import embedding_window_starts
+from heybuddy_tpu_torch.parallel.mesh import Mesh, all_gather_rows, all_reduce_sum
 from heybuddy_tpu_torch.utils.log import logger
 from heybuddy_tpu_torch.utils.profiling import stage_timer
 
@@ -131,30 +144,55 @@ def contrastive_loss(
     return base + hard_weight * hard, base, hard
 
 
+def _sharded_clips(
+    resident: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], mesh: Mesh
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both views' (2, b, t) clips and (2, b) lengths on every rank, from a pool
+    whose texts are sharded over the data axis: each rank fills the rows of
+    the texts it holds, zeros elsewhere, and one sum over the ranks completes them."""
+    shard = resident["pool"].shape[0]
+    local = batch["text_idx"] - mesh.rank * shard
+    mine = (local >= 0) & (local < shard)
+    rows = local.clamp(0, shard - 1)[None, :]
+    spk = batch["spk_idx"].T  # (2, b)
+    clips = torch.where(mine[None, :, None], resident["pool"][rows, spk], 0.0)
+    lengths = torch.where(mine[None, :], resident["lengths"][rows, spk], 0)
+    return all_reduce_sum(clips, mesh), all_reduce_sum(lengths, mesh)
+
+
 def pretrain_views(
     resident: Dict[str, torch.Tensor],
     batch: Dict[str, torch.Tensor],
     augment_config: AugmentConfig,
     generators: Optional[Tuple[torch.Generator, torch.Generator]] = None,
     draws: Optional[Tuple[Draws, Draws]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """
     One step's two augmented views on the device: ``resident`` holds "pool"
     (texts, speakers, t), "lengths", "noise" and "impulse" banks; ``batch``
     the uploaded ``PretrainBatch`` (``EmbeddingPretrainer.upload``). Each view
     draws its augmentation from its generator, or takes injected ``draws``.
+    Under ``mesh`` the pool holds this rank's texts: every rank augments the
+    whole batch with the same draws and returns its rows of both views.
     """
     text_idx = batch["text_idx"]
+    if mesh is not None:
+        clips, lengths = _sharded_clips(resident, batch, mesh)
     views = []
     for v in range(2):
         spk = batch["spk_idx"][:, v]
         views.append(augment_batch(
-            resident["pool"][text_idx, spk], resident["lengths"][text_idx, spk],
+            resident["pool"][text_idx, spk] if mesh is None else clips[v],
+            resident["lengths"][text_idx, spk] if mesh is None else lengths[v],
             resident["noise"][batch["noise_idx"][v]], resident["impulse"][batch["imp_idx"][v]],
             augment_config,
             generator=None if generators is None else generators[v],
             draws=None if draws is None else draws[v],
         ))
+    if mesh is not None:
+        per = text_idx.shape[0] // mesh.size
+        views = [view[mesh.rank * per : (mesh.rank + 1) * per] for view in views]
     return views[0], views[1]
 
 
@@ -182,8 +220,10 @@ class EmbeddingPretrainer:
         hard_pair_weight: float = 1.0,
         cluster_slots_fraction: float = 0.25,
         device: DeviceLike = "cuda",
+        mesh: Optional[Mesh] = None,
     ) -> None:
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         if texts is not None:
             self.texts = list(texts)
             self.cluster_ids = np.full(len(self.texts), -1, dtype=np.int64)
@@ -195,6 +235,11 @@ class EmbeddingPretrainer:
         self.hard_pair_margin = hard_pair_margin
         self.hard_pair_weight = hard_pair_weight
         self.cluster_slots_fraction = cluster_slots_fraction
+        if mesh is not None and batch_size % mesh.size != 0:
+            raise ValueError(
+                f"batch_size ({batch_size}) must divide evenly over the mesh "
+                f"data axis ({mesh.size} devices)"
+            )
         if batch_size > len(self.texts):
             # fail before the clip pool's synthesis: the batch draws texts without replacement
             raise ValueError(
@@ -402,18 +447,29 @@ class EmbeddingPretrainer:
     def resident(self) -> Dict[str, torch.Tensor]:
         """The clip pool, its lengths and the noise / impulse banks on the
         device, uploaded once (the banks from a ``NoiseProvider`` seeded with
-        ``seed``, the JAX package's synthetic banks offline)."""
+        ``seed``, the JAX package's synthetic banks offline). Under a mesh the
+        pool's text axis is padded to a multiple of the data axis (zero clips
+        of length 1, which the sampler never draws) and this rank holds its
+        share of the texts; the banks are replicated."""
         if self._resident is None:
             if self._pool is None:
                 self.build_clip_pool()
             from heybuddy_tpu_torch.data.augmented import NoiseProvider
 
+            pool, lengths = self._pool, self._pool_lengths.astype(np.int64)
+            if self.mesh is not None:
+                pad = (-len(pool)) % self.mesh.size
+                pool = np.concatenate([pool, np.zeros_like(pool[:pad])])
+                lengths = np.concatenate([lengths, np.ones_like(lengths[:pad])])
+                shard = len(pool) // self.mesh.size
+                pool = pool[self.mesh.rank * shard : (self.mesh.rank + 1) * shard]
+                lengths = lengths[self.mesh.rank * shard : (self.mesh.rank + 1) * shard]
             with stage_timer("pretrain/upload"):
                 provider = NoiseProvider(seed=self.seed, use_remote=self.augment_config.background_noise_prob > 0)
                 dev = self.device
                 self._resident = {
-                    "pool": torch.from_numpy(self._pool).to(dev),
-                    "lengths": torch.from_numpy(self._pool_lengths.astype(np.int64)).to(dev),
+                    "pool": torch.from_numpy(np.ascontiguousarray(pool)).to(dev),
+                    "lengths": torch.from_numpy(np.ascontiguousarray(lengths)).to(dev),
                     "noise": torch.from_numpy(provider.noise_batch(NOISE_BANK_ROWS)).to(dev),
                     "impulse": torch.from_numpy(provider.impulse_batch(IMPULSE_BANK_ROWS)).to(dev),
                 }
@@ -495,8 +551,10 @@ class EmbeddingPretrainer:
         generators = None if draws is not None else tuple(
             seeded_generator(self.device, self.seed, DRAW_NAMESPACE, step, v) for v in range(2))
         uploaded = self.upload(batch)
-        views = pretrain_views(self.resident(), uploaded, self.augment_config, generators, draws)
+        views = pretrain_views(self.resident(), uploaded, self.augment_config, generators, draws, self.mesh)
         z1, z2 = (clip_embedding(self.net, view, compute_dtype) for view in views)
+        if self.mesh is not None:
+            z1, z2 = all_gather_rows(z1, self.mesh), all_gather_rows(z2, self.mesh)
         return contrastive_loss(z1, z2, uploaded["pair_mask"], self.temperature, self.hard_pair_margin,
                                 self.hard_pair_weight)
 
@@ -509,17 +567,36 @@ class EmbeddingPretrainer:
     ) -> torch.Tensor:
         """One training step (loss, backward, Adam); returns the device tensor
         [loss, nt-xent, hard-pair], not synchronised."""
+        loss, base, hard = self.backward(batch, step, draws, compute_dtype)
+        self.optimizer.step()
+        return torch.stack([loss, base, hard]).detach()
+
+    def backward(
+        self,
+        batch: PretrainBatch,
+        step: int,
+        draws: Optional[Tuple[Draws, Draws]] = None,
+        compute_dtype: torch.dtype = torch.bfloat16,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The step's losses, with the whole batch's gradient in the
+        parameters' ``.grad`` (under a mesh, summed over the ranks and divided
+        by the W-fold sum of the gathers' backward)."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, base, hard = self.loss(batch, step, draws, compute_dtype)
         loss.backward()
-        self.optimizer.step()
-        return torch.stack([loss, base, hard]).detach()
+        if self.mesh is not None:
+            params = list(self.net.parameters())
+            flat = torch.cat([p.grad.reshape(-1) for p in params])
+            flat = all_reduce_sum(flat, self.mesh) / self.mesh.size
+            for p, g in zip(params, flat.split([p.numel() for p in params])):
+                p.grad.copy_(g.view_as(p))
+        return loss, base, hard
 
     def train(self, steps: int = 1000, log_every: int = 50) -> Dict[str, Any]:
         """Run contrastive training; returns the trained parameter tree (numpy).
         Logs the loss at every ``log_every``-th step and the last."""
-        resident = self.resident()
-        n_texts, n_speakers, _ = resident["pool"].shape
+        self.resident()
+        n_texts, n_speakers, _ = self._pool.shape  # the real texts: a mesh pads and shards the device pool
         cluster_members = self._cluster_members()
         with stage_timer("pretrain/steps"):
             for i in range(steps):

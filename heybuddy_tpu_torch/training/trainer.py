@@ -38,8 +38,24 @@ card's memory (``HEYBUDDY_DEVICE_DATA_BYTES`` overrides it);
 Checkpoints are the JAX package's: the model npz, the optimizer pickle (the
 leaf list ``count, mu..., nu...`` in JAX's sorted-key order of the parameter
 tree) and ``<name>_state.json`` (stage, step, negative weight), so each
-package resumes the other's. Not ported: the multi-device mesh and the Orbax
-checkpoint backend.
+package resumes the other's. ``checkpoint_backend="dcp"`` also writes
+``<name>_dcp/`` with ``torch.distributed.checkpoint`` (the counterpart of the
+JAX package's Orbax backend, which the port does not have: ``"orbax"``
+raises), read back by ``resume_dcp``.
+
+``mesh`` (``parallel.get_mesh``) trains data-parallel over the mesh's data
+axis, as the JAX trainer's mesh does: every rank holds the parameters, the
+optimizer state and the resident pools, runs the same host program on the
+same data and takes its own rows of each batch, padded to a multiple of the
+data axis (zero rows labelled -1, neither positive nor negative). Per step,
+one ``all_reduce`` of the counts ``[n_hard, tp, fn, fp, n_neg]`` precedes the
+loss's division by ``max(n_hard, 1)``, and one of the flat gradient (with the
+loss) precedes the update, so every rank takes the same fire branch and the
+same update; ``n_hard / batch`` divides by the padded global batch.
+Evaluation counts are reduced and pool scores gathered in order. Dropout
+draws the whole padded batch's mask on every rank and slices it. Rank 0
+writes the npz, the pickle, the json and the plot while the others wait; the
+DCP save is a collective that every rank calls.
 """
 
 from __future__ import annotations
@@ -86,6 +102,14 @@ from heybuddy_tpu_torch.models.wakeword import (
     WakeWordTransformerModel,
     load_model,
     save_model,
+)
+from heybuddy_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_sum,
+    barrier,
+    gather_rows,
+    is_main_process,
+    row_range,
 )
 from heybuddy_tpu_torch.runtime.detection import count_detections
 from heybuddy_tpu_torch.utils.log import logger
@@ -173,7 +197,7 @@ class _MaskedAdam:
 
 
 class WakeWordTrainer:
-    """Three-stage wake-word training on one device."""
+    """Three-stage wake-word training on one device, or data-parallel over ``mesh``."""
 
     def __init__(
         self,
@@ -188,8 +212,19 @@ class WakeWordTrainer:
         use_half_layers: bool = DEFAULT_USE_HALF_LAYERS,
         seed: int = 0,
         device: DeviceLike = "cuda",
+        mesh: Optional[Mesh] = None,
+        checkpoint_backend: str = "npz",
         **model_kwargs: Any,
     ) -> None:
+        if checkpoint_backend == "orbax":
+            raise ValueError(
+                "the port has no Orbax checkpoints: use checkpoint_backend='dcp' "
+                "(torch.distributed.checkpoint) for the sharding-aware format"
+            )
+        if checkpoint_backend not in ("npz", "dcp"):
+            raise ValueError(f"unknown checkpoint_backend {checkpoint_backend!r}; expected 'npz' or 'dcp'")
+        self.checkpoint_backend = checkpoint_backend
+        self.mesh = mesh
         self.checkpoint_dir = os.path.abspath(checkpoint_dir)
         os.makedirs(self.checkpoint_dir, exist_ok=True)
         self.learning_rate = learning_rate
@@ -198,7 +233,7 @@ class WakeWordTrainer:
         self.num_layers = num_layers
         self.num_heads = num_heads
         self.seed = seed
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
 
         self.model: ModelType
         if architecture == "perceptron":
@@ -277,13 +312,27 @@ class WakeWordTrainer:
         generator: torch.Generator,
         accumulation_target: int = DEFAULT_ACCUMULATION_TARGET,
     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """One step; returns the new carry and the (6,) metric vector, all on the device."""
-        batch = x.shape[0]
-        preds = self.model(x, train=True, generator=generator)[:, 0].clamp(1e-7, 1.0 - 1e-7)
+        """One step; returns the new carry and the (6,) metric vector, all on the
+        device. Under a mesh ``x`` / ``y`` are this rank's rows of the padded
+        batch and the counts, the loss and the gradient are the whole batch's."""
+        mesh = self.mesh
+        rows = None if mesh is None else (mesh.rank * x.shape[0], mesh.size * x.shape[0])
+        batch = x.shape[0] if rows is None else rows[1]
+        preds = self.model(x, train=True, generator=generator, batch_rows=rows)[:, 0].clamp(1e-7, 1.0 - 1e-7)
         hard_neg = (y == 0) & (preds >= high_loss_threshold)
         hard_pos = (y == 1) & (preds < 1.0 - high_loss_threshold)
         mask = (hard_neg | hard_pos).float()
         n_hard = mask.sum()
+        with torch.no_grad():
+            # metric statistics over the hard subset
+            held = preds.detach()
+            b_tp = (hard_pos & (held > activation_threshold)).sum().float()
+            b_fn = (hard_pos & (held <= activation_threshold)).sum().float()
+            b_fp = (hard_neg & (held >= activation_threshold)).sum().float()
+            b_nneg = hard_neg.sum().float()
+            if mesh is not None:
+                counts = all_reduce_sum(torch.stack([n_hard, b_tp, b_fn, b_fp, b_nneg]), mesh)
+                n_hard, b_tp, b_fn, b_fp, b_nneg = counts.unbind()
         weights = torch.where(y == 1, 1.0, neg_weight) * mask
         bce = -(y * torch.log(preds) + (1.0 - y) * torch.log(1.0 - preds))
         masked_loss = (weights * bce).sum() / n_hard.clamp(min=1.0)
@@ -291,19 +340,20 @@ class WakeWordTrainer:
         grads = torch.autograd.grad(loss, self._params)
 
         with torch.no_grad():
-            preds = preds.detach()
+            flat_grad = torch.cat([g.reshape(-1) for g in grads])
+            loss = loss.detach()
+            if mesh is not None:
+                # the rank's share of the loss rides on the gradient's all_reduce
+                summed = all_reduce_sum(torch.cat([flat_grad, loss[None]]), mesh)
+                flat_grad, loss = summed[:-1], summed[-1]
             n_hard_i = n_hard.to(torch.int32)
             total = carry["accum_samples"] + n_hard_i
             fire = (total >= accumulation_target) & (n_hard_i > 0)
-            self._adam.update(torch.cat([g.reshape(-1) for g in grads]), fire, lr)
+            self._adam.update(flat_grad, fire, lr)
 
-            # metric statistics over the hard subset; a batch of >= 128 hard
-            # examples replaces what was accumulated, otherwise the metrics
-            # come from what was accumulated before this step
-            b_tp = (hard_pos & (preds > activation_threshold)).sum().float()
-            b_fn = (hard_pos & (preds <= activation_threshold)).sum().float()
-            b_fp = (hard_neg & (preds >= activation_threshold)).sum().float()
-            b_nneg = hard_neg.sum().float()
+            # a batch of >= 128 hard examples replaces the accumulated
+            # statistics, otherwise the metrics come from what was accumulated
+            # before this step
             big = n_hard_i >= accumulation_target
             zero = torch.zeros_like(b_tp)
             stats = {
@@ -323,24 +373,35 @@ class WakeWordTrainer:
             }
             recall = stats["tp"] / (stats["tp"] + stats["fn"]).clamp(min=1.0)
             fp_rate = stats["fp"] / stats["n_neg"].clamp(min=1.0)
-            metrics = torch.stack(
-                [loss.detach(), n_hard / batch, recall, fp_rate, fire.float(), n_hard]
-            )
+            # n_hard / batch as XLA computes a division by a constant: times its float32 reciprocal
+            metrics = torch.stack([loss, n_hard * (1.0 / batch), recall, fp_rate, fire.float(), n_hard])
         return new_carry, metrics
 
     @torch.no_grad()
+    def _chunk_scores(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-row scores of ``x``, in order, in chunks (none for no rows: a rank
+        of a mesh wider than a pool holds none of its rows)."""
+        chunks = [self.model(x[i : i + _EVAL_CHUNK])[:, 0] for i in range(0, x.shape[0], _EVAL_CHUNK)]
+        return torch.cat(chunks) if chunks else x.new_zeros(0)
+
+    @torch.no_grad()
     def _scores(self, x: torch.Tensor) -> torch.Tensor:
-        """Per-row scores of a whole pool, in order, in chunks."""
-        return torch.cat(
-            [self.model(x[i : i + _EVAL_CHUNK])[:, 0] for i in range(0, x.shape[0], _EVAL_CHUNK)]
-        )
+        """Per-row scores of a whole (replicated) pool, in order; under a mesh
+        each rank scores its rows and the scores are gathered in rank order."""
+        if self.mesh is None:
+            return self._chunk_scores(x)
+        lo, hi, per = row_range(x.shape[0], self.mesh)
+        local = torch.zeros(per, dtype=torch.float32, device=x.device)
+        local[: hi - lo] = self._chunk_scores(x[lo:hi])
+        return gather_rows(local, x.shape[0], self.mesh)
 
     @torch.no_grad()
     def _eval_counts(self, x: torch.Tensor, y: torch.Tensor, activation_threshold: float) -> torch.Tensor:
-        """[fp, tp, fn, tn, n_neg] of one batch or pool, on the device."""
-        preds = self._scores(x)
+        """[fp, tp, fn, tn, n_neg] of one batch or pool, on the device: under a
+        mesh ``x`` / ``y`` are this rank's rows, and the counts are summed."""
+        preds = self._chunk_scores(x)
         # labels of -1 (padding) are neither positive nor negative
-        return torch.stack(
+        counts = torch.stack(
             [
                 ((y == 0) & (preds >= activation_threshold)).sum(),
                 ((y == 1) & (preds > activation_threshold)).sum(),
@@ -349,6 +410,7 @@ class WakeWordTrainer:
                 (y == 0).sum(),
             ]
         ).float()
+        return counts if self.mesh is None else all_reduce_sum(counts, self.mesh)
 
     # --- device-resident training data ------------------------------------------
 
@@ -399,13 +461,24 @@ class WakeWordTrainer:
         return plan, tuple(pools)
 
     def _resident_labels(self, counts: Tuple[int, ...], labels: Tuple[float, ...]) -> torch.Tensor:
-        """The label vector of a per-source batch composition (cached)."""
+        """The label vector of a per-source batch composition (cached); under a
+        mesh this rank's rows of it, padded with -1."""
         if counts not in self._resident_y:
             y = np.concatenate(
                 [np.full(n, label, np.float32) for n, label in zip(counts, labels)]
             ) if counts else np.zeros(0, np.float32)
-            self._resident_y[counts] = torch.from_numpy(y).to(self.device)
+            self._resident_y[counts] = torch.from_numpy(self._local_rows(y, -1.0)).to(self.device)
         return self._resident_y[counts]
+
+    def _local_rows(self, array: np.ndarray, fill: float) -> np.ndarray:
+        """This rank's rows of ``array`` padded with ``fill`` to a multiple of
+        the data axis (the array itself without a mesh)."""
+        if self.mesh is None:
+            return array
+        lo, hi, per = row_range(array.shape[0], self.mesh)
+        out = np.full((per,) + array.shape[1:], fill, dtype=array.dtype)
+        out[: hi - lo] = array[lo:hi]
+        return out
 
     def _h2d(self, array: np.ndarray) -> torch.Tensor:
         """A host array on the device; to a card through pinned memory, so that
@@ -416,13 +489,27 @@ class WakeWordTrainer:
         return tensor.to(self.device, non_blocking=True)
 
     def _gather(self, pools: Sequence[torch.Tensor], idxs: Sequence[np.ndarray]) -> torch.Tensor:
-        """The step's rows, gathered on the device from one host->device copy of the indices."""
+        """The step's rows, gathered on the device from one host->device copy of
+        the indices; under a mesh only this rank's rows of the padded batch
+        (its slice of the index vector, then zero rows)."""
+        pad = 0
+        if self.mesh is not None:
+            lo, hi, per = row_range(sum(len(i) for i in idxs), self.mesh)
+            offsets = np.cumsum([0] + [len(i) for i in idxs])
+            idxs = [i[max(lo - a, 0) : max(min(hi - a, len(i)), 0)] for i, a in zip(idxs, offsets)]
+            pad = per - (hi - lo)
         flat = self._h2d(np.concatenate(idxs))
         parts = [pool.index_select(0, idx) for pool, idx in zip(pools, flat.split([len(i) for i in idxs]))]
+        if pad:
+            parts.append(parts[0].new_zeros((pad,) + tuple(parts[0].shape[1:])))
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def _to_device(self, x: np.ndarray, y: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self._h2d(x.astype(np.float32, copy=False)), self._h2d(y.astype(np.float32, copy=False))
+        """A host batch on the device; under a mesh this rank's rows of it,
+        padded with zero rows labelled -1."""
+        x = self._local_rows(x.astype(np.float32, copy=False), 0.0)
+        y = self._local_rows(y.astype(np.float32, copy=False), -1.0)
+        return self._h2d(x), self._h2d(y)
 
     # --- checkpoints --------------------------------------------------------------
 
@@ -463,13 +550,36 @@ class WakeWordTrainer:
         stage starts, and setting it would make the next stage skip steps).
         """
         recorded_step = self.start_step if step is None else step
-        save_model(self.model, os.path.join(self.checkpoint_dir, f"{name}.npz"))
-        if optimizer:
-            with open(os.path.join(self.checkpoint_dir, f"{name}_optimizer.pkl"), "wb") as f:
-                pickle.dump(self.optimizer_leaves(), f)
-        state = {"stage": self.start_stage, "step": recorded_step, "negative_weight": self.resumed_negative_weight}
-        with open(os.path.join(self.checkpoint_dir, f"{name}_state.json"), "w") as f:
-            json.dump(state, f)
+        if is_main_process(self.mesh):
+            save_model(self.model, os.path.join(self.checkpoint_dir, f"{name}.npz"))
+            if optimizer:
+                with open(os.path.join(self.checkpoint_dir, f"{name}_optimizer.pkl"), "wb") as f:
+                    pickle.dump(self.optimizer_leaves(), f)
+            state = {"stage": self.start_stage, "step": recorded_step, "negative_weight": self.resumed_negative_weight}
+            with open(os.path.join(self.checkpoint_dir, f"{name}_state.json"), "w") as f:
+                json.dump(state, f)
+        if self.checkpoint_backend == "dcp":
+            self._save_dcp(name)  # a collective: every rank calls it
+        barrier(self.mesh)
+
+    def _dcp_state(self) -> Dict[str, torch.Tensor]:
+        return {"params": self._adam.flat, "mu": self._adam.mu, "nu": self._adam.nu, "count": self._adam.count}
+
+    def _save_dcp(self, name: str) -> None:
+        """Parameters and Adam state to ``<name>_dcp/`` (torch.distributed.checkpoint)."""
+        import torch.distributed.checkpoint as dcp
+
+        dcp.save(self._dcp_state(), checkpoint_id=os.path.join(self.checkpoint_dir, f"{name}_dcp"))
+
+    def resume_dcp(self, name: str) -> None:
+        """Restore the parameters and the Adam state from ``<name>_dcp/`` (every rank reads it)."""
+        import torch.distributed.checkpoint as dcp
+
+        state = self._dcp_state()
+        dcp.load(state, checkpoint_id=os.path.join(self.checkpoint_dir, f"{name}_dcp"))
+        for key, tensor in self._dcp_state().items():
+            if state[key] is not tensor:
+                tensor.copy_(state[key])
 
     def resume(self, name: str) -> None:
         """
@@ -760,7 +870,8 @@ class WakeWordTrainer:
                 key = (int(pool.shape[0]), float(label))
                 if key not in self._eval_labels:
                     self._eval_labels[key] = torch.full((pool.shape[0],), label, device=self.device)
-                counts = self._eval_counts(pool, self._eval_labels[key], gate_threshold).cpu().numpy()
+                lo, hi = (0, pool.shape[0]) if self.mesh is None else row_range(pool.shape[0], self.mesh)[:2]
+                counts = self._eval_counts(pool[lo:hi], self._eval_labels[key][lo:hi], gate_threshold).cpu().numpy()
                 for k, v in zip(keys, counts):
                     totals[k] += float(v)
             return totals
@@ -876,7 +987,8 @@ class WakeWordTrainer:
         merged = {k: np.concatenate(v) if v else np.array([]) for k, v in overall.items()}
         logger.info(f"Training overall duration: {human_duration(time.perf_counter() - start_time)}")
         self.log_metrics(merged, description="Training Overall")
-        self.graph_metrics(merged, name=name, directory=graph_dir or self.checkpoint_dir)
+        if is_main_process(self.mesh):
+            self.graph_metrics(merged, name=name, directory=graph_dir or self.checkpoint_dir)
         self.save_checkpoint(f"{name}_final")
         if wandb_run is not None:
             wandb_run.finish()

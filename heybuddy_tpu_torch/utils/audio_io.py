@@ -19,7 +19,9 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-__all__ = ["audio_to_bct_array", "read_wav", "write_wav", "resample_audio"]
+__all__ = [
+    "audio_to_bct_array", "read_wav", "write_wav", "resample_audio", "normalize_peak", "normalize_rms",
+]
 
 AudioLike = Union[str, bytes, np.ndarray, Sequence[Any]]
 
@@ -164,3 +166,20 @@ def audio_to_bct_array(
             arr = np.broadcast_to(arr.mean(axis=0, keepdims=True), (max_channels, t))
         batch[i, :, :t] = arr
     return batch, int(final_rate or 16000)
+
+
+def normalize_peak(audio: np.ndarray, peak: float = 0.95) -> np.ndarray:
+    """Scale so the maximum absolute sample equals ``peak`` (no-op on silence)."""
+    current = np.max(np.abs(audio))
+    if current < 1e-9:
+        return audio
+    return (audio * (peak / current)).astype(np.float32)
+
+
+def normalize_rms(audio: np.ndarray, rms_db: float = -20.0) -> np.ndarray:
+    """Scale to a target RMS level in dBFS (no-op on silence)."""
+    current = np.sqrt(np.mean(np.square(audio)))
+    if current < 1e-9:
+        return audio
+    target = 10.0 ** (rms_db / 20.0)
+    return (audio * (target / current)).astype(np.float32)

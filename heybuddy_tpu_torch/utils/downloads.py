@@ -19,7 +19,7 @@ from typing import Optional
 
 from heybuddy_tpu_torch.utils.log import logger
 
-__all__ = ["get_cache_dir", "check_download_file", "file_sha256"]
+__all__ = ["get_cache_dir", "check_download_file", "file_sha256", "file_is_downloaded"]
 
 
 def get_cache_dir(subdir: str = "") -> str:
@@ -38,6 +38,21 @@ def file_sha256(path: str, chunk_size: int = 1 << 20) -> str:
         for chunk in iter(lambda: f.read(chunk_size), b""):
             digest.update(chunk)
     return digest.hexdigest()
+
+
+def file_is_downloaded(
+    path: str,
+    expected_sha256: Optional[str] = None,
+    expected_size: Optional[int] = None,
+) -> bool:
+    """True when the file exists and passes whichever integrity checks are known."""
+    if not os.path.exists(path):
+        return False
+    if expected_size is not None and os.path.getsize(path) != expected_size:
+        return False
+    if expected_sha256 is not None and file_sha256(path) != expected_sha256:
+        return False
+    return True
 
 
 def check_download_file(

@@ -1,6 +1,8 @@
 """
 Logging for heybuddy_tpu_torch: one package logger on stderr, level from
-``HEYBUDDY_LOG_LEVEL`` (default INFO), colored on a tty.
+``HEYBUDDY_LOG_LEVEL`` (default INFO), colored on a tty. ``unified_logging``
+sets its level for a scope and quiets known noisy third-party loggers;
+``debug_logger`` is that scope at DEBUG (every command's ``--debug``).
 """
 
 from __future__ import annotations
@@ -8,9 +10,10 @@ from __future__ import annotations
 import logging
 import os
 import sys
-from typing import Optional
+from contextlib import contextmanager
+from typing import Iterator, Optional
 
-__all__ = ["logger"]
+__all__ = ["logger", "debug_logger", "unified_logging"]
 
 _COLORS = {
     logging.DEBUG: "\033[36m",
@@ -53,3 +56,30 @@ def _build_logger() -> logging.Logger:
 
 
 logger = _build_logger()
+
+_NOISY_LOGGERS = ["datasets", "urllib3", "filelock", "fsspec", "matplotlib"]
+
+
+@contextmanager
+def unified_logging(level: int = logging.INFO) -> Iterator[None]:
+    """Set our level and quiet known-noisy third-party loggers for the scope."""
+    previous = logger.level
+    noisy_previous = {}
+    logger.setLevel(level)
+    for name in _NOISY_LOGGERS:
+        other = logging.getLogger(name)
+        noisy_previous[name] = other.level
+        other.setLevel(max(level, logging.WARNING))
+    try:
+        yield
+    finally:
+        logger.setLevel(previous)
+        for name, lvl in noisy_previous.items():
+            logging.getLogger(name).setLevel(lvl)
+
+
+@contextmanager
+def debug_logger() -> Iterator[None]:
+    """DEBUG-level logging for the scope."""
+    with unified_logging(logging.DEBUG):
+        yield

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import re
 
-__all__ = ["safe_name", "human_duration"]
+__all__ = ["safe_name", "human_duration", "human_size"]
 
 _SLUG_STRIP = re.compile(r"[^a-z0-9]+")
 
@@ -47,3 +47,13 @@ def human_duration(seconds: float) -> str:
     if secs or not parts:
         parts.append(f"{secs}s")
     return " ".join(parts)
+
+
+def human_size(num_bytes: float) -> str:
+    """A byte count as "512B", "2.0KB", "5.0GB" (powers of 1024, up to PB)."""
+    size = float(num_bytes)
+    for unit in ["B", "KB", "MB", "GB", "TB", "PB"]:
+        if abs(size) < 1024.0 or unit == "PB":
+            return f"{int(size)}{unit}" if unit == "B" else f"{size:.1f}{unit}"
+        size /= 1024.0
+    return f"{size:.1f}PB"

@@ -73,6 +73,15 @@ ONNX_VITS_MODULES = (
 )
 
 
+# the modules of the mesh slice: the parallel package and its runs
+PARALLEL_MODULES = (
+    "heybuddy_tpu_torch.parallel",
+    "heybuddy_tpu_torch.parallel.mesh",
+    "heybuddy_tpu_torch.parallel.distributed_smoke",
+    "heybuddy_tpu_torch.parallel.dryrun",
+)
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
@@ -88,3 +97,4 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert set(STREAM_LISTEN_MODULES) <= walked, sorted(set(STREAM_LISTEN_MODULES) - walked)
     assert set(PRETRAIN_MODULES) <= walked, sorted(set(PRETRAIN_MODULES) - walked)
     assert set(ONNX_VITS_MODULES) <= walked, sorted(set(ONNX_VITS_MODULES) - walked)
+    assert set(PARALLEL_MODULES) <= walked, sorted(set(PARALLEL_MODULES) - walked)
