@@ -61,11 +61,20 @@ default head and ``SpeechEmbeddings(mesh=...)`` on 2048 clips bit for bit
 against no mesh; (b) two ranks on gloo sharing the card, each a process of
 its own (``chip_smoke.py mesh-rank ...``): the distributed smoke against one
 process's step, ``SpeechEmbeddings(mesh)`` and ``extract --mesh`` bit for bit
-against one rank, 30 trainer steps within the trajectory limits, one float32
+against one rank, 30 trainer steps on an unseeded hosted set (every rank on
+the seed rank 0 drew) within the trajectory limits of one rank given that
+seed, one float32
 pretrain step at batch 64 within (a3)'s limits (and the step's gradient
 without the division by W outside them), the dryrun's three parts, each
 rank's K1 / K2 / K3 launches, steps/s at one and two ranks and the ms of an
-``all_reduce`` of the flat gradient. It checks what each path returns, times kernels and
+``all_reduce`` of the flat gradient; then the quality harness
+(``tools/quality_eval``): (a) ``--eval-only`` of the shipped
+``browser/models/hey-buddy.onnx`` on 64 held-out clips a set and two
+5-minute speech streams with one calibration stream (K1 and K2 once a
+1024-window segment and once a held-out set), the first 1024 windows of a
+stream scored on the card against the CPU, the JSON's key set against the
+JAX report's; (b) a ``--quick`` training run (the loss falls, a mining round
+harvests and retrains). It checks what each path returns, times kernels and
 plain versions with CUDA events, prints one JSON line of kernel numbers and
 ends with one JSON line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero; it also fails without a CUDA device.
@@ -86,7 +95,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,6 +103,7 @@ import torch
 from heybuddy_tpu_torch.cli import main as cli_main
 from heybuddy_tpu_torch.constants import (
     DEFAULT_ACTIVATION_THRESHOLD,
+    DEFAULT_FEATURE_BATCH_SIZE,
     DEFAULT_ADVERSARIAL_BATCH_SIZE,
     DEFAULT_NEGATIVE_BATCH_SIZE,
     DEFAULT_POSITIVE_BATCH_SIZE,
@@ -106,7 +116,7 @@ from heybuddy_tpu_torch.data.extract import LabeledFeatureExtractor
 from heybuddy_tpu_torch.data.features import TrainingFeaturesGenerator, autoconfigure_batch_sizes
 from heybuddy_tpu_torch.data.precalculated import PrecalculatedDatasetIterator
 from heybuddy_tpu_torch.data.space import active_space, write_space_sidecar
-from heybuddy_tpu_torch.data.streams import stream_window_clips, synth_speech_stream
+from heybuddy_tpu_torch.data.streams import stream_window_clips, stream_window_count, synth_speech_stream
 from heybuddy_tpu_torch.data.training import WakeWordTrainingDatasetIterator
 from heybuddy_tpu_torch.data.tts_generator import SpeechSampleGenerator
 from heybuddy_tpu_torch.export.onnx_numpy import OnnxRunner
@@ -131,6 +141,8 @@ from heybuddy_tpu_torch.models.vits.training import (
     sdp_posterior_init,
     training_forward,
 )
+from heybuddy_tpu_torch.parallel.mesh import broadcast_seed
+from heybuddy_tpu_torch.runtime.onnx_model import WakeWordONNXModel
 from heybuddy_tpu_torch.models.wakeword import (
     WakeWordMLPModel,
     WakeWordTransformerModel,
@@ -146,11 +158,13 @@ from heybuddy_tpu_torch.ops.augment import AugmentConfig, augment_batch, draw_au
 from heybuddy_tpu_torch.ops.melspec import mel_filterbank, num_frames
 from heybuddy_tpu_torch.ops.windows import embedding_window_starts
 from heybuddy_tpu_torch.text.tokens import BERTTokenizer
+from heybuddy_tpu_torch.tools import quality_eval as qe
 from heybuddy_tpu_torch.tools.train_tiny_voice import train as train_tiny_voice
 from heybuddy_tpu_torch.utils.audio_io import write_wav
 from heybuddy_tpu_torch.utils.codecs import read_wav_any
 from heybuddy_tpu_torch.utils.cuda_timing import cuda_ms, nvidia_smi_line
 from heybuddy_tpu_torch.utils.log import logger
+from heybuddy_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -562,31 +576,34 @@ def build_caches(net, dev: torch.device, directory: str, gen: torch.Generator) -
     return out
 
 
-def trajectory_iterator(directory: str) -> WakeWordTrainingDatasetIterator:
+def trajectory_iterator(directory: str, negative_seed: Optional[int] = 3) -> WakeWordTrainingDatasetIterator:
     """The default composition over the caches, with fixed seeds (the hosted
-    set's own iterator draws an unseeded shuffle)."""
-    def cache(name: str, seed: int, **kw) -> PrecalculatedDatasetIterator:
+    set's own iterator draws an unseeded shuffle); ``negative_seed=None``
+    leaves the hosted set's cache unseeded, as ``train`` builds it."""
+    def cache(name: str, seed: Optional[int], **kw) -> PrecalculatedDatasetIterator:
         return PrecalculatedDatasetIterator(name, directory=directory, seed=seed, **kw)
 
     return WakeWordTrainingDatasetIterator(
         num_batch_threads=1,
         positive=[(cache("hey-buddy", 1), 50)],
         negative=[(cache("hey-buddy-adversarial", 2), 50),
-                  (cache("training-medium", 3, labeled=True, exclude_phrase=TRAIN_PHRASE), 1000)],
+                  (cache("training-medium", negative_seed, labeled=True, exclude_phrase=TRAIN_PHRASE), 1000)],
     )
 
 
 def trajectory_run(architecture: str, device: torch.device, directory: str, ckpt_dir: str,
                    tf32: bool = False, perturb: bool = False, params=None, steps: int = TRAJECTORY_STEPS,
-                   mesh=None, dropout: float = 0.0) -> Dict:
+                   mesh=None, dropout: float = 0.0, negative_seed: Optional[int] = 3) -> Dict:
     """``steps`` steps of ``architecture``, dropout 0 (or ``dropout``), on the default
     composition, from ``params`` or else the seed's initial parameters (the
     model is initialised on the host, then moved), over ``mesh`` if given;
     ``tf32`` lets the matmuls run in TF32; ``perturb`` scales every initial
-    parameter by 1 + 1e-7 n (n standard normal, seeded). Returns the history,
-    the flat parameter buffer before and after, the gradient of the first
-    fired step (Adam's first moment over 1 - b1 after one step), the
-    fired-step count, and the trainer with its iterator."""
+    parameter by 1 + 1e-7 n (n standard normal, seeded). With
+    ``negative_seed=None`` over a mesh, the hosted set takes the seed rank 0
+    draws (``broadcast_seed``, as ``train --mesh`` does). Returns
+    the history, the flat parameter buffer before and after, the gradient of
+    the first fired step (Adam's first moment over 1 - b1 after one step),
+    the fired-step count, the trainer with its iterator, and the seed drawn."""
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
@@ -597,13 +614,14 @@ def trajectory_run(architecture: str, device: torch.device, directory: str, ckpt
         if perturb:
             noise = np.random.default_rng(SEED).standard_normal(flat.numel()).astype(np.float32)
             flat.mul_(torch.from_numpy(1 + 1e-7 * noise).to(device))
-        iterator = trajectory_iterator(directory)
+        seed = broadcast_seed(mesh) if mesh is not None and negative_seed is None else None
+        iterator = trajectory_iterator(directory, negative_seed if seed is None else seed)
         history = trainer.train_epoch(iterator, num_steps=steps, validation_steps=10 ** 6, checkpoint_steps=10 ** 6)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     return {"history": history, "init": init, "params": flat.cpu().numpy(),
             "grad": trainer._adam.mu.cpu().numpy() / (1 - trainer._adam.b1),
-            "fired": int(trainer._adam.count.item()), "trainer": trainer, "iterator": iterator}
+            "fired": int(trainer._adam.count.item()), "trainer": trainer, "iterator": iterator, "seed": seed}
 
 
 def trajectory_gap(run: Dict, ref: Dict) -> Dict:
@@ -1619,7 +1637,6 @@ def pretrain_phase(dev: torch.device, tmp: str) -> Dict:
     from heybuddy_tpu_torch.text.phonemizer import SimplePhonemizer
     from heybuddy_tpu_torch.text.wordlist import WORDS
     from heybuddy_tpu_torch.training.embedding_pretrain import DRAW_NAMESPACE, EmbeddingPretrainer, pretrain_views
-    from heybuddy_tpu_torch.utils import profiling
 
     cpu = torch.device("cpu")
     bundled = embedding_net.bundled_weights_path()
@@ -2314,9 +2331,10 @@ def mesh_rank_main(argv: List[str]) -> int:
             ["extract", "noise", os.path.join(workdir, "wavs", "*.wav"), "--local-files", "--directory", shards,
              "--mesh", "--device", str(device)]))
 
+    # the hosted set unseeded, as train builds it: every rank takes rank 0's seed
     run = part("train", lambda: trajectory_run("perceptron", device, os.path.join(workdir, "train-data"),
-                                               os.path.join(workdir, f"ckpt{rank}"), mesh=mesh))
-    out.update(train_loss=run["history"]["loss"], train_recall=run["history"]["recall"],
+                                               os.path.join(workdir, f"ckpt{rank}"), mesh=mesh, negative_seed=None))
+    out.update(train_seed=run["seed"], train_loss=run["history"]["loss"], train_recall=run["history"]["recall"],
                train_fp=run["history"]["false_positive_rate"], train_rate=run["history"]["high_loss_rate"],
                train_params=run["params"].copy(), train_fired=run["fired"])  # before the timed steps move them
     out["steps_per_s"] = timed_steps(run, device)
@@ -2438,8 +2456,10 @@ def mesh_phase(dev: torch.device, tmp: str, clips: np.ndarray, emb: np.ndarray, 
     check(all(feat_same), "mesh (b): SpeechEmbeddings(mesh) differs from one rank")
     check(shard_same and all(int(r["extract_rc"]) == 0 for r in ranks), "mesh (b): extract --mesh shards differ")
 
-    # the trainer: MESH_RANKS ranks against one on the card, dropout 0
-    ref = trajectory_run("perceptron", dev, data_dir, os.path.join(tmp, "mesh-b-one"))
+    # the trainer: MESH_RANKS ranks on an unseeded hosted set against one given rank 0's seed, dropout 0
+    seeds = [int(r["train_seed"]) for r in ranks]
+    check(len(set(seeds)) == 1, f"mesh (b): the ranks trained on other seeds {seeds}")
+    ref = trajectory_run("perceptron", dev, data_dir, os.path.join(tmp, "mesh-b-one"), negative_seed=seeds[0])
     ref["params"] = ref["params"].copy()  # before the timed steps move them
     one_steps = timed_steps(ref, dev)
     run = {"history": {"loss": ranks[0]["train_loss"], "recall": ranks[0]["train_recall"],
@@ -2448,7 +2468,8 @@ def mesh_phase(dev: torch.device, tmp: str, clips: np.ndarray, emb: np.ndarray, 
            "fired": int(ranks[0]["train_fired"])}
     gap = trajectory_gap(run, ref)
     train_same = all(np.array_equal(r["train_params"], ranks[0]["train_params"]) for r in ranks)
-    print(f"mesh (b) trainer {TRAJECTORY_STEPS} steps at {MESH_RANKS} ranks vs one on the card: loss relative "
+    print(f"mesh (b) trainer {TRAJECTORY_STEPS} steps at {MESH_RANKS} ranks on an unseeded hosted set (rank 0's "
+          f"seed {seeds[0]} on every rank) vs one rank given that seed on the card: loss relative "
           f"{gap['loss_rel']:.3e} (limit {TRAJ_LOSS_RTOL}); rates {gap['rate_err']:.3e} (limit {TRAJ_RATE_ATOL}); "
           f"params max |d| {gap['param_max']:.3e} (limit {TRAJ_PARAM_MAX}), share {gap['param_share']:.4f}; fired "
           f"{gap['fired']}; ranks equal {train_same}; steps/s one rank {one_steps:.1f}, {MESH_RANKS} ranks "
@@ -2491,6 +2512,223 @@ def mesh_phase(dev: torch.device, tmp: str, clips: np.ndarray, emb: np.ndarray, 
                     "pretrain_loss_rel": p_loss, "pretrain_grad": p_grad, "pretrain_control": control,
                     "launches_per_rank": launches, "ranks_s": ranks_s})
     return {"paths": paths, "summary": summary}
+
+
+# the quality harness: (a) a cut --eval-only of the shipped head, (b) --quick training
+QUALITY_HEAD = os.path.join(ROOT, "browser", "models", "hey-buddy.onnx")
+QUALITY_PHRASE = "hey buddy"  # the harness's default phrase
+QUALITY_HELDOUT = 64  # clips of each of the five held-out sets
+QUALITY_STREAM_MINUTES = 5.0
+QUALITY_STREAM_SEEDS = 2
+QUALITY_CALIBRATION_SEEDS = 1
+QUALITY_SLIDING_CLIPS = 20  # the harness's default: 20 renderings of the phrase, 6 of each of 10 near-collisions
+QUALITY_CHECK_WINDOWS = 1024  # a stream's first windows scored on the card and on the CPU
+QUALITY_SCORE_ATOL = SCORE_ATOL  # predict's bound
+# the key sets of reports/quality-shipped-v26-evalonly.json (the JAX harness's JSON)
+QUALITY_KEYS = {
+    "": ("phrase", "threshold", "embedding", "train_samples", "partial_samples", "adversarial_phrases",
+         "hard_pair_boost", "prefix_negatives", "collision_negatives", "collision_swap_depth",
+         "mine_adversarial_clips", "reverb_positives", "steps", "layers", "layer_dim", "fixed_negative_weight", "frr",
+         "frr_clean", "frr_clean_offset", "far_adversarial", "far_speech", "stream_minutes", "stream_seeds",
+         "stream_hours_total", "stream_detections", "fp_per_hour", "fp_per_hour_runs",
+         "fp_per_hour_runs_consecutive2", "mine_rounds", "mined_negatives", "select_runs", "selection",
+         "operating_threshold", "operating_fp_per_hour", "operating_frr", "operating_frr_clean",
+         "operating_frr_clean_offset", "fp_per_hour_consecutive2", "operating_warnings", "threshold_curve",
+         "threshold_curve_all_targets", "operating_threshold_consecutive2", "operating_frr_consecutive2",
+         "operating_frr_clean_consecutive2", "operating_frr_clean_offset_consecutive2", "score_stats",
+         "clean_positive_stats", "clean_offset_stats", "sliding_max_scores", "sliding_consecutive2_fire_rate",
+         "sliding_recall_c2", "sliding_clips", "targets_met", "all_targets_met", "intervals", "calibrated",
+         "far_attribution", "frr_by_snr", "far_by_snr", "checkpoint", "wall_s"),
+    "intervals": ("far_adversarial", "far_speech", "frr_clean", "frr_clean_offset", "sliding_recall_c2",
+                  "fp_per_hour_consecutive2", "n", "basis"),
+    "intervals.n": ("adversarial", "speech", "clean", "clean_offset", "sliding_renderings", "stream_detections_c2",
+                    "stream_hours"),
+    "calibrated": ("threshold", "calibration_hours", "warnings", "degenerate", "fp_per_hour_c2",
+                   "fp_per_hour_runs_c2", "sliding_recall_c2", "sliding_consecutive2_fire_rate", "far_adversarial",
+                   "frr_clean", "frr_clean_offset", "targets_met", "all_targets_met", "intervals"),
+    "calibrated.intervals": ("far_adversarial", "frr_clean", "sliding_recall_c2", "fp_per_hour_c2"),
+    "threshold_curve[]": ("threshold", "far_adversarial", "far_speech", "frr_clean", "frr_clean_offset",
+                          "sliding_recall_c2", "fp_per_hour_c2"),
+}
+
+
+def quality_keys_match(results: Dict) -> Dict[str, bool]:
+    """Each key set of the harness's JSON against the JAX report's."""
+    def at(path: str) -> Dict:
+        node = results
+        for part in filter(None, path.split(".")):
+            node = node[part]
+        return node
+
+    got = {path: set(at(path)) for path in QUALITY_KEYS if not path.endswith("[]")}
+    got["threshold_curve[]"] = set().union(*(set(c) for c in results["threshold_curve"]))
+    return {path: got[path] == set(keys) for path, keys in QUALITY_KEYS.items()}
+
+
+def run_quality(argv: List[str]) -> Dict:
+    """``tools.quality_eval.main(argv)``: its rc checked, its JSON line parsed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = qe.main(argv)
+    check(rc == 0, f"quality_eval {' '.join(argv[:2])} exited {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def quality_phase(dev: torch.device, tmp: str) -> Dict:
+    """(a) ``--eval-only`` of the shipped head, cut: the held-out sets, the
+    streams and the sliding renderings on the card, K1 / K2 launches = the
+    segments the streams and contexts give + one a held-out set, the first
+    QUALITY_CHECK_WINDOWS windows of a stream scored on the card and on the CPU,
+    the JSON's key set; the stages' times and the scoring's busy share.
+    (b) ``--quick`` training on the card: the loss falls in every training,
+    the mining round harvests and retrains, the same key set."""
+    saved_cache = os.environ.get("HEYBUDDY_CACHE_DIR")
+    os.environ["HEYBUDDY_CACHE_DIR"] = os.path.join(tmp, "quality-cache")
+    try:
+        return _quality_phase(dev, tmp)
+    finally:
+        if saved_cache is None:
+            os.environ.pop("HEYBUDDY_CACHE_DIR", None)
+        else:
+            os.environ["HEYBUDDY_CACHE_DIR"] = saved_cache
+
+
+def _quality_phase(dev: torch.device, tmp: str) -> Dict:
+    paths: Dict[str, Dict[str, int]] = {}
+    # ---- (a) eval-only -----------------------------------------------------------------
+    argv = ["--eval-only", QUALITY_HEAD, "--heldout-samples", str(QUALITY_HELDOUT), "--stream-minutes",
+            f"{QUALITY_STREAM_MINUTES:g}", "--stream-seeds", str(QUALITY_STREAM_SEEDS), "--calibration-seeds",
+            str(QUALITY_CALIBRATION_SEEDS), "--sliding-clips", str(QUALITY_SLIDING_CLIPS), "--no-snr-buckets",
+            "--dataset-dir", os.path.join(tmp, "quality-data"), "--out", os.path.join(tmp, "quality.json"),
+            "--device", dev.type]
+    profiling.GLOBAL_STAGE_TIMES = profiling.StageTimes()
+    t0 = time.perf_counter()
+    results, paths["quality"] = run_path("quality", lambda: run_quality(argv), ("mel_patches", "embedding_pool"))
+    wall_s = time.perf_counter() - t0
+    stage = profiling.GLOBAL_STAGE_TIMES  # the harness's stages, host clock
+    stream_dir = os.path.join(tmp, "quality-cache", "quality-streams")
+    stream_files = sorted(glob.glob(os.path.join(stream_dir, "*.npy")))
+    streams = [np.load(f) for f in stream_files]
+    segments = sum(-(-stream_window_count(x) // STREAM_SEGMENT_WINDOWS) for x in streams)
+    contexts = QUALITY_SLIDING_CLIPS + 6 * len(qe.ADVERSARIAL_SLIDING_PHRASES)  # one segment each
+    heldout_calls = 5 * -(-QUALITY_HELDOUT // min(DEFAULT_FEATURE_BATCH_SIZE,
+                                                  autoconfigure_batch_sizes(dev)["embed_batch_size"]))
+    expect = segments + contexts + heldout_calls
+    keys = quality_keys_match(results)
+    print(f"quality (a) --eval-only {os.path.basename(QUALITY_HEAD)}: {len(streams)} streams "
+          f"({QUALITY_STREAM_SEEDS} x {QUALITY_STREAM_MINUTES:g} min + {QUALITY_CALIBRATION_SEEDS} calibration), "
+          f"{segments} segments, {contexts} sliding contexts, {heldout_calls} held-out featurize calls: launches "
+          f"{paths['quality']} (expected {expect} each); key sets equal the JAX report's: {keys}")
+    check(len(streams) == QUALITY_STREAM_SEEDS + QUALITY_CALIBRATION_SEEDS, f"quality: {len(streams)} stream files")
+    check(paths["quality"] == {"mel_patches": expect, "embedding_pool": expect},
+          f"quality (a) launched {paths['quality']}, expected {expect} of K1 and K2")
+    check(all(keys.values()), f"quality (a): the JSON's key sets differ from the JAX report's: {keys}")
+    rates = [results[k] for k in ("frr", "frr_clean", "frr_clean_offset", "far_adversarial", "far_speech",
+                                  "sliding_recall_c2")]
+    check(all(0.0 <= r <= 1.0 for r in rates) and results["intervals"]["n"]["adversarial"] == QUALITY_HELDOUT,
+          f"quality (a): rates {rates}")
+    print(f"quality (a) results: FRR {results['frr']} (clean {results['frr_clean']}, offset "
+          f"{results['frr_clean_offset']}), FAR_adv {results['far_adversarial']}, FAR_speech "
+          f"{results['far_speech']}, fp/hr runs raw {results['fp_per_hour_runs']} c2 "
+          f"{results['fp_per_hour_runs_consecutive2']}, sliding recall c2 {results['sliding_recall_c2']}, "
+          f"calibrated thr {results['calibrated']['threshold']}, wall_s {results['wall_s']}")
+
+    # the first windows of a measurement stream: card against the CPU
+    # the harness's first measurement stream (seed 0 + 31), from its cache
+    stream = qe.synth_speech_stream(QUALITY_STREAM_MINUTES, 31, exclude_phrase=QUALITY_PHRASE, device=dev)
+    part = stream[: (QUALITY_CHECK_WINDOWS - 1) * RUNTIME_WINDOW_STRIDE + CLIP]
+    head = WakeWordONNXModel(QUALITY_HEAD, device=dev)
+    card = qe.sliding_scores(head, part, device=dev)
+    cpu = qe.sliding_scores(WakeWordONNXModel(QUALITY_HEAD, device="cpu"), part, device="cpu")
+    err = float(np.abs(card - cpu).max())
+    grid = np.round(np.arange(0.05, 0.96, 0.01), 2)
+    both = np.concatenate([card, cpu])
+    clear = [float(t) for t in grid if np.abs(both - t).min() > QUALITY_SCORE_ATOL]
+    det = {c: [(qe.count_detections(card, t, consecutive=c), qe.count_detections(cpu, t, consecutive=c))
+               for t in clear] for c in (1, 2)}
+    det_equal = all(a == b for pairs in det.values() for a, b in pairs)
+    print(f"quality (a) the first {len(card)} windows card vs CPU: max |d| {err:.3e} (limit {QUALITY_SCORE_ATOL}), "
+          f"max score {card.max():.4f}; detections equal at {len(clear)} clear thresholds (gates 1 and 2): "
+          f"{det_equal}; at 0.5: raw {det[1][clear.index(0.5)] if 0.5 in clear else 'not clear'}")
+    check(len(card) == QUALITY_CHECK_WINDOWS and err <= QUALITY_SCORE_ATOL, "quality (a): card vs CPU scores")
+    check(det_equal and len(clear) > 0, "quality (a): card vs CPU detections")
+
+    # the scoring's rates: a segment's device time (upload, K1, K2, the head) by CUDA events,
+    # the stream's host clock, its busy share
+    emb = get_speech_embeddings(device=dev)
+    seg_ms = cuda_ms(lambda: qe.head_scores(
+        head, emb.featurize_stream_device(stream, STREAM_SEGMENT_WINDOWS, RUNTIME_WINDOW_STRIDE)[0]))
+    busy = device_busy(lambda: qe.sliding_scores(head, stream, device=dev))
+    n_windows = stream_window_count(stream)
+    host_wps = n_windows / (busy["wall_ms"] / 1e3)
+    busy_share = busy["busy_ms"] / busy["wall_ms"] if busy["busy_ms"] is not None else None
+    run_windows = sum(stream_window_count(x) for x in streams)
+    synth_minutes = stage.count["quality/stream_synthesis"] * QUALITY_STREAM_MINUTES
+    heldout_clips = 5 * QUALITY_HELDOUT
+    summary = {
+        "windows_per_s_cuda_events": STREAM_SEGMENT_WINDOWS / (seg_ms / 1e3), "segment_ms": seg_ms,
+        "windows_per_s_host": host_wps, "stream_windows": n_windows, "busy_share": busy_share,
+        "busy_kernels": busy["kernels"], "run_windows_per_s_host": run_windows / stage.total["quality/stream_scoring"],
+        "synth_s_per_stream_minute": stage.total["quality/stream_synthesis"] / synth_minutes,
+        "synth_minutes": synth_minutes, "heldout_clips_per_s": heldout_clips / stage.total["quality/heldout"],
+        "heldout_clips": heldout_clips, "wall_s": results["wall_s"], "phase_a_s": wall_s, "card_vs_cpu": err,
+        "results": {k: results[k] for k in ("frr", "frr_clean", "frr_clean_offset", "far_adversarial", "far_speech",
+                                            "fp_per_hour_runs", "fp_per_hour_runs_consecutive2",
+                                            "sliding_recall_c2")},
+    }
+    print(f"quality (a) times: scoring a {STREAM_SEGMENT_WINDOWS}-window segment {seg_ms:.4f} ms by CUDA events "
+          f"(upload, K1, K2, head: {summary['windows_per_s_cuda_events']:.0f} windows/s); a {QUALITY_STREAM_MINUTES:g}"
+          f"-min stream ({n_windows} windows) {busy['wall_ms']:.1f} ms host clock ({host_wps:.0f} windows/s), "
+          f"busy {busy['busy_ms']} ms ({busy_share}) in {busy['kernels']} kernels; in the run (its stage "
+          f"times): scoring the streams' {run_windows} windows in {stage.total['quality/stream_scoring']:.2f} s "
+          f"({summary['run_windows_per_s_host']:.0f} windows/s), synthesis {synth_minutes:g} stream-minutes in "
+          f"{stage.total['quality/stream_synthesis']:.1f} s ({summary['synth_s_per_stream_minute']:.2f} s per "
+          f"stream-minute), held-out {heldout_clips} clips in {stage.total['quality/heldout']:.1f} s "
+          f"({summary['heldout_clips_per_s']:.1f} clips/s); wall_s {results['wall_s']} "
+          f"(host clock of the phase's run {wall_s:.1f} s)")
+
+    # ---- (b) --quick training ------------------------------------------------------------------
+    log = QualityLog()
+    logger.addHandler(log)
+    try:
+        t0 = time.perf_counter()
+        quick, launches = run_path("quality_quick", lambda: run_quality(
+            ["--quick", "--dataset-dir", os.path.join(tmp, "quality-quick"), "--device", dev.type]),
+            ("mel_patches", "embedding_pool"))
+        quick_s = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(log)
+    paths["quality_quick"] = launches
+    falls = [run[-1] < run[0] for run in log.runs]
+    keys = quality_keys_match(quick)
+    print(f"quality (b) --quick: {len(log.runs)} trainings, logged loss first -> last "
+          f"{[(round(r[0], 5), round(r[-1], 5)) for r in log.runs]}; mining: {log.mining}; mined "
+          f"{quick['mined_negatives']}; launches {launches}; key sets equal {all(keys.values())}; "
+          f"{quick_s:.1f} s (host clock), wall_s {quick['wall_s']}")
+    check(len(log.runs) == 2 and all(falls), "quality (b): the loss did not fall in every training")
+    check(len(log.mining) == 1 and quick["mined_negatives"] > 0, "quality (b): the mining round did not harvest")
+    check(all(keys.values()), f"quality (b): the JSON's key sets differ from the JAX report's: {keys}")
+    check(launches["mel_patches"] == launches["embedding_pool"], f"quality (b) launches {launches}")
+    summary.update(quick_s=quick_s, quick_wall_s=quick["wall_s"], quick_mined=quick["mined_negatives"])
+    return {"paths": paths, "summary": summary}
+
+
+class QualityLog(logging.Handler):
+    """The harness's trainings (their logged losses) and its mining rounds, from its log records."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.INFO)
+        self.runs: List[List[float]] = []
+        self.mining: List[str] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        msg = record.getMessage()
+        if msg.startswith("=== training classifier ("):
+            self.runs.append([])
+        elif m := re.match(r"Training step \d+/\d+: loss=(\S+) ", msg):
+            self.runs[-1].append(float(m[1]))
+        elif msg.startswith("mining round "):
+            self.mining.append(msg)
 
 
 def device_busy(fn: Callable[[], object]) -> Dict[str, float]:
@@ -2759,6 +2997,10 @@ def main() -> int:
         mesh = mesh_phase(dev, tmp, clips, emb, os.path.join(tmp, "shards0"))
         paths.update(mesh["paths"])
         elapsed("mesh")
+        # ---- the quality harness on the shipped head, then a quick training run ----
+        quality = quality_phase(dev, tmp)
+        paths.update(quality["paths"])
+        elapsed("quality")
     score_err = float(np.abs(s_gpu - s_cpu).max())
     print(f"predict scores card {np.round(s_gpu, 4).tolist()} vs plain path "
           f"{np.round(s_cpu, 4).tolist()}: max |d| {score_err:.3e}")
@@ -2896,7 +3138,7 @@ def main() -> int:
                       "train": train["summary"], "generate": generate["summary"],
                       "stream": {**stream["summary"], "train": stream["train"]}, "listen": listen,
                       "pretrain": pretrain["summary"], "onnx": onnx["summary"], "vits": vits["summary"],
-                      "mesh": mesh["summary"],
+                      "mesh": mesh["summary"], "quality": quality["summary"],
                       "seconds": time.perf_counter() - START, **extract}))
     print(f"chip_smoke.py: {time.perf_counter() - START:.1f} s in all")
     print(json.dumps({"ok": True, "device": {

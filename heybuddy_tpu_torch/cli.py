@@ -396,18 +396,22 @@ def _extract(args: argparse.Namespace) -> int:
 
 
 def _train(args: argparse.Namespace) -> int:
-    from heybuddy_tpu_torch.data.precalculated import PrecalculatedDatasetIterator
-    from heybuddy_tpu_torch.data.training import WakeWordTrainingDatasetIterator
-    from heybuddy_tpu_torch.ops.augment import AugmentConfig
-    from heybuddy_tpu_torch.text.adversarial import prefix_negative_texts, single_swap_collision_texts
-    from heybuddy_tpu_torch.parallel.mesh import main_process_first, world_size
+    from heybuddy_tpu_torch.parallel.mesh import broadcast_seed, main_process_first, world_size
     from heybuddy_tpu_torch.training.trainer import WakeWordTrainer
     from heybuddy_tpu_torch.utils.log import logger
 
     # as JAX's device_count() > 1 check: a mesh only over several ranks
     mesh = _mesh(args.device, MESH_TIMEOUT) if args.mesh and world_size() > 1 else None
+    # JAX's one program draws one batch a step for the whole mesh: the sets
+    # without a seed of their own shuffle from a seed rank 0 drew, and the
+    # threaded host path serves rank 0's batches
+    seed = broadcast_seed(mesh) if mesh is not None else None
     with main_process_first(mesh):  # rank 0 generates missing caches; the others then load them
-        training, validation, testing = _train_data(args, logger, args.device if mesh is None else mesh.device)
+        training, validation, testing = _train_data(args, logger, args.device if mesh is None else mesh.device,
+                                                    negative_seed=seed)
+    for iterator in (training, validation, testing):
+        if iterator is not None:
+            iterator.mesh = mesh
     trainer = WakeWordTrainer(
         checkpoint_dir=args.checkpoint_dir,
         learning_rate=args.learning_rate,
@@ -447,9 +451,11 @@ def _train(args: argparse.Namespace) -> int:
     return 0
 
 
-def _train_data(args: argparse.Namespace, logger: Any, device: DeviceLike) -> Any:
+def _train_data(args: argparse.Namespace, logger: Any, device: DeviceLike, negative_seed: Optional[int] = None) -> Any:
     """train's (training, validation, testing) iterators; building them
-    generates the feature caches that are missing or short."""
+    generates the feature caches that are missing or short. The sets without
+    a seed of their own (the hosted ones, ``--training-dataset``) shuffle from
+    ``negative_seed``, ``+ 1``, ``+ 2`` (fresh entropy without one)."""
     from heybuddy_tpu_torch.data.precalculated import PrecalculatedDatasetIterator
     from heybuddy_tpu_torch.data.training import WakeWordTrainingDatasetIterator
     from heybuddy_tpu_torch.ops.augment import AugmentConfig
@@ -501,8 +507,13 @@ def _train_data(args: argparse.Namespace, logger: Any, device: DeviceLike) -> An
         num_batch_threads=args.num_batch_threads,
         large_negative_dataset=args.training_default_size == "large",
         synthetic_negative_samples=args.synthetic_negative_samples,
+        negative_seed=negative_seed,
         **feature_kwargs,
     )
+
+    def seed(offset: int) -> Optional[int]:
+        return None if negative_seed is None else negative_seed + offset
+
     if args.training_dataset is not None:
         import numpy as np
 
@@ -513,6 +524,7 @@ def _train_data(args: argparse.Namespace, logger: Any, device: DeviceLike) -> An
             directory=os.path.dirname(os.path.abspath(args.training_dataset)),
             labeled=np.load(args.training_dataset, mmap_mode="r").shape[1] == 17,
             exclude_phrase=phrase,
+            seed=seed(1),
         )
         training.negative.append((custom, C.DEFAULT_NEGATIVE_BATCH_SIZE))
 
@@ -524,6 +536,7 @@ def _train_data(args: argparse.Namespace, logger: Any, device: DeviceLike) -> An
             positive_batch_size=args.validation_positive_batch_size,
             negative_batch_size=args.validation_negative_batch_size,
             stream_negative_samples=args.validation_stream_negative_samples,
+            negative_seed=seed(2),
             **feature_kwargs,
         )
     testing = None

@@ -11,6 +11,14 @@ device once. The factories (``default``, ``validation``, ``testing``,
 hosted negative sets together, with the JAX package's names, defaults and
 space checks; ``device`` (in the feature options) names the featurizer whose
 space is active.
+
+Under a mesh of several ranks the ranks serve what JAX's one program
+serves: ``train --mesh`` builds every source that takes no seed of its own
+(the hosted negative sets, ``--training-dataset``) with a seed that rank 0
+drew (``negative_seed``), so the device-resident plan draws the same indices
+on every rank; and with ``mesh`` set on an iterator, the threaded host path,
+whose batch order follows its threads' timing, runs its threads on rank 0
+alone and gives every rank rank 0's batches.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from heybuddy_tpu_torch.data.precalculated import (
 )
 from heybuddy_tpu_torch.data.space import hosted_sets_compatible
 from heybuddy_tpu_torch.device import DeviceLike
+from heybuddy_tpu_torch.parallel.mesh import Mesh, broadcast_batch
 from heybuddy_tpu_torch.utils.log import logger
 
 __all__ = [
@@ -113,7 +122,10 @@ class DeviceBatchPlan:
 
 
 class TrainingDatasetIterator:
-    """Bounded-queue batch producer/consumer."""
+    """Bounded-queue batch producer/consumer. With ``mesh`` set the producers
+    run on rank 0 alone and every rank yields rank 0's batches."""
+
+    mesh: Optional[Mesh] = None
 
     def __init__(
         self,
@@ -138,7 +150,7 @@ class TrainingDatasetIterator:
         }
 
     def start(self) -> None:
-        if self.started:
+        if self.started or (self.mesh is not None and self.mesh.rank != 0):
             return
         self.started = True
         logger.info(f"Starting batch generation with {self.num_batch_threads} threads")
@@ -174,6 +186,17 @@ class TrainingDatasetIterator:
         self.started = False
 
     def iterate(self) -> Iterator[Batch]:
+        if self.mesh is None:
+            yield from self._iterate_queue()
+            return
+        batches = self._iterate_queue() if self.mesh.rank == 0 else None
+        while True:
+            batch = broadcast_batch(None if batches is None else next(batches, None), self.mesh)
+            if batch is None:
+                return
+            yield batch
+
+    def _iterate_queue(self) -> Iterator[Batch]:
         yielded = 0
         while True:
             try:
@@ -335,9 +358,11 @@ class WakeWordTrainingDatasetIterator(TrainingDatasetIterator):
         large_negative_dataset: bool = False,
         synthetic_negative_samples: int = 0,
         testing: bool = False,
+        negative_seed: Optional[int] = None,
         **feature_kwargs: Any,
     ) -> "WakeWordTrainingDatasetIterator":
-        """Training (or testing) iterator: the phrase's cached positives/adversarials + hosted negatives."""
+        """Training (or testing) iterator: the phrase's cached positives/adversarials + hosted negatives
+        (shuffled from ``negative_seed``; fresh entropy without one, as in the JAX package)."""
         generator = TrainingFeaturesGenerator(phrase=phrase, **feature_kwargs)
         positive = generator.get_training_features(
             positive_samples,
@@ -390,7 +415,8 @@ class WakeWordTrainingDatasetIterator(TrainingDatasetIterator):
             negative_specs.append((partial_adv, partial_batch_size))
         if negative_batch_size > 0:
             negative = cls._hosted_negative(
-                phrase, large=large_negative_dataset, device=feature_kwargs.get("device", "cuda")
+                phrase, large=large_negative_dataset, device=feature_kwargs.get("device", "cuda"),
+                seed=negative_seed,
             )
             if negative is not None:
                 negative_specs.append((negative, negative_batch_size))
@@ -453,9 +479,11 @@ class WakeWordTrainingDatasetIterator(TrainingDatasetIterator):
         negative_batch_size: int = DEFAULT_VALIDATION_NEGATIVE_BATCH_SIZE,
         num_batch_threads: int = 2,
         stream_negative_samples: int = 0,
+        negative_seed: Optional[int] = None,
         **feature_kwargs: Any,
     ) -> "WakeWordTrainingDatasetIterator":
-        """Validation iterator: pad-only positives + hosted negative validation set.
+        """Validation iterator: pad-only positives + hosted negative validation set
+        (shuffled from ``negative_seed``; fresh entropy without one).
 
         ``stream_negative_samples`` adds sliding-window negatives from a
         continuous synthetic speech stream (fresh seed, disjoint from the
@@ -478,7 +506,7 @@ class WakeWordTrainingDatasetIterator(TrainingDatasetIterator):
             device=feature_kwargs.get("device", "cuda"),
         ):
             try:
-                negative_specs.append((PrecalculatedValidationDataset(), negative_batch_size))
+                negative_specs.append((PrecalculatedValidationDataset(seed=negative_seed), negative_batch_size))
             except FileNotFoundError as ex:
                 logger.warning(f"Hosted validation negatives unavailable: {ex}")
         if stream_negative_samples > 0:
@@ -558,7 +586,7 @@ class WakeWordTrainingDatasetIterator(TrainingDatasetIterator):
 
     @staticmethod
     def _hosted_negative(
-        phrase: Union[str, List[str]], large: bool = False, device: DeviceLike = "cuda"
+        phrase: Union[str, List[str]], large: bool = False, device: DeviceLike = "cuda", seed: Optional[int] = None
     ) -> Optional[PrecalculatedDatasetIterator]:
         hosted_name = "training-large.npy" if large else "training-medium.npy"
         if not hosted_sets_compatible(
@@ -570,7 +598,7 @@ class WakeWordTrainingDatasetIterator(TrainingDatasetIterator):
         exclude = phrase if isinstance(phrase, str) else " ".join(phrase)
         dataset_cls = PrecalculatedTrainingDatasetLarge if large else PrecalculatedTrainingDatasetMedium
         try:
-            return dataset_cls(exclude_phrase=exclude)
+            return dataset_cls(exclude_phrase=exclude, seed=seed)
         except FileNotFoundError as ex:
             logger.warning(f"Hosted negative dataset unavailable: {ex}")
             return None

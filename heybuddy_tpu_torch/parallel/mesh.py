@@ -9,7 +9,10 @@ the port maps that program onto ranks:
 
 * every rank runs the same host program on the same seeded data (the single
   controller's program, replicated) and takes its own rows of each batch,
-  padded to a multiple of the data axis;
+  padded to a multiple of the data axis; where that program draws from fresh
+  entropy (a negative set built without a seed), rank 0 draws and
+  ``broadcast_seed`` gives every rank its draw, and where batches are
+  ordered by thread timing, ``broadcast_batch`` gives every rank rank 0's;
 * collectives over the ``"data"`` group give every rank the global value of
   every count, loss and gradient, so a W-rank run equals the one-rank run on
   the same padded batch up to summation order;
@@ -51,6 +54,8 @@ __all__ = [
     "all_gather_rows",
     "all_reduce_sum",
     "barrier",
+    "broadcast_seed",
+    "broadcast_batch",
     "is_main_process",
     "main_process_first",
     "world_size",
@@ -282,6 +287,26 @@ def all_reduce_sum(tensor: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Sum ``tensor`` over the data axis in place; returns it."""
     dist.all_reduce(tensor, group=mesh.group)
     return tensor
+
+
+def broadcast_seed(mesh: Mesh) -> int:
+    """A seed that rank 0 draws from fresh entropy, the same on every rank of
+    the data axis: what JAX's one program draws once, the mesh draws once."""
+    value = torch.zeros(1, dtype=torch.int64, device=mesh.device)
+    if mesh.rank == 0:
+        value[0] = int(np.random.SeedSequence().generate_state(1, np.uint64)[0] >> np.uint64(1))
+    dist.broadcast(value, src=dist.get_global_rank(mesh.group, 0), group=mesh.group)
+    return int(value.item())
+
+
+def broadcast_batch(batch: Optional[Tuple[np.ndarray, np.ndarray]], mesh: Mesh
+                    ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Rank 0's host batch ``(x, y)`` on every rank of the data axis (the other
+    ranks' ``batch`` is not read); ``None`` on rank 0, the end of its stream,
+    gives ``None`` everywhere."""
+    box = [batch if mesh.rank == 0 else None]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(mesh.group, 0), group=mesh.group, device=mesh.device)
+    return box[0]
 
 
 def barrier(mesh: Optional[Mesh]) -> None:

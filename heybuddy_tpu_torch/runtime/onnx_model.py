@@ -6,7 +6,9 @@ inference API as the native heads (``__call__`` over (b, 16, 96) features,
 ``scores``, ``predict``, ``predict_timecodes``). The graph runs on
 onnxruntime when it is installed, else on the port's numpy ``OnnxRunner``;
 the features come from the shared featurizer of ``device`` (K1 -> K2 on the
-card).
+card). ``device_scores`` scores features that are already on ``device``
+there, through the ONNX importer's tensor ops (``export/onnx_to_torch.py``),
+so that they need no copy to the host.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from heybuddy_tpu_torch.device import DeviceLike, resolve_device
 from heybuddy_tpu_torch.models.wakeword import WakeWordInferenceMixin
@@ -28,6 +31,7 @@ class WakeWordONNXModel(WakeWordInferenceMixin):
         self._session = None
         self._runner = None
         self._batch_ok: Optional[bool] = None  # None: not yet checked on a batched call
+        self._device_fn: Any = None  # the graph on self.device, built by the first device_scores
         try:
             import onnxruntime  # type: ignore[import-not-found]
 
@@ -69,3 +73,12 @@ class WakeWordONNXModel(WakeWordInferenceMixin):
     def scores(self, features: np.ndarray) -> np.ndarray:
         """(n, 16, 96) features -> (n,) probabilities (the graph is numpy in, numpy out)."""
         return np.asarray(self(features), dtype=np.float32).reshape(-1)
+
+    @torch.no_grad()
+    def device_scores(self, features: torch.Tensor) -> torch.Tensor:
+        """(n, 16, 96) features on ``self.device`` -> (n,) probabilities there."""
+        if self._device_fn is None:
+            from heybuddy_tpu_torch.export.onnx_to_torch import OnnxTorchFunction
+
+            self._device_fn = OnnxTorchFunction.from_file(self.path, self.device)
+        return self._device_fn(self._device_fn.params, features.float()).reshape(-1)

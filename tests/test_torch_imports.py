@@ -81,6 +81,9 @@ PARALLEL_MODULES = (
     "heybuddy_tpu_torch.parallel.dryrun",
 )
 
+# the quality harness (scripts/quality_eval.py's counterpart)
+QUALITY_MODULES = ("heybuddy_tpu_torch.tools.quality_eval",)
+
 
 def test_port_imports_no_jax_and_no_jax_package():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -98,3 +101,4 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert set(PRETRAIN_MODULES) <= walked, sorted(set(PRETRAIN_MODULES) - walked)
     assert set(ONNX_VITS_MODULES) <= walked, sorted(set(ONNX_VITS_MODULES) - walked)
     assert set(PARALLEL_MODULES) <= walked, sorted(set(PARALLEL_MODULES) - walked)
+    assert set(QUALITY_MODULES) <= walked, sorted(set(QUALITY_MODULES) - walked)

@@ -12,7 +12,10 @@ device-resident path with evaluation) against JAX's
 and JAX's mesh; one float32 pretrain step at 2 ranks (b = 4, 9 texts, JAX's
 draws injected) against one rank, with the unscaled W-times gradient as the
 control that must fail, and the bf16 step against JAX's mesh step; a DCP save
-and resume at 2 ranks.
+and resume at 2 ranks; ``train --mesh`` at 2 ranks on an unseeded
+``--training-dataset``: the ranks' index streams equal each other and the
+one-rank run's given rank 0's seed, and on the threaded host path every rank
+trains on rank 0's batches.
 """
 
 import os
@@ -31,6 +34,7 @@ from heybuddy_tpu.parallel import mesh as jax_mesh
 from heybuddy_tpu.training import embedding_pretrain as jax_pretrain
 from heybuddy_tpu.training import trainer as jax_trainer
 from heybuddy_tpu_torch.cli import main as cli_main
+from heybuddy_tpu_torch.data.space import active_space, write_space_sidecar
 from heybuddy_tpu_torch.models.featurizer import SpeechEmbeddings
 from heybuddy_tpu_torch.parallel import mesh
 from heybuddy_tpu_torch.training import trainer
@@ -98,6 +102,15 @@ def _write_inputs(workdir):
         with open(os.path.join(workdir, "wavs", f"clip{i}.txt"), "w") as f:
             f.write(f"hello world {i}")
 
+    streams_dir = os.path.join(workdir, "streams-data")
+    os.makedirs(streams_dir)
+    space = active_space(device="cpu")
+    for name, n, sign in (("hey-buddy", 40, 1.0), ("hey-buddy-adversarial", 40, -1.0),
+                          ("custom-negatives", ranks.STREAM_CUSTOM_ROWS, -0.5)):
+        path = os.path.join(streams_dir, f"{name}.npy")
+        np.save(path, (rng.normal(0.0, 1.0, (n, 16, 96)) + sign * PATTERN).astype(np.float32))
+        write_space_sidecar(path, space)
+
     ref = jax_pretrain.EmbeddingPretrainer(texts=[f"text {i}" for i in range(N_TEXTS)], speakers_per_text=2,
                                            batch_size=B, seed=0, mesh=jax_mesh.get_mesh(data=2))
     jax_net.save_params(ref.params, os.path.join(workdir, "pretrain-init.npz"))
@@ -120,7 +133,7 @@ def run(tmp_path_factory):
     """The inputs, the ranks' outputs (rank 0's) and the references computed here."""
     workdir = str(tmp_path_factory.mktemp("mesh"))
     inputs = _write_inputs(workdir)
-    launches = [ranks.Ranks(workdir, 3, "trainer"), ranks.Ranks(workdir, 2, "featurize,extract,dcp,pretrain")]
+    launches = [ranks.Ranks(workdir, 3, "trainer"), ranks.Ranks(workdir, 2, "featurize,extract,dcp,pretrain,streams")]
     refs = {"inputs": inputs, "workdir": workdir}
     # the port at one rank, while the ranks run
     threads = torch.get_num_threads()
@@ -138,9 +151,12 @@ def run(tmp_path_factory):
     refs["extract_dir"] = one_rank_dir
     outputs = [launch.wait(RANKS_TIMEOUT) for launch in launches]
     refs["outputs"] = outputs
-    for scenario in ("trainer", "featurize", "extract", "dcp", "pretrain"):
+    for scenario in ("trainer", "featurize", "extract", "dcp", "pretrain", "streams"):
         refs[scenario + "_ranks"] = [dict(np.load(os.path.join(workdir, f"{scenario}-{r}.npz")))
                                      for r in range(3 if scenario == "trainer" else 2)]
+    # the one-rank run given the seed rank 0 drew (none where each rank drew its own)
+    seeds = refs["streams_ranks"][0]["resident/seed"]
+    refs["streams"] = ranks.index_streams(workdir, seed=int(seeds[0])) if seeds.size else None
     return refs
 
 
@@ -331,3 +347,36 @@ def test_orbax_backend_raises_and_names_dcp(tmp_path):
         trainer.WakeWordTrainer(checkpoint_dir=str(tmp_path), device="cpu", checkpoint_backend="orbax")
     with pytest.raises(ValueError, match="checkpoint_backend"):
         trainer.WakeWordTrainer(checkpoint_dir=str(tmp_path), device="cpu", checkpoint_backend="zarr")
+
+
+def test_train_mesh_draws_one_index_stream(run):
+    """``train --mesh`` at 2 ranks on an unseeded ``--training-dataset`` (300
+    rows, 1000 a step: it wraps and reshuffles within every step) through the
+    device-resident path: rank 0 draws one seed, every rank serves the same
+    index vector for all 24 steps, the same as the one-rank run given that
+    seed, and ends within the trainer's rules of it."""
+    r0, r1 = run["streams_ranks"]
+    indices = r0["resident/indices"]
+    assert indices.shape == (ranks.STREAM_STEPS, 8 + 8 + 1000)
+    for step in range(ranks.STREAM_STEPS):
+        np.testing.assert_array_equal(r1["resident/indices"][step], indices[step], err_msg=f"step {step}")
+    assert r0["resident/seed"].shape == (1,) and r1["resident/seed"].tolist() == r0["resident/seed"].tolist()
+    one = run["streams"]
+    np.testing.assert_array_equal(one["resident/indices"], indices)
+    custom = indices[:, 16:]
+    assert np.ptp(custom, axis=0).max() > 0  # the unseeded set's draws move from step to step
+    share, worst = _params_close(r0["resident/flat"], one["resident/flat"])
+    assert share >= PARAM_SHARE and worst <= PARAM_MAX, (share, worst)
+
+
+def test_train_mesh_threaded_host_path_serves_rank_zeros_batches(run):
+    """The threaded host path (HEYBUDDY_DEVICE_DATA=0, 2 producer threads,
+    whose batch order follows their timing): every rank trains on rank 0's
+    batches, row for row, in all 24 steps."""
+    r0, r1 = run["streams_ranks"]
+    rows, labels = r0["threaded/rows"], r0["threaded/labels"]
+    assert rows.shape == (ranks.STREAM_STEPS, 1016)
+    np.testing.assert_array_equal(r1["threaded/rows"], rows)
+    np.testing.assert_array_equal(r1["threaded/labels"], labels)
+    np.testing.assert_array_equal(labels, np.tile(np.repeat([1.0, 0.0], [8, 1008]), (ranks.STREAM_STEPS, 1)))
+    assert r0["threaded/seed"].shape == (1,) and r1["threaded/seed"].tolist() == r0["threaded/seed"].tolist()

@@ -12,12 +12,13 @@ imports its helpers to run the same code at one rank.
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import os
 import subprocess
 import sys
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -172,6 +173,106 @@ def pretrain(workdir: str, mesh=None) -> Dict[str, np.ndarray]:
     return out
 
 
+STREAM_STEPS = 24
+STREAM_CUSTOM_ROWS = 300  # the unseeded --training-dataset, 1000 rows a step: it wraps and reshuffles
+
+
+def stream_args(workdir: str, ckpt: str, threads: int) -> List[str]:
+    """``train`` on the seeded caches of WORKDIR/streams-data and an unseeded
+    ``--training-dataset`` (no hosted set, no evaluation), STREAM_STEPS steps."""
+    return ["train", "hey buddy", "--device", "cpu", "--positive-samples", "40", "--adversarial-samples", "40",
+            "--validation-samples", "0", "--testing-positive-samples", "0", "--testing-adversarial-samples", "0",
+            "--steps", str(STREAM_STEPS), "--stages", "1", "--validation-steps", "1000",
+            "--checkpoint-steps", "1000", "--positive-batch-size", "8", "--adversarial-batch-size", "8",
+            "--training-no-default-dataset", "--num-batch-threads", str(threads),
+            "--training-dataset", os.path.join(workdir, "streams-data", "custom-negatives.npy"),
+            "--checkpoint-dir", ckpt]
+
+
+@contextlib.contextmanager
+def recorded_streams(record: Dict[str, list]) -> Iterator[None]:
+    """Record what every step serves: the resident plan's index vector (the
+    sources' indices, concatenated) and each host batch's per-row sums and
+    labels; and the seed rank 0 broadcast."""
+    from heybuddy_tpu_torch.data import training
+    from heybuddy_tpu_torch.parallel import mesh
+    from heybuddy_tpu_torch.training.trainer import WakeWordTrainer
+
+    sample, to_device = training.DeviceBatchPlan.sample, WakeWordTrainer._to_device
+    broadcast_seed = getattr(mesh, "broadcast_seed", None)  # absent where the ranks drew their own
+
+    def recorded_sample(plan):
+        idx = sample(plan)
+        record["indices"].append(np.concatenate(idx))
+        return idx
+
+    def recorded_to_device(self, x, y):
+        record["rows"].append(np.asarray(x, np.float64).sum(axis=(1, 2)))
+        record["labels"].append(np.asarray(y).copy())
+        return to_device(self, x, y)
+
+    def recorded_seed(mesh):
+        record["seed"].append(broadcast_seed(mesh))
+        return record["seed"][-1]
+
+    training.DeviceBatchPlan.sample = recorded_sample
+    WakeWordTrainer._to_device = recorded_to_device
+    if broadcast_seed is not None:
+        mesh.broadcast_seed = recorded_seed
+    try:
+        yield
+    finally:
+        training.DeviceBatchPlan.sample, WakeWordTrainer._to_device = sample, to_device
+        if broadcast_seed is not None:
+            mesh.broadcast_seed = broadcast_seed
+
+
+def index_streams(workdir: str, mesh=None, seed: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """``train`` through the CLI entry with ``--mesh`` (or, at one rank, with
+    ``seed`` as the sets' ``negative_seed``, as rank 0's draw is under the
+    mesh): the resident path's index vectors and final parameters; on the
+    mesh also the threaded host path's batches (HEYBUDDY_DEVICE_DATA=0, 2
+    producer threads)."""
+    from heybuddy_tpu_torch import cli
+
+    saved = {k: os.environ.get(k) for k in ("HEYBUDDY_DATASET_DIR", "HEYBUDDY_DEVICE_DATA")}
+    os.environ["HEYBUDDY_DATASET_DIR"] = os.path.join(workdir, "streams-data")
+    tag = "mesh" if mesh is not None else "one"
+    out: Dict[str, np.ndarray] = {}
+    try:
+        for label, threads in (("resident", 1), ("threaded", 2)):
+            if label == "threaded":
+                if mesh is None:
+                    break
+                os.environ["HEYBUDDY_DEVICE_DATA"] = "0"
+            ckpt = os.path.join(workdir, f"streams-ckpt-{tag}-{label}")
+            record: Dict[str, list] = {"indices": [], "rows": [], "labels": [], "seed": []}
+            args = stream_args(workdir, ckpt, threads)
+            train_data = cli._train_data
+            if mesh is None:
+                cli._train_data = lambda *a, **k: train_data(*a, **{**k, "negative_seed": seed})
+            try:
+                with recorded_streams(record):
+                    assert cli.main(args + (["--mesh"] if mesh is not None else [])) == 0
+            finally:
+                cli._train_data = train_data
+            for key in ("indices", "rows", "labels"):
+                if record[key]:
+                    out[f"{label}/{key}"] = np.stack(record[key])
+            out[f"{label}/seed"] = np.array(record["seed"], np.int64)
+            if mesh is None or mesh.rank == 0:
+                with np.load(os.path.join(ckpt, "hey-buddy_final.npz")) as final:
+                    out[f"{label}/flat"] = np.concatenate(
+                        [final[k].astype(np.float32).reshape(-1) for k in sorted(final.files) if k != "__config__"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
 def main(argv: Sequence[str]) -> None:
     from heybuddy_tpu_torch.parallel.mesh import distributed_init, get_mesh
 
@@ -194,6 +295,8 @@ def main(argv: Sequence[str]) -> None:
             out = dcp_round_trip(workdir, mesh)
         elif scenario == "pretrain":
             out = pretrain(workdir, mesh)
+        elif scenario == "streams":
+            out = index_streams(workdir, mesh)
         else:
             raise ValueError(f"unknown scenario {scenario!r}")
         np.savez(os.path.join(workdir, f"{scenario}-{rank}.npz"), **out)
