@@ -74,7 +74,12 @@ rank's K1 / K2 / K3 launches, steps/s at one and two ranks and the ms of an
 1024-window segment and once a held-out set), the first 1024 windows of a
 stream scored on the card against the CPU, the JSON's key set against the
 JAX report's; (b) a ``--quick`` training run (the loss falls, a mining round
-harvests and retrains). It checks what each path returns, times kernels and
+harvests and retrains); last the tools, each through its ``main(argv)``:
+the mel precision probe (accuracy of K3, K3-bf16, K1 / K1-bf16 -> K2 on 16
+realistic clips against the plain path on the card, timing at batch 2048),
+the stream false-positive diagnosis of a 1-minute stream card vs CPU, the
+embedding separation probe clean and ``--augment`` (card vs CPU), a 300-step
+neural-G2P training, and the API walkthrough at a toy size. It checks what each path returns, times kernels and
 plain versions with CUDA events, prints one JSON line of kernel numbers and
 ends with one JSON line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero; it also fails without a CUDA device.
@@ -2731,6 +2736,220 @@ class QualityLog(logging.Handler):
             self.mining.append(msg)
 
 
+# The tools phase: the port's counterparts of the JAX package's scripts and
+# example, each through its main(argv) on the card, at cut sizes:
+# (a) tools/mel_precision_probe: accuracy on its 16 realistic clips, timing at
+#     batch 2048 in TOOLS_MEL_PASSES passes of TOOLS_MEL_ITERS calls (the
+#     script's defaults are 6 of 10); the records' arrays on the card held
+#     against the same arrays by the plain path on the card, K3 by the split's
+#     limit, its bf16 DFT by BF16_DFT_ATOL, the features by K2's rule;
+# (b) tools/diagnose_stream_fps on a 1-minute stream (seed 31; the script's
+#     default is 15 minutes) with CHECKPOINT: one K1 / K2 a 1024-window
+#     segment, scores card vs CPU within SCORE_ATOL, hits equal at a threshold
+#     SCORE_ATOL clear of every score;
+# (c) tools/embedding_separation_probe on the bundled embedding, clean and
+#     --augment, TOOLS_SWAPS swap texts x 2 renders and TOOLS_PHRASE_RENDERS of
+#     the phrase (the script's: 24 x 4 and 48); the clean cosines card vs CPU
+#     within TOOLS_COSINE_ATOL;
+# (d) tools/train_neural_g2p at TOOLS_G2P_STEPS steps (the script's 6000): the
+#     loss falls, the saved npz decodes alike through the torch and numpy forwards
+#     (tools/g2p_accuracy runs Python only and is held to its script by the CPU tests);
+# (e) the walkthrough examples/train_wake_word at a toy size: it trains, the
+#     .onnx by the numpy runner within ONNX_ATOL of the head on the card.
+TOOLS_MEL_ITERS, TOOLS_MEL_PASSES = 3, 2
+TOOLS_STREAM_MINUTES, TOOLS_STREAM_SEED = 1.0, 31
+TOOLS_SWAPS, TOOLS_PHRASE_RENDERS = 12, 12
+TOOLS_COSINE_ATOL = 5e-3  # the probe's cosines, card vs CPU (the same clips; K1 -> K2 vs the plain path)
+TOOLS_G2P_STEPS = 300
+TOOLS_WALKTHROUGH = ["--positive-samples", "16", "--adversarial-samples", "16", "--validation-samples", "8",
+                     "--steps", "20"]
+
+
+def run_tool(main_fn: Callable, argv: List[str]) -> List[str]:
+    """A tool's ``main(argv)``: its rc checked, its printed lines returned."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    check(rc == 0, f"{main_fn.__module__} {' '.join(argv)} exited {rc}")
+    return out.getvalue().splitlines()
+
+
+def separation_line(line: str) -> Dict[str, float]:
+    """The probe's printed cosines."""
+    m = re.search(r"phrase<->phrase (\S+), phrase<->swap mean (\S+) / nearest (\S+), margin (\S+)$", line)
+    check(m is not None, f"separation probe line {line!r}")
+    return dict(zip(("phrase_phrase", "mean", "nearest", "margin"), map(float, m.groups())))
+
+
+def tools_phase(dev: torch.device, tmp: str) -> Dict:
+    from heybuddy_tpu_torch.examples import train_wake_word
+    from heybuddy_tpu_torch.text.neural_g2p import NeuralG2P
+    from heybuddy_tpu_torch.tools import diagnose_stream_fps as dsf
+    from heybuddy_tpu_torch.tools import embedding_separation_probe as esp
+    from heybuddy_tpu_torch.tools import train_neural_g2p
+    from heybuddy_tpu_torch.tools import mel_precision_probe as mpp
+
+    paths: Dict[str, Dict[str, int]] = {}
+    summary: Dict[str, object] = {}
+    cpu = torch.device("cpu")
+    # ---- (a) the mel precision probe ------------------------------------------------------------
+    argv = ["--batch", str(BATCH), "--iters", str(TOOLS_MEL_ITERS), "--passes", str(TOOLS_MEL_PASSES),
+            "--device", dev.type]
+    t0 = time.perf_counter()
+    lines, paths["tools_mel_probe"] = run_path("tools_mel_probe", lambda: run_tool(mpp.main, argv), (
+        "mel_spectrogram", "mel_spectrogram_bf16", "mel_patches", "mel_patches_bf16", "embedding_pool"))
+    mel_s = time.perf_counter() - t0
+    records = {r["probe"]: r for r in map(json.loads, filter(lambda x: x.startswith('{"probe"'), lines))}
+    calls = TOOLS_MEL_ITERS * TOOLS_MEL_PASSES
+    # accuracy: K3 for pallas_f32 and under banded_f32, K1 and K1-bf16 -> K2 once each; timing: the
+    # first patches, one warm-up call of each variant, then each variant's calls (K1 in two, K1-bf16
+    # in two, K2 in three variants)
+    expect = {"mel_spectrogram": 2, "mel_spectrogram_bf16": 1, "mel_patches": 1 + 1 + 2 + 2 * calls,
+              "mel_patches_bf16": 1 + 2 + 2 * calls, "embedding_pool": 2 + 3 + 3 * calls}
+    print(f"tools (a) mel_precision_probe: {lines[0]}; launches {paths['tools_mel_probe']} (expected {expect}); "
+          f"{mel_s:.1f} s")
+    for line in lines[1:]:
+        if line.startswith("{"):
+            print(f"  {line}")
+    check(paths["tools_mel_probe"] == expect, f"tools (a) launches {paths['tools_mel_probe']}, expected {expect}")
+    check(sorted(records) == sorted(list(mpp.ACCURACY_KERNELS) + list(mpp.TIMING_KERNELS)),
+          f"tools (a) records {sorted(records)}")
+    check(records["pallas_bf16"]["max_abs_err"] > records["pallas_f32"]["max_abs_err"],
+          "tools (a): the bf16 DFT does not read farther from float64 than the float32 one")
+    # the records' arrays, card against the plain path on the card
+    clips = torch.from_numpy(mpp.realistic_clips(16)).to(dev)
+    ref = mpp.f64_logmel(clips.cpu().numpy())
+    got, plain = mpp.mel_arrays(clips), mpp.mel_arrays(clips, plain=True)
+    mel_errs = {"pallas_f32": check_split("tools (a) K3", got["pallas_f32"], plain["pallas_f32"]),
+                "pallas_bf16": check_mel("tools (a) K3-bf16", got["pallas_bf16"], plain["pallas_bf16"],
+                                         BF16_DFT_ATOL, 0.0)}
+    plain_records = {k: float(np.abs(v.cpu().numpy().astype(np.float64) - ref).max()) for k, v in plain.items()}
+    net = mpp._net(dev)
+    feats, feats_plain = mpp.feature_arrays(net, clips), mpp.feature_arrays(net, clips, plain=True)
+    starts = embedding_window_starts(CLIP)
+    feature_errs = {}
+    for key, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        p64, n64 = mk.mel_patches_plain(clips, dft_dtype=dtype, accumulate=torch.float64)
+        ref64 = ek.fused_embedding_plain(net, p64, starts, n64, accumulate=torch.float64)
+        feature_errs[key] = check_bf16(f"tools (a) K1{'-bf16' if key == 'bf16' else ''} -> K2", feats[key],
+                                       feats_plain[key], ref64)[0]
+    check_path("tools (a) K3 -> banded f32", feats["banded_f32"], feats_plain["banded_f32"], BF16_ATOL)
+    print(f"tools (a) records card / plain path on the card (max |d| from float64): "
+          + ", ".join(f"{k} {records[k]['max_abs_err']:.3e} / {plain_records[k]:.3e}" for k in plain_records)
+          + f"; arrays card vs plain K3 {mel_errs['pallas_f32']:.3e} (limit {SPLIT_ATOL}), K3-bf16 "
+          f"{mel_errs['pallas_bf16']:.3e} (limit {BF16_DFT_ATOL})")
+    summary["mel_probe"] = {"records": records, "plain_records": plain_records, "array_errs": mel_errs,
+                            "feature_errs": feature_errs, "seconds": mel_s}
+    del clips, got, plain, feats, feats_plain
+
+    # ---- (b) the stream false-positive diagnosis ----------------------------------------------
+    phrase = "hey buddy"
+    stream, _ = dsf.stream_and_schedule(TOOLS_STREAM_MINUTES, TOOLS_STREAM_SEED, phrase, dev)
+    n_windows = stream_window_count(stream)
+    segments = -(-n_windows // STREAM_SEGMENT_WINDOWS)
+    card = qe.sliding_scores(load_model(CHECKPOINT, device=dev), stream, device=dev, emb=SpeechEmbeddings(device=dev))
+    host = qe.sliding_scores(load_model(CHECKPOINT, device=cpu), stream, device=cpu, emb=SpeechEmbeddings(device=cpu))
+    err = float(np.abs(card - host).max())
+    both = np.concatenate([card, host])
+    grid = np.round(np.arange(0.05, 0.96, 0.01), 2)
+    clear = [float(t) for t in grid if np.abs(both - t).min() > SCORE_ATOL]
+    threshold = next((t for t in clear if (card >= t).any()), clear[0] if clear else 0.5)
+    argv = ["--checkpoint", CHECKPOINT, "--minutes", f"{TOOLS_STREAM_MINUTES:g}", "--seed", str(TOOLS_STREAM_SEED),
+            "--threshold", str(threshold)]
+    t0 = time.perf_counter()
+    lines, paths["tools_diagnose"] = run_path("tools_diagnose", lambda: run_tool(
+        dsf.main, argv + ["--out", os.path.join(tmp, "fps-card.json"), "--device", dev.type]),
+        ("mel_patches", "embedding_pool"))
+    diagnose_s = time.perf_counter() - t0
+    run_tool(dsf.main, argv + ["--out", os.path.join(tmp, "fps-cpu.json"), "--device", "cpu"])
+    fps = {k: json.load(open(os.path.join(tmp, f"fps-{k}.json"))) for k in ("card", "cpu")}
+    hits_equal = ([(h["t"], h["phrases"]) for h in fps["card"]["hits"]]
+                  == [(h["t"], h["phrases"]) for h in fps["cpu"]["hits"]]
+                  and fps["card"]["by_phrase"] == fps["cpu"]["by_phrase"])
+    print(f"tools (b) diagnose_stream_fps: {TOOLS_STREAM_MINUTES:g} min, {n_windows} windows in {segments} "
+          f"segments; launches {paths['tools_diagnose']}; scores card vs CPU max |d| {err:.3e} (limit "
+          f"{SCORE_ATOL}), max score {card.max():.4f}; at {threshold} ({len(clear)} clear thresholds) "
+          f"{len(fps['card']['hits'])} hits, equal to the CPU's: {hits_equal}; {diagnose_s:.1f} s; "
+          f"report: {' | '.join(l.strip() for l in lines if l.strip())}")
+    check(paths["tools_diagnose"] == {"mel_patches": segments, "embedding_pool": segments},
+          f"tools (b) launches {paths['tools_diagnose']}, expected {segments} of K1 and K2")
+    check(err <= SCORE_ATOL and len(clear) > 0 and hits_equal, "tools (b): card and CPU disagree")
+    summary["diagnose"] = {"windows": n_windows, "card_vs_cpu": err, "threshold": threshold,
+                           "hits": len(fps["card"]["hits"]), "seconds": diagnose_s}
+
+    # ---- (c) the embedding separation probe, clean and augmented ----------------------------------
+    argv = ["--swaps", str(TOOLS_SWAPS), "--per-text", "2", "--phrase-renders", str(TOOLS_PHRASE_RENDERS)]
+    t0 = time.perf_counter()
+    clean, paths["tools_separation"] = run_path("tools_separation", lambda: run_tool(
+        esp.main, argv + ["--device", dev.type]), ("mel_patches", "embedding_pool"))
+    augmented, launches = run_path("tools_separation_augment", lambda: run_tool(
+        esp.main, argv + ["--augment", "--device", dev.type]), ("mel_patches", "embedding_pool"))
+    separation_s = time.perf_counter() - t0
+    host_line = run_tool(esp.main, argv + ["--device", "cpu"])
+    got, want, aug = (separation_line(x[-1]) for x in (clean, host_line, augmented))
+    gap = max(abs(got[k] - want[k]) for k in got)
+    print(f"tools (c) embedding_separation_probe ({TOOLS_SWAPS} swaps x 2, {TOOLS_PHRASE_RENDERS} phrase "
+          f"renders): card {clean[-1]!r}; CPU {host_line[-1]!r}; max |d| {gap:.3e} (limit {TOOLS_COSINE_ATOL}); "
+          f"--augment {augmented[-1]!r}; launches {paths['tools_separation']} / {launches}; {separation_s:.1f} s")
+    check(paths["tools_separation"] == launches == {"mel_patches": 2, "embedding_pool": 2},
+          f"tools (c) launches {paths['tools_separation']} / {launches}: one K1 and one K2 a pool")
+    check(gap <= TOOLS_COSINE_ATOL, "tools (c): the card's cosines disagree with the CPU's")
+    check(all(-1.0 <= aug[k] <= 1.0 for k in ("phrase_phrase", "mean", "nearest")), f"tools (c) augmented {aug}")
+    summary["separation"] = {"card": got, "cpu": want, "augmented": aug, "seconds": separation_s}
+
+    # ---- (d) the neural G2P's training ---------------------------------------------------------
+    out = os.path.join(tmp, "g2p-neural.npz")
+    log = PretrainLog()
+    logger.addHandler(log)
+    try:
+        t0 = time.perf_counter()
+        run_tool(train_neural_g2p.main, ["--steps", str(TOOLS_G2P_STEPS), "-o", out, "--json",
+                                         os.path.join(tmp, "g2p-metrics.json"), "--device", dev.type])
+        g2p_s = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(log)
+    metrics = json.load(open(os.path.join(tmp, "g2p-metrics.json")))
+    model, params = NeuralG2P.load(out)
+    _, heldout, _ = train_neural_g2p.training_table()
+    words = sorted(heldout)
+    decoded_equal = model.to(dev).decode(params, words) == model.decode(params, words, numpy=True)
+    print(f"tools (d) train_neural_g2p {TOOLS_G2P_STEPS} steps in {g2p_s:.2f} s, logged losses {log.g2p}, "
+          f"held-out {metrics['heldout_golden']}; the saved npz decodes the held-out words alike on the card and "
+          f"in numpy: {decoded_equal}")
+    check(len(log.g2p) >= 2 and log.g2p[-1][1] < log.g2p[0][1], f"tools (d): the G2P loss did not fall: {log.g2p}")
+    check(decoded_equal, "tools (d): the saved G2P decodes differently on the card and in numpy")
+    summary["g2p"] = {"neural_seconds": g2p_s, "losses": log.g2p, "heldout": metrics["heldout_golden"]}
+
+    # ---- (e) the API walkthrough at a toy size --------------------------------------------------
+    wav = os.path.join(tmp, "walkthrough.wav")
+    t_axis = np.arange(3 * 16000) / 16000.0
+    write_wav(wav, (0.3 * np.sin(2 * np.pi * (220.0 + 180.0 * t_axis) * t_axis)).astype(np.float32))
+    ckpt = os.path.join(tmp, "walkthrough-ckpt")
+    t0 = time.perf_counter()
+    lines, paths["tools_walkthrough"] = run_path("tools_walkthrough", lambda: run_tool(
+        train_wake_word.main, TOOLS_WALKTHROUGH + ["--checkpoint-dir", ckpt, "--dataset-dir",
+                                                   os.path.join(tmp, "walkthrough-data"), "--audio", wav,
+                                                   "--device", dev.type]), ("mel_patches", "embedding_pool"))
+    walkthrough_s = time.perf_counter() - t0
+    onnx_path = os.path.join(ckpt, "hey-computer_final.onnx")
+    head = load_model(os.path.join(ckpt, "hey-computer_final.npz"), device=dev)
+    x = np.random.default_rng(SEED + 3).normal(0.0, 1.0, (64, 16, 96)).astype(np.float32)
+    runner = OnnxRunner.from_file(onnx_path)(input=x)["output"].reshape(-1)
+    with torch.no_grad():
+        card_scores = head(torch.from_numpy(x).to(dev)).cpu().numpy().reshape(-1)
+    onnx_err = float(np.abs(runner - card_scores).max())
+    print(f"tools (e) walkthrough ({' '.join(TOOLS_WALKTHROUGH)}): {lines[-2:]}; launches "
+          f"{paths['tools_walkthrough']}; .onnx by the numpy runner vs the head on the card max |d| {onnx_err:.3e} "
+          f"(limit {ONNX_ATOL}); {walkthrough_s:.1f} s")
+    k1 = paths["tools_walkthrough"]
+    check(os.path.exists(onnx_path) and onnx_err <= ONNX_ATOL, "tools (e): the walkthrough's ONNX head disagrees")
+    # one featurize call a generated cache (positives, adversarials, validation: each one embed
+    # batch at these counts) and one for the wav's timecode windows
+    check(k1 == {"mel_patches": 4, "embedding_pool": 4}, f"tools (e) launches {k1}, expected 4 of K1 and K2")
+    summary["walkthrough"] = {"onnx_err": onnx_err, "seconds": walkthrough_s, "launches": k1}
+    return {"paths": paths, "summary": summary}
+
+
 def device_busy(fn: Callable[[], object]) -> Dict[str, float]:
     """Host-clock ms of ``fn`` under ``torch.profiler`` and the ms its CUDA
     kernels ran (None when the trace holds no device events; the device
@@ -3001,6 +3220,10 @@ def main() -> int:
         quality = quality_phase(dev, tmp)
         paths.update(quality["paths"])
         elapsed("quality")
+        # ---- the tools: the probes, the stream diagnosis, the G2P tools, the walkthrough ----
+        tools = tools_phase(dev, tmp)
+        paths.update(tools["paths"])
+        elapsed("tools")
     score_err = float(np.abs(s_gpu - s_cpu).max())
     print(f"predict scores card {np.round(s_gpu, 4).tolist()} vs plain path "
           f"{np.round(s_cpu, 4).tolist()}: max |d| {score_err:.3e}")
@@ -3138,7 +3361,7 @@ def main() -> int:
                       "train": train["summary"], "generate": generate["summary"],
                       "stream": {**stream["summary"], "train": stream["train"]}, "listen": listen,
                       "pretrain": pretrain["summary"], "onnx": onnx["summary"], "vits": vits["summary"],
-                      "mesh": mesh["summary"], "quality": quality["summary"],
+                      "mesh": mesh["summary"], "quality": quality["summary"], "tools": tools["summary"],
                       "seconds": time.perf_counter() - START, **extract}))
     print(f"chip_smoke.py: {time.perf_counter() - START:.1f} s in all")
     print(json.dumps({"ok": True, "device": {

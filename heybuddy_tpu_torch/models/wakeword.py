@@ -58,6 +58,7 @@ __all__ = [
     "read_checkpoint",
     "HALF_LAYER_INDICES",
     "get_normalized_dim",
+    "find_nearest_multiple",
 ]
 
 ACTIVATIONS = {
@@ -92,10 +93,16 @@ HALF_LAYER_INDICES: List[List[int]] = [
 ]
 
 
+def find_nearest_multiple(n: int, multiple: int) -> int:
+    """``n`` rounded up to a multiple of ``multiple``."""
+    if n % multiple == 0:
+        return n
+    return n + multiple - (n % multiple)
+
+
 def get_normalized_dim(dim: int, multiple_of: int = 8, down_ratio: float = 2 / 3) -> int:
     """Hidden width: ``dim * 2/3`` rounded up to a multiple of ``multiple_of``."""
-    n = int(dim * down_ratio)
-    return n if n % multiple_of == 0 else n + multiple_of - (n % multiple_of)
+    return find_nearest_multiple(int(dim * down_ratio), multiple_of)
 
 
 class _Linear(nn.Module):
@@ -265,7 +272,24 @@ class WakeWordInferenceMixin:
         return times
 
 
-class WakeWordMLPModel(WakeWordInferenceMixin, nn.Module):
+class _WakeWordHead(WakeWordInferenceMixin, nn.Module):
+    """What both heads share beyond inference: ``save`` / ``from_file`` through
+    one checkpoint npz (the JAX package's layout)."""
+
+    def save(self, path: str) -> None:
+        save_model(self, path)
+
+    @classmethod
+    def from_file(cls, path: str, device: DeviceLike = "cuda", **kwargs: Any) -> Any:
+        """The head in the checkpoint at ``path``, on ``device``; raises
+        ``TypeError`` when the file holds the other architecture."""
+        model = load_model(path, device)
+        if not isinstance(model, cls):
+            raise TypeError(f"{path} holds a {type(model).__name__}, not a {cls.__name__}")
+        return model
+
+
+class WakeWordMLPModel(_WakeWordHead):
     """Gated-MLP wake-word classifier: (batch, 16, 96) -> (batch, 1) probability."""
 
     architecture = "perceptron"
@@ -453,7 +477,7 @@ class _FinalLayer(nn.Module):
         return self.fc(_normalize(x.transpose(1, 2), 1e-6))[:, :, 0]
 
 
-class WakeWordTransformerModel(WakeWordInferenceMixin, nn.Module):
+class WakeWordTransformerModel(_WakeWordHead):
     """Transformer wake-word classifier: (batch, 16, 96) -> (batch, 1) probability."""
 
     architecture = "transformer"

@@ -350,7 +350,7 @@ def synth_collision_stream(phrase: str, minutes: float, seed: int, device: Devic
 
 @torch.no_grad()
 def sliding_features_scores(model: Any, stream: np.ndarray, batch: int = 1024, with_features: bool = True,
-                            device: DeviceLike = "cuda") -> Tuple[Optional[np.ndarray], np.ndarray]:
+                            device: DeviceLike = "cuda", emb: Any = None) -> Tuple[Optional[np.ndarray], np.ndarray]:
     """(features, scores) for every sliding window position over the stream,
     with the runtime's window geometry (``data/streams.py``). Each segment of
     up to ``batch`` (at most ``STREAM_SEGMENT_WINDOWS``) windows is uploaded
@@ -358,12 +358,13 @@ def sliding_features_scores(model: Any, stream: np.ndarray, batch: int = 1024, w
     as ``SpeechEmbeddings.__call__`` repairs them, and scored on the device;
     the scores come to the host once. ``with_features=True`` also copies the
     (16, 96) inputs to the host, so mining can reuse the exact features the
-    classifier saw."""
+    classifier saw. ``emb`` is the featurizer (default: the shared one of
+    ``device``)."""
     from heybuddy_tpu_torch.data.streams import RUNTIME_WINDOW_STRIDE, stream_window_count
     from heybuddy_tpu_torch.models.featurizer import STREAM_SEGMENT_WINDOWS, get_speech_embeddings
 
     dev = resolve_device(device)
-    emb = get_speech_embeddings(device=dev)
+    emb = emb if emb is not None else get_speech_embeddings(device=dev)
     n = stream_window_count(stream)
     step = max(1, min(batch, STREAM_SEGMENT_WINDOWS))
     feats = np.zeros((n, 16, 96), dtype=np.float32) if with_features else None
@@ -378,9 +379,10 @@ def sliding_features_scores(model: Any, stream: np.ndarray, batch: int = 1024, w
     return feats, scores.cpu().numpy()
 
 
-def sliding_scores(model: Any, stream: np.ndarray, batch: int = 1024, device: DeviceLike = "cuda") -> np.ndarray:
+def sliding_scores(model: Any, stream: np.ndarray, batch: int = 1024, device: DeviceLike = "cuda",
+                   emb: Any = None) -> np.ndarray:
     """Classifier score for every sliding window position over the stream."""
-    return sliding_features_scores(model, stream, batch, with_features=False, device=device)[1]
+    return sliding_features_scores(model, stream, batch, with_features=False, device=device, emb=emb)[1]
 
 
 # --- statistics and thresholds ----------------------------------------------------------

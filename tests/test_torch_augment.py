@@ -1,7 +1,7 @@
 """The port's augmentation chain against the JAX package's.
 
 ``jax.random`` cannot be reproduced in torch, so each random stage takes its
-draws explicitly: ``jax_draws`` rebuilds, from a JAX key, exactly the values
+draws explicitly: ``jax_draws`` (``tests/torch_fixtures.py``) rebuilds, from a JAX key, exactly the values
 the JAX chain draws inside (its 12-way split, the ``fold_in(key, 1)``
 placement and mixing keys), and the port's apply step gets them. Every
 transform and the whole chain then stay within 1e-4 of JAX's on [-1, 1]
@@ -21,6 +21,7 @@ from heybuddy_tpu.ops import augment as jax_aug
 from heybuddy_tpu_torch.constants import CLIP_SAMPLES
 from heybuddy_tpu_torch.data import augmented
 from heybuddy_tpu_torch.ops import augment
+from torch_fixtures import jax_draws
 
 ATOL = 1e-4
 T = CLIP_SAMPLES
@@ -40,54 +41,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
-
-
-def jax_draws(key, b: int, t: int, cfg) -> dict:
-    """The draws the JAX ``augment_batch`` makes from ``key``, as the port's draw dict."""
-    keys = jax.random.split(key, 12)
-    u = jax.random.uniform
-    d = {}
-    if cfg.seven_band_prob > 0:
-        d["eq_apply"] = jax.random.bernoulli(keys[0], cfg.seven_band_prob, (b, 1))
-        d["eq_gains_db"] = u(jax.random.split(keys[1])[0], (b, 7), minval=-cfg.seven_band_gain_db,
-                             maxval=cfg.seven_band_gain_db)
-    if cfg.tanh_distortion_prob > 0:
-        d["tanh_apply"] = jax.random.bernoulli(keys[2], cfg.tanh_distortion_prob, (b, 1))
-        d["tanh_amount"] = u(keys[3], (b, 1), minval=cfg.tanh_min_distortion, maxval=cfg.tanh_max_distortion)
-    if cfg.pitch_shift_prob > 0:
-        d["pitch_apply"] = jax.random.bernoulli(keys[4], cfg.pitch_shift_prob, ())
-        d["pitch_ratio"] = 2.0 ** (u(keys[5], (), minval=-float(cfg.pitch_shift_semitones),
-                                     maxval=float(cfg.pitch_shift_semitones)) / 12.0)
-    if cfg.band_stop_prob > 0:
-        d["band_stop_apply"] = jax.random.bernoulli(keys[6], cfg.band_stop_prob, (b, 1))
-        k_center, k_width = jax.random.split(keys[7])
-        d["band_stop_center"] = 2.0 ** u(k_center, (b, 1), minval=np.log2(200.0), maxval=np.log2(4000.0))
-        d["band_stop_fraction"] = u(k_width, (b, 1), minval=0.5, maxval=1.99)
-    if cfg.colored_noise_prob > 0:
-        d["colored_apply"] = jax.random.bernoulli(keys[8], cfg.colored_noise_prob, (b, 1))
-        k_noise, k_snr, k_decay = jax.random.split(keys[9], 3)
-        d["colored_white"] = jax.random.normal(k_noise, (b, t))
-        d["colored_decay"] = u(k_decay, (b, 1), minval=cfg.colored_noise_min_f_decay,
-                               maxval=cfg.colored_noise_max_f_decay)
-        d["colored_snr_db"] = u(k_snr, (b, 1), minval=cfg.colored_noise_min_snr_db,
-                                maxval=cfg.colored_noise_max_snr_db)
-    if cfg.gain_prob > 0:
-        d["gain_apply"] = jax.random.bernoulli(keys[10], cfg.gain_prob, (b, 1))
-        d["gain_db"] = u(keys[11], (b, 1), minval=cfg.gain_min_db, maxval=cfg.gain_max_db)
-    k_pad, k_bg, k_bgp, k_rvp = jax.random.split(jax.random.fold_in(key, 1), 4)
-    if cfg.placement == "edge":
-        k_frac, k_mode = jax.random.split(k_pad)
-        d["edge_fraction"] = u(k_frac, (b,), minval=cfg.edge_min_visible, maxval=cfg.edge_max_visible)
-        d["edge_head"] = jax.random.bernoulli(k_mode, 0.5, (b,))
-    else:
-        d["pad_uniform"] = u(k_pad, (b,))
-    if cfg.background_noise_prob > 0:
-        d["background_snr_db"] = u(k_bg, (b, 1), minval=cfg.background_noise_min_snr_db,
-                                   maxval=cfg.background_noise_max_snr_db)
-        d["background_apply"] = jax.random.bernoulli(k_bgp, cfg.background_noise_prob, (b, 1))
-    if cfg.reverb_prob > 0:
-        d["reverb_apply"] = jax.random.bernoulli(k_rvp, cfg.reverb_prob, (b, 1))
-    return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
 
 
 def batch(b: int = 4, seed: int = 0):

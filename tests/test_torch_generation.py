@@ -38,22 +38,9 @@ from heybuddy_tpu_torch.data.tts_generator import SpeechSampleGenerator
 from heybuddy_tpu_torch.models import featurizer, formant_device, tts
 from heybuddy_tpu_torch.ops.augment import AugmentConfig
 
-from test_torch_augment import jax_draws
 from test_torch_formant import jax_clip_noise
+from torch_fixtures import assert_features_close, jax_draws
 
-# Features against JAX's on the same audio. The featurizer's bound on noise
-# (tests/test_torch_featurizer.py) is FEATURE_ATOL max and FEATURE_MEAN mean.
-# Centred speech is worse conditioned (quiet bins at the clip's edges): JAX's
-# own bf16 fused path sits further than that from its float32 banded
-# reference there. So the port is held to that float32 reference, at
-# FEATURE_MARGIN times JAX's own distance from it, or the featurizer's bound
-# where that is larger. Measured on the CPU, max / mean from float32, JAX's
-# then the port's: the host route's pad-only cache 0.100 / 0.0176 and
-# 0.114 / 0.0184; the fused pad-only batch 0.093 / 0.0167 and 0.105 /
-# 0.0169; the fused augmented batch 0.123 / 0.0201 and 0.127 / 0.0213. The
-# port lies 0.119, 0.105 and 0.076 (max) from JAX's features themselves.
-FEATURE_ATOL, FEATURE_MEAN = 0.05, 5e-3
-FEATURE_MARGIN = 1.25
 L_MAX = 24000
 
 
@@ -85,18 +72,6 @@ def _jax_fused(params, mono: np.ndarray) -> np.ndarray:
     """JAX's fused Pallas featurizer in interpret mode (its CPU default is the XLA banded path)."""
     with _jax_pallas_interpret():
         return np.asarray(jax_featurizer.featurize_batch(params, jnp.asarray(mono), pooling="fused"))
-
-
-def _assert_features_close(got: np.ndarray, ref: np.ndarray, mono: np.ndarray) -> None:
-    """``got`` against JAX's float32 features of int16-range ``mono``, at
-    FEATURE_MARGIN times the distance of JAX's fused features ``ref`` from them."""
-    exact = np.asarray(jax_featurizer.featurize_batch(
-        jax_net.default_params(), jnp.asarray(mono), pooling="banded", compute_dtype=jnp.float32))
-    gap = np.abs(ref - exact)
-    err = np.abs(got - exact)
-    assert got.shape == ref.shape and np.isfinite(got).all()
-    assert err.max() <= max(FEATURE_ATOL, FEATURE_MARGIN * gap.max()), (err.max(), gap.max())
-    assert err.mean() <= max(FEATURE_MEAN, FEATURE_MARGIN * gap.mean()), (err.mean(), gap.mean())
 
 
 def _jax_pallas_interpret() -> ExitStack:
@@ -217,7 +192,7 @@ def test_pad_only_cache_host_route_matches_jax(tmp_path):
         JaxSpeech("hey buddy", batch_size=port.tts_batch_size, seed=seed)(4), pad_only=True)()]
     np.testing.assert_array_equal(np.stack(port_audio), np.stack(ref_audio))
     mono = np.stack(ref_audio) * 32767.0
-    _assert_features_close(cache, _jax_fused(jax_net.default_params(), mono), mono)
+    assert_features_close(cache, _jax_fused(jax_net.default_params(), mono), mono)
 
 
 def _fused_plans():
@@ -261,7 +236,7 @@ def test_fused_pad_only_batch_matches_jax_with_jax_noise():
         plans, net, None, torch.from_numpy(bank), torch.from_numpy(irs), AugmentConfig(), pad_only=True,
         l_max=L_MAX, harmonics=48, noise=jax_clip_noise(packed["seeds"], L_MAX))
     assert n == 3 and got.shape == ref.shape == (3, 16, 96)
-    _assert_features_close(got.numpy(), ref, np.asarray(staged) * 32767.0)
+    assert_features_close(got.numpy(), ref, np.asarray(staged) * 32767.0)
 
 
 def test_fused_augmented_batch_matches_jax_with_jax_draws():
@@ -278,7 +253,7 @@ def test_fused_augmented_batch_matches_jax_with_jax_draws():
         plans, net, None, torch.from_numpy(bank), torch.from_numpy(irs), AugmentConfig(), l_max=L_MAX,
         harmonics=48, noise=jax_clip_noise(packed["seeds"], L_MAX), draws=draws)
     assert n == 3 and got.shape == ref.shape == (3, 16, 96)
-    _assert_features_close(got.numpy(), ref, np.asarray(staged) * 32767.0)
+    assert_features_close(got.numpy(), ref, np.asarray(staged) * 32767.0)
 
 
 def test_fused_route_generates_and_tops_up(tmp_path, monkeypatch):

@@ -84,6 +84,17 @@ PARALLEL_MODULES = (
 # the quality harness (scripts/quality_eval.py's counterpart)
 QUALITY_MODULES = ("heybuddy_tpu_torch.tools.quality_eval",)
 
+# the last tools (the scripts' and the example's counterparts)
+TOOLS_MODULES = (
+    "heybuddy_tpu_torch.tools.g2p_accuracy",
+    "heybuddy_tpu_torch.tools.train_neural_g2p",
+    "heybuddy_tpu_torch.tools.mel_precision_probe",
+    "heybuddy_tpu_torch.tools.diagnose_stream_fps",
+    "heybuddy_tpu_torch.tools.embedding_separation_probe",
+    "heybuddy_tpu_torch.examples",
+    "heybuddy_tpu_torch.examples.train_wake_word",
+)
+
 
 def test_port_imports_no_jax_and_no_jax_package():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -102,3 +113,4 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert set(ONNX_VITS_MODULES) <= walked, sorted(set(ONNX_VITS_MODULES) - walked)
     assert set(PARALLEL_MODULES) <= walked, sorted(set(PARALLEL_MODULES) - walked)
     assert set(QUALITY_MODULES) <= walked, sorted(set(QUALITY_MODULES) - walked)
+    assert set(TOOLS_MODULES) <= walked, sorted(set(TOOLS_MODULES) - walked)

@@ -31,7 +31,7 @@ from heybuddy_tpu_torch.models.featurizer import SpeechEmbeddings
 from heybuddy_tpu_torch.training import embedding_pretrain as pretrain
 from heybuddy_tpu_torch.utils import profiling
 
-from test_torch_augment import jax_draws
+from torch_fixtures import jax_draws
 
 T = CLIP_SAMPLES
 B = 4

@@ -89,6 +89,20 @@ def test_window_helpers_and_framing_equal_jax(t):
     assert frames.shape == (2, melspec.num_frames(t), 512)
 
 
+@pytest.mark.parametrize("cls", ["WakeWordMLPModel", "WakeWordTransformerModel"])
+def test_heads_have_the_jax_heads_persistence(cls):
+    """``save`` / ``from_file`` on both heads and ``find_nearest_multiple``,
+    the names the JAX package's heads have beside their functional API."""
+    from heybuddy_tpu.models import wakeword as jax_wakeword
+    from heybuddy_tpu_torch.models import wakeword
+
+    port, ref = getattr(wakeword, cls), getattr(jax_wakeword, cls)
+    for name in ("save", "from_file", "save_onnx", "predict", "predict_timecodes"):
+        assert callable(getattr(ref, name)) and callable(getattr(port, name)), name
+    assert "find_nearest_multiple" in wakeword.__all__
+    assert wakeword.find_nearest_multiple(17, 8) == jax_wakeword.find_nearest_multiple(17, 8) == 24
+
+
 def test_every_command_takes_debug():
     parser = build_parser()
     argv = {

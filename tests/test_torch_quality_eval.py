@@ -38,7 +38,7 @@ from heybuddy_tpu_torch.runtime.onnx_model import WakeWordONNXModel
 from heybuddy_tpu_torch.tools import quality_eval as qe
 from heybuddy_tpu_torch.utils.log import logger
 
-from test_torch_generation import _assert_features_close
+from torch_fixtures import assert_features_close
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(ROOT, "scripts", "quality_eval.py")
@@ -276,7 +276,7 @@ def test_sliding_scores_of_the_shipped_head_match_the_script(script):
     want_feats, want_scores = script.sliding_features_scores(JaxOnnxModel(HEAD), stream)
     assert feats.shape == want_feats.shape == (n, 16, 96) and scores.shape == want_scores.shape == (n,)
     clips = streams.stream_window_clips(stream)
-    _assert_features_close(feats, want_feats, clips * 32767.0)
+    assert_features_close(feats, want_feats, clips * 32767.0)
     # the scores against the head on JAX's float32 features: the phrase's
     # onset window sits on the sigmoid's slope, where JAX's own bf16 path
     # lies 0.069 off (0.014 measured for the port)

@@ -24,7 +24,7 @@ from heybuddy_tpu_torch.ops.kernels import melspec_kernel as mk
 from heybuddy_tpu_torch.ops.kernels.featurize_kernel import fused_featurize
 from heybuddy_tpu_torch.ops.windows import embedding_window_starts
 
-from test_torch_generation import _assert_features_close
+from torch_fixtures import assert_features_close
 
 MINUTES = 0.1
 # windows a stream segment holds in the cache tests: 6 rows come in two
@@ -134,7 +134,7 @@ def test_stream_window_features_match_jax(kind, tmp_path, monkeypatch):
         seconds = (SEGMENT * RUNTIME_WINDOW_STRIDE + CLIP_SAMPLES) / 16000.0
         stream = _jax_stream(kind, seconds / 60.0, 4 + 7919 * offset, tts_backend="formant")
         clips.append(jax_streams.stream_window_clips(stream)[:SEGMENT])
-    _assert_features_close(got, want, np.concatenate(clips) * 32767.0)
+    assert_features_close(got, want, np.concatenate(clips) * 32767.0)
 
 
 def test_featurize_stream_device_equals_the_materialised_windows():

@@ -8,6 +8,11 @@ checking the importer where no third-party file is at hand: ``node`` /
 strided conv front end; two stacked ``LSTM`` nodes; a sigmoid head) with
 seeded ``torch.nn`` weights, run through ``SileroOnnxVAD``. And
 ``perturbed_vits``, a VITS parameter tree with every flow non-trivial.
+
+For the tests that hold the port to the JAX package: ``jax_draws``, the
+augmentation draws JAX makes from a key, and ``assert_features_close``, the
+rule for features against JAX's float32 features of the same audio. They
+import JAX inside, so that ``chip_smoke.py`` imports this module without it.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ from heybuddy_tpu_torch.export.onnx_proto import (
     serialize_model,
 )
 
-__all__ = ["node", "write_graph", "lstm_to_onnx_weights", "silero_v4_graph", "perturbed_vits"]
+__all__ = ["node", "write_graph", "lstm_to_onnx_weights", "silero_v4_graph", "perturbed_vits", "jax_draws",
+           "FEATURE_ATOL", "FEATURE_MEAN", "FEATURE_MARGIN", "assert_features_close"]
 
 
 def _attr(name: str, value: Any) -> OnnxAttribute:
@@ -160,3 +166,84 @@ def perturbed_vits(tree: Dict[str, Any], seed: int = 7) -> Dict[str, Any]:
         if flows:
             flows[0]["affine"] = {"m": normal(0.1, (2, 1)), "logs": normal(0.1, (2, 1))}
     return tree
+
+
+def jax_draws(key, b: int, t: int, cfg) -> dict:
+    """The draws the JAX ``augment_batch`` makes from ``key``, as the port's draw dict."""
+    import jax
+
+    keys = jax.random.split(key, 12)
+    u = jax.random.uniform
+    d = {}
+    if cfg.seven_band_prob > 0:
+        d["eq_apply"] = jax.random.bernoulli(keys[0], cfg.seven_band_prob, (b, 1))
+        d["eq_gains_db"] = u(jax.random.split(keys[1])[0], (b, 7), minval=-cfg.seven_band_gain_db,
+                             maxval=cfg.seven_band_gain_db)
+    if cfg.tanh_distortion_prob > 0:
+        d["tanh_apply"] = jax.random.bernoulli(keys[2], cfg.tanh_distortion_prob, (b, 1))
+        d["tanh_amount"] = u(keys[3], (b, 1), minval=cfg.tanh_min_distortion, maxval=cfg.tanh_max_distortion)
+    if cfg.pitch_shift_prob > 0:
+        d["pitch_apply"] = jax.random.bernoulli(keys[4], cfg.pitch_shift_prob, ())
+        d["pitch_ratio"] = 2.0 ** (u(keys[5], (), minval=-float(cfg.pitch_shift_semitones),
+                                     maxval=float(cfg.pitch_shift_semitones)) / 12.0)
+    if cfg.band_stop_prob > 0:
+        d["band_stop_apply"] = jax.random.bernoulli(keys[6], cfg.band_stop_prob, (b, 1))
+        k_center, k_width = jax.random.split(keys[7])
+        d["band_stop_center"] = 2.0 ** u(k_center, (b, 1), minval=np.log2(200.0), maxval=np.log2(4000.0))
+        d["band_stop_fraction"] = u(k_width, (b, 1), minval=0.5, maxval=1.99)
+    if cfg.colored_noise_prob > 0:
+        d["colored_apply"] = jax.random.bernoulli(keys[8], cfg.colored_noise_prob, (b, 1))
+        k_noise, k_snr, k_decay = jax.random.split(keys[9], 3)
+        d["colored_white"] = jax.random.normal(k_noise, (b, t))
+        d["colored_decay"] = u(k_decay, (b, 1), minval=cfg.colored_noise_min_f_decay,
+                               maxval=cfg.colored_noise_max_f_decay)
+        d["colored_snr_db"] = u(k_snr, (b, 1), minval=cfg.colored_noise_min_snr_db,
+                                maxval=cfg.colored_noise_max_snr_db)
+    if cfg.gain_prob > 0:
+        d["gain_apply"] = jax.random.bernoulli(keys[10], cfg.gain_prob, (b, 1))
+        d["gain_db"] = u(keys[11], (b, 1), minval=cfg.gain_min_db, maxval=cfg.gain_max_db)
+    k_pad, k_bg, k_bgp, k_rvp = jax.random.split(jax.random.fold_in(key, 1), 4)
+    if cfg.placement == "edge":
+        k_frac, k_mode = jax.random.split(k_pad)
+        d["edge_fraction"] = u(k_frac, (b,), minval=cfg.edge_min_visible, maxval=cfg.edge_max_visible)
+        d["edge_head"] = jax.random.bernoulli(k_mode, 0.5, (b,))
+    else:
+        d["pad_uniform"] = u(k_pad, (b,))
+    if cfg.background_noise_prob > 0:
+        d["background_snr_db"] = u(k_bg, (b, 1), minval=cfg.background_noise_min_snr_db,
+                                   maxval=cfg.background_noise_max_snr_db)
+        d["background_apply"] = jax.random.bernoulli(k_bgp, cfg.background_noise_prob, (b, 1))
+    if cfg.reverb_prob > 0:
+        d["reverb_apply"] = jax.random.bernoulli(k_rvp, cfg.reverb_prob, (b, 1))
+    return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+
+
+# Features against JAX's on the same audio. The featurizer's bound on noise
+# (tests/test_torch_featurizer.py) is FEATURE_ATOL max and FEATURE_MEAN mean.
+# Centred speech is worse conditioned (quiet bins at the clip's edges): JAX's
+# own bf16 fused path sits further than that from its float32 banded
+# reference there. So the port is held to that float32 reference, at
+# FEATURE_MARGIN times JAX's own distance from it, or the featurizer's bound
+# where that is larger. Measured on the CPU, max / mean from float32, JAX's
+# then the port's: the host route's pad-only cache 0.100 / 0.0176 and
+# 0.114 / 0.0184; the fused pad-only batch 0.093 / 0.0167 and 0.105 /
+# 0.0169; the fused augmented batch 0.123 / 0.0201 and 0.127 / 0.0213. The
+# port lies 0.119, 0.105 and 0.076 (max) from JAX's features themselves.
+FEATURE_ATOL, FEATURE_MEAN = 0.05, 5e-3
+FEATURE_MARGIN = 1.25
+
+
+def assert_features_close(got: np.ndarray, ref: np.ndarray, mono: np.ndarray) -> None:
+    """``got`` against JAX's float32 features of int16-range ``mono``, at
+    FEATURE_MARGIN times the distance of JAX's fused features ``ref`` from them."""
+    import jax.numpy as jnp
+    from heybuddy_tpu.models import embedding_net as jax_net
+    from heybuddy_tpu.models import featurizer as jax_featurizer
+
+    exact = np.asarray(jax_featurizer.featurize_batch(
+        jax_net.default_params(), jnp.asarray(mono), pooling="banded", compute_dtype=jnp.float32))
+    gap = np.abs(ref - exact)
+    err = np.abs(got - exact)
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    assert err.max() <= max(FEATURE_ATOL, FEATURE_MARGIN * gap.max()), (err.max(), gap.max())
+    assert err.mean() <= max(FEATURE_MEAN, FEATURE_MARGIN * gap.mean()), (err.mean(), gap.mean())
