@@ -6,9 +6,10 @@ Chip check of the PyTorch / CUDA port on one NVIDIA GPU.
 Builds the five hand-written kernel libraries from ``heybuddy_tpu_torch/ops/
 kernels/csrc`` (K1 mel patches, K1b its hop-block form, K2 fused embedding,
 K3 mel spectrogram, K4 one-kernel featurizer; K1, K1b and K3 with their
-bf16-DFT variants), prints each library's registers, shared memory and
+bf16-DFT variants), prints each kernel's registers, shared memory and
 tensor-core instruction counts (HMMA for mma.sync, HGMMA for wgmma) from
-``cuobjdump``, holds each kernel against its
+``cuobjdump`` and fails unless the libraries on wgmma (K1b, K2, K4) hold
+HGMMA and ptxas serialised none of their wgmmas, holds each kernel against its
 plain PyTorch version on the card, on noise and on a tonal input, then
 drives every path a user calls at full width,
 each with the launch counters set to 0 just before it and read just after:
@@ -210,8 +211,10 @@ SPLIT_ATOL = 5e-4
 #     DFT (tests/test_melspec.py)
 BF16_DFT_ATOL = 1e-2
 # the libraries whose kernels must run on the tensor cores: HMMA (mma.sync) or
-# HGMMA (wgmma) in their SASS
+# HGMMA (wgmma) in their SASS; those redesigned for Hopper must hold HGMMA, and
+# ptxas must not have serialised their wgmmas (its C7510-C7520 warnings)
 TENSOR_CORE_LIBS = ("mel_patches", "mel_patches_fat", "embedding_pool", "mel_spectrogram", "featurize")
+WGMMA_LIBS = ("mel_patches_fat", "embedding_pool", "featurize")
 # K2, K4: the bf16 rounding points (RMS outputs, feats, GELU, softmax weights)
 #     turn any change of float32 summation order into one-ulp bf16 flips that
 #     the trunk carries on to the output. The plain version computed in float32
@@ -347,8 +350,9 @@ def resource_report() -> None:
                 fn = m.group(1)
             elif "REG:" in line:
                 usage = dict(re.findall(r"(REG|SHARED|LOCAL):(\d+)", line))
-                kernels.append(f"{'bf16 DFT' if 'ILi1E' in fn else 'kernel'}: {usage.get('REG')} "
-                               f"registers, {usage.get('SHARED')} B static shared, "
+                label = re.search(r"[A-Za-z_]+_kernel", fn)
+                kernels.append(f"{label.group(0) if label else fn}{' (bf16 DFT)' if 'ILi1E' in fn else ''}: "
+                               f"{usage.get('REG')} registers, {usage.get('SHARED')} B static shared, "
                                f"{usage.get('LOCAL')} B local")
         hmma = len(re.findall(r"\bHMMA\.", sass))
         hgmma = len(re.findall(r"\bHGMMA\.", sass))
@@ -356,6 +360,11 @@ def resource_report() -> None:
               f"block; HMMA instructions {hmma}, HGMMA {hgmma}")
         if name in TENSOR_CORE_LIBS:
             check(hmma + hgmma > 0, f"{name}: no tensor-core instruction in its SASS")
+        if name in WGMMA_LIBS:
+            check(hgmma > 0, f"{name}: no wgmma (HGMMA) in its SASS")
+            serialised = [line for line in build.BUILD_LOGS.get(name, "").splitlines()
+                          if "wgmma" in line and "serialized" in line]
+            check(not serialised, f"{name}: ptxas serialised its wgmmas: {serialised}")
 
 
 def check_mel(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float = MEL_ATOL,

@@ -1,14 +1,14 @@
 """
-Time this checkout's K1, K1b (both entries) and K2 against other versions'
-builds of the same sources on one card, in alternating pairs.
+Time this checkout's K1, K1b (both entries), K2 and K4 against other
+versions' builds of the same sources on one card, in alternating pairs.
 
     python -m heybuddy_tpu_torch.ops.kernels.compare_builds OTHER [OTHER ...]
 
 Each OTHER is the root of another checkout of the repo (for example the
 parent commit, unpacked with ``git archive``, or a copy of the sources with
 one phase of a kernel deleted). Its ``mel_patches.cu``,
-``mel_patches_fat.cu`` and ``embedding_pool.cu``, with whatever headers sit
-beside them, are built with this checkout's flags into
+``mel_patches_fat.cu``, ``embedding_pool.cu`` and ``featurize.cu``, with
+whatever headers sit beside them, are built with this checkout's flags into
 ``heybuddy_tpu_torch/_build/other-<hash>/`` and launched through this
 checkout's wrappers (``build.library_from``): both versions get the same
 inputs and the same launch code, so their C entries must match (a K1
@@ -19,7 +19,10 @@ events (the median of 11 runs after 3 warm-ups), this checkout first in
 even pairs and the other first in odd ones. For each OTHER it prints the two
 versions' largest output difference, every pair's times, the medians, the
 per-pair ratio of other to this, the card's name and power limit, and one
-JSON line of the same.
+JSON line of the same. ``--kernels`` times only the named libraries' entries
+(a copy with one phase of K2 deleted needs only ``embedding_pool``). First
+it prints the trunk's four products alone as bf16 ``torch.matmul`` at K2's
+shapes, the yardstick of the products' share of K2's time.
 """
 
 from __future__ import annotations
@@ -41,11 +44,12 @@ from heybuddy_tpu_torch.constants import MEL_BINS
 from heybuddy_tpu_torch.models.featurizer import SpeechEmbeddings
 from heybuddy_tpu_torch.ops.kernels import build
 from heybuddy_tpu_torch.ops.kernels import embedding_kernel as ek
+from heybuddy_tpu_torch.ops.kernels import featurize_kernel as fk
 from heybuddy_tpu_torch.ops.kernels import melspec_kernel as mk
 from heybuddy_tpu_torch.ops.windows import embedding_window_starts
 from heybuddy_tpu_torch.utils.cuda_timing import cuda_ms, nvidia_smi_line
 
-KERNELS = ("mel_patches", "mel_patches_fat", "embedding_pool")
+KERNELS = ("mel_patches", "mel_patches_fat", "embedding_pool", "featurize")
 BATCH = 2048
 CLIP = 23040
 PAIRS = 10  # the fewest pairs that can show a difference (9 of 10 wins)
@@ -136,25 +140,59 @@ def kernel_runs(dev: torch.device) -> Dict[str, Callable[[], torch.Tensor]]:
         "mel_patches_fat": lambda: mk.mel_patches(audio, "fat")[0],
         "mel_patches_fat_bf16": lambda: mk.mel_patches(audio, "fat", torch.bfloat16)[0],
         "embedding_pool": lambda: ek.fused_embedding_from_patches(net, patches, starts, n),
+        "featurize": lambda: fk.fused_featurize(net, audio, starts),
     }
+
+
+def trunk_products_ms(dev: torch.device) -> Dict[str, float]:
+    """
+    The trunk's products alone as bf16 ``torch.matmul`` at K2's shapes on the
+    timed batch (2048 clips x 35 patch rows): a yardstick for the products'
+    share of K2's time, which the port never calls.
+    """
+    net = SpeechEmbeddings(device=dev).net
+    w = ek._kernel_weights(net)
+    rows = BATCH * mk.patch_geometry(CLIP)[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(cols: int) -> torch.Tensor:
+        return torch.randn(rows, cols, device=dev, generator=gen).to(torch.bfloat16)
+
+    x, h, u = rand(w["wp"].shape[0]), rand(w["upw"].shape[1]), rand(w["dnw"].shape[1])
+    times = {
+        "patch_proj": cuda_ms(lambda: x @ w["wp"]),
+        "up": cuda_ms(lambda: h @ w["upw"][0]),
+        "down": cuda_ms(lambda: u @ w["dnw"][0]),
+    }
+    times["all"] = times["patch_proj"] + len(net.trunk) * (times["up"] + times["down"])
+    times["rows"] = rows
+    return times
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0].strip())
     parser.add_argument("other", nargs="+", help="root of another checkout")
+    parser.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS),
+                        help="time only these libraries' entries (default: all)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("compare_builds needs a CUDA device")
     smi = nvidia_smi_line()
     print(smi)
     dev = torch.device("cuda")
-    build.build_all(KERNELS)
+    build.build_all(args.kernels)
+    products = trunk_products_ms(dev)
+    print(f"the trunk's products alone as bf16 torch.matmul at {products['rows']} rows: patch_proj "
+          f"{products['patch_proj']:.4f} ms, up {products['up']:.4f}, down {products['down']:.4f} (a block's "
+          f"each); all of them {products['all']:.4f} ms")
     runs = kernel_runs(dev)
     for root in args.other:
-        others = build_other(root, KERNELS)
+        others = build_other(root, args.kernels)
         results = {}
         for entry, fn in runs.items():
             library = ENTRY_LIBRARY.get(entry, entry)
+            if library not in others:
+                continue
             if not hasattr(ctypes.CDLL(others[library]), f"{entry}_launch"):
                 print(f"{root}: {entry}: no such entry in its build, skipped")
                 continue
@@ -168,7 +206,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                   f"outputs max |d| {r['max_abs_diff']:.3e}")
         print(smi)
         print(json.dumps({"device": smi, "other": root, "batch": BATCH, "pairs": PAIRS,
-                          "kernels": results}))
+                          "kernels": results, "trunk_products_matmul_ms": products}))
     return 0
 
 

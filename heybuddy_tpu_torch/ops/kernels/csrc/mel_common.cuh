@@ -69,7 +69,6 @@ constexpr int FCHUNK = 48;   // frames per chunk: 12 patches, 3 m16 tiles
 constexpr int KT = 16;       // basis rows per tile: one k-step
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int HOPS = FCHUNK + (TAPS - 1) / HOP;   // 50 hop rows a chunk reads
 constexpr int LDX = HOP + 8;                      // hop row stride, 16-bit values
 constexpr int LDB = NCOL + 8;                     // basis tile row stride, 16-bit values
 constexpr int MT = FCHUNK / 16;                   // 3 m16 tiles
@@ -98,20 +97,26 @@ constexpr int FB_FLOATS = NBIN * NMEL + 2 * NMEL;
 // an SM, which hides more latency.
 constexpr int STAGES = 2;
 
-// scratch of `logmel_chunk`, bytes; the power rows and the filterbank come
-// after the DFT, over its dead tiles
-constexpr int S_XHI = 0;                              // HOPS x LDX 16-bit
-constexpr int S_XLO = S_XHI + HOPS * LDX * 2;
-constexpr int S_BHI = S_XLO + HOPS * LDX * 2;         // STAGES x KT x LDB 16-bit
-constexpr int S_BLO = S_BHI + STAGES * KT * LDB * 2;
-constexpr int S_DFT_END = S_BLO + STAGES * KT * LDB * 2;
-constexpr int S_POWER = 0;                            // FCHUNK x PLD float
-constexpr int S_FB = S_POWER + FCHUNK * PLD * 4;      // FB_FLOATS float
-constexpr int S_TAIL_END = S_FB + FB_FLOATS * 4;
-constexpr size_t SMEM_BYTES = S_DFT_END > S_TAIL_END ? S_DFT_END : S_TAIL_END;  // 67392 B
+// scratch of `logmel_chunk` for chunks of 16 MTILES frames and NSTAGE basis
+// tiles in flight, bytes; the power rows and the filterbank come after the
+// DFT, over its dead tiles
+template <int MTILES, int NSTAGE>
+struct DftSmem {
+  static constexpr int HOPS = 16 * MTILES + (TAPS - 1) / HOP;  // hop rows a chunk reads
+  static constexpr int XHI = 0;                                 // HOPS x LDX 16-bit
+  static constexpr int XLO = XHI + HOPS * LDX * 2;
+  static constexpr int BHI = XLO + HOPS * LDX * 2;              // NSTAGE x KT x LDB 16-bit
+  static constexpr int BLO = BHI + NSTAGE * KT * LDB * 2;
+  static constexpr int DFT_END = BLO + NSTAGE * KT * LDB * 2;
+  static constexpr int POWER = 0;                               // 16 MTILES x PLD float
+  static constexpr int FB = POWER + 16 * MTILES * PLD * 4;      // FB_FLOATS float
+  static constexpr int TAIL_END = FB + FB_FLOATS * 4;
+  static constexpr int BYTES = DFT_END > TAIL_END ? DFT_END : TAIL_END;
+};
+constexpr size_t SMEM_BYTES = DftSmem<MT, STAGES>::BYTES;  // 67392 B
 
 static_assert(HOP % 16 == 0, "a 16-tap k-step never crosses a hop row");
-static_assert(TAP0 % 4 == 0 && (HOPS * HOP) % 4 == 0, "audio loads in groups of four samples");
+static_assert(TAP0 % 4 == 0 && HOP % 4 == 0, "audio loads in groups of four samples");
 static_assert(TAPS % KT == 0 && KT == 16, "one basis tile per k-step covers the taps exactly");
 static_assert((LDX * 2) % 16 == 0 && (LDB * 2) % 16 == 0, "ldmatrix rows are 16-byte aligned");
 
@@ -195,41 +200,53 @@ __device__ __forceinline__ uint32_t pack2(uint16_t a, uint16_t b) {
   return static_cast<uint32_t>(a) | (static_cast<uint32_t>(b) << 16);  // a at the lower address
 }
 
-// Scaled log-mel of frames f0 .. f0 + 47 of one clip (t samples) through
-// store(), as mel_log_store says; TERMS is 3 (split DFT) or 1 (bf16 DFT).
-// `basis` is the buffer the OPS_ offsets describe; `smem` holds
-// SMEM_BYTES; the caller's block has THREADS threads. Starts
+// The whole block's barrier: the mel body's threads by default.
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+// Scaled log-mel of frames f0 .. f0 + 16 MTILES - 1 (48 by default) of one
+// clip (t samples) through store(), as mel_log_store says; TERMS is 3 (split
+// DFT) or 1 (bf16 DFT). A frame's values depend only on its frame, not on
+// MTILES or NSTAGE. `basis` is the buffer the OPS_ offsets describe; `smem`
+// holds DftSmem<MTILES, NSTAGE>::BYTES (SMEM_BYTES by default); threads 0 ..
+// THREADS - 1 of the caller's block run it and
+// `sync` is their barrier (the block's, unless the block has more threads).
+// NSTAGE basis tiles are in flight (a caller with the room,
+// dft_smem_bytes(NSTAGE), may take more than STAGES); the values do not
+// depend on it. Starts
 // with a barrier, so a caller may run chunks back to back over the same
 // scratch.
-template <int TERMS, typename Store>
+template <int TERMS, int MTILES = MT, int NSTAGE = STAGES, typename Store, typename Sync = BlockSync>
 __device__ __forceinline__ void logmel_chunk(const float* __restrict__ audio_clip, int t, int f0,
                                              int usable, int n_out, const float* __restrict__ basis,
                                              const float* __restrict__ fb, unsigned char* smem,
-                                             Store store) {
+                                             Store store, Sync sync = Sync()) {
   static_assert(TERMS == 1 || TERMS == 3, "split DFT (3 terms) or bf16 DFT (1 term)");
   if (f0 >= usable) {
-    zero_chunk(FCHUNK, f0, n_out, store);
+    zero_chunk(16 * MTILES, f0, n_out, store);
     return;
   }
-  uint16_t* xhi_s = reinterpret_cast<uint16_t*>(smem + S_XHI);
-  uint16_t* xlo_s = reinterpret_cast<uint16_t*>(smem + S_XLO);
-  uint16_t* bhi_s = reinterpret_cast<uint16_t*>(smem + S_BHI);
-  uint16_t* blo_s = reinterpret_cast<uint16_t*>(smem + S_BLO);
-  float* power_s = reinterpret_cast<float*>(smem + S_POWER);
-  float* fb_s = reinterpret_cast<float*>(smem + S_FB);
+  using L = DftSmem<MTILES, NSTAGE>;
+  uint16_t* xhi_s = reinterpret_cast<uint16_t*>(smem + L::XHI);
+  uint16_t* xlo_s = reinterpret_cast<uint16_t*>(smem + L::XLO);
+  uint16_t* bhi_s = reinterpret_cast<uint16_t*>(smem + L::BHI);
+  uint16_t* blo_s = reinterpret_cast<uint16_t*>(smem + L::BLO);
+  float* power_s = reinterpret_cast<float*>(smem + L::POWER);
+  float* fb_s = reinterpret_cast<float*>(smem + L::FB);
   const uint16_t* ops = reinterpret_cast<const uint16_t*>(basis + TAPS * NCOL);
   const uint16_t* bhi_g = ops + (TERMS == 3 ? OPS_HI : OPS_BF16);
   const uint16_t* blo_g = ops + OPS_LO;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
 
-  // basis tile s (rows 16 s .. 16 s + 15) into ring slot s % STAGES by
+  // basis tile s (rows 16 s .. 16 s + 15) into ring slot s % NSTAGE by
   // cp.async, then close its group (empty past the last tile): group s holds
-  // tile s, so waiting for all but the newest STAGES - 2 groups finds tile s
+  // tile s, so waiting for all but the newest NSTAGE - 2 groups finds tile s
   constexpr int ROW_PIECES = NCOL / 8;  // 16-byte pieces per basis row
   auto stage = [&](int s) {
     if (s < KSTEPS) {
-      const int slot = (s % STAGES) * KT * LDB;
+      const int slot = (s % NSTAGE) * KT * LDB;
       for (int p = tid; p < KT * ROW_PIECES; p += THREADS) {
         const int r = p / ROW_PIECES;
         const int c = (p - r * ROW_PIECES) * 8;
@@ -241,9 +258,9 @@ __device__ __forceinline__ void logmel_chunk(const float* __restrict__ audio_cli
     mma::cp_async_commit();
   };
 
-  __syncthreads();  // the scratch may still be read by the previous chunk
+  sync();  // the scratch may still be read by the previous chunk
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) stage(s);
+  for (int s = 0; s < NSTAGE - 1; ++s) stage(s);
   {
     // four samples at a time (HOP % 4 == 0: a group stays in its hop row).
     // g0 is a multiple of 4, so when t is too (and the clip's base is 16-byte
@@ -251,7 +268,7 @@ __device__ __forceinline__ void logmel_chunk(const float* __restrict__ audio_cli
     const long g0 = static_cast<long>(HOP) * f0 + TAP0;
     const bool vec = t % 4 == 0 && reinterpret_cast<uintptr_t>(audio_clip) % 16 == 0;
 #pragma unroll
-    for (int i = 4 * tid; i < HOPS * HOP; i += 4 * THREADS) {
+    for (int i = 4 * tid; i < L::HOPS * HOP; i += 4 * THREADS) {
       const int r = i / HOP;
       const long g = g0 + i;
       float v[4];
@@ -276,21 +293,21 @@ __device__ __forceinline__ void logmel_chunk(const float* __restrict__ audio_cli
     }
   }
 
-  float acc[MT][NT][4];
+  float acc[MTILES][NT][4];
   mma::zero(acc);
   for (int s = 0; s < KSTEPS; ++s) {
-    mma::cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile s (and the audio, on entry) visible; tile s - 1 consumed
-    stage(s + STAGES - 1);  // over tile s - 1
+    mma::cp_async_wait<NSTAGE - 2>();
+    sync();  // tile s (and the audio, on entry) visible; tile s - 1 consumed
+    stage(s + NSTAGE - 1);  // over tile s - 1
     // taps 16 s .. 16 s + 15 of frame row f: hop row f + s / 10, columns 16 (s % 10) ..
     const int a_off = (s / (HOP / KT)) * LDX + (s % (HOP / KT)) * KT;
-    const int b_off = (s % STAGES) * KT * LDB;
+    const int b_off = (s % NSTAGE) * KT * LDB;
     uint32_t bh[NT][2];
     uint32_t bl[NT][2];
     mma::load_b<NT>(bhi_s + b_off, LDB, warp * NT * 8, bh);
     if constexpr (TERMS == 3) mma::load_b<NT>(blo_s + b_off, LDB, warp * NT * 8, bl);
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
+    for (int i = 0; i < MTILES; ++i) {
       uint32_t ah[4];
       uint32_t al[4];
       mma::ldmatrix_a(xhi_s + a_off + 16 * i * LDX, LDX, ah);
@@ -307,7 +324,7 @@ __device__ __forceinline__ void logmel_chunk(const float* __restrict__ audio_cli
       }
     }
   }
-  __syncthreads();  // audio and basis tiles dead: power and filterbank go over them
+  sync();  // audio and basis tiles dead: power and filterbank go over them
   load_fb(fb, fb_s);  // visible to mel_log_store after the power passes' barriers
 
   // warps 0-3 hold the cos columns (re of bins 32 w ..), warps 4-7 the sin
@@ -317,7 +334,7 @@ __device__ __forceinline__ void logmel_chunk(const float* __restrict__ audio_cli
   for (int pass = 1; pass >= 0; --pass) {
     if (half == pass) {
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+      for (int i = 0; i < MTILES; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -334,10 +351,10 @@ __device__ __forceinline__ void logmel_chunk(const float* __restrict__ audio_cli
             }
           }
     }
-    __syncthreads();
+    sync();
   }
 
-  mel_log_store<PLD>(power_s, fb_s, FCHUNK, f0, usable, n_out, threadIdx.x, store);
+  mel_log_store<PLD>(power_s, fb_s, 16 * MTILES, f0, usable, n_out, threadIdx.x, store);
 }
 
 }  // namespace mel

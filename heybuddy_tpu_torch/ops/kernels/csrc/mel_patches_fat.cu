@@ -70,10 +70,17 @@
 
 #include <cuda.h>
 
+#include "hopper.cuh"
 #include "mel_common.cuh"
 
 namespace {
 
+using hopper::bulk_load;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::wg_sync;
 using mel::FB_FLOATS;
 using mel::HOP;
 using mel::NBIN;
@@ -127,43 +134,6 @@ __device__ __forceinline__ int a_index(int r, int c) {
   return (c / A_BOX) * (ROWS_WG * A_BOX) + r * A_BOX + ((((c % A_BOX) >> 2) ^ (r & 7)) << 2) + (c & 3);
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(mma::smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(mma::smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(mma::smem_addr(bar)) : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(mma::smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// TMA bulk copy of `bytes` contiguous bytes, completing on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          mma::smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(mma::smem_addr(bar))
-      : "memory");
-}
-
 // TMA load of the box at (column c0, row c1) of `map`, completing on `bar`
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
                                             uint64_t* bar) {
@@ -174,16 +144,9 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
-// the 128 threads of warpgroup `wg`
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-}
-
 // descriptor of a k16 x n128 operand tile in the no-swizzle K-major layout
 __device__ __forceinline__ uint64_t b_desc(const void* tile) {
-  return static_cast<uint64_t>((mma::smem_addr(tile) >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>(CORE_K_BYTES >> 4) << 16) |
-         (static_cast<uint64_t>(CORE_N_BYTES >> 4) << 32);
+  return hopper::kmajor_desc(tile, CORE_K_BYTES, CORE_N_BYTES);
 }
 
 #define FAT_WGMMA_M64N128K16(TY)                                                                   \

@@ -17,8 +17,13 @@ the grouped RMS over each window's 4 x 192 values in float32. GELU uses the
 exact erf.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(``csrc/embedding_pool.cu``; its header says what bounds it and how it is
-laid out); on a CPU tensor it runs ``fused_embedding_plain``, the same
+(``csrc/embedding_pool.cu`` on ``csrc/trunk_pool.cuh``; their headers say what
+bounds it and how it is laid out). It reads the trunk's and the head's bf16
+weights as wgmma operand streams laid out once on the host
+(``trunk_operands``, ``kmajor_tiles``) and kept in the weight cache behind
+``wp``'s and ``wh``'s own bytes, so a launch through ``_kernel_weights``
+passes the same pointers as before; ``check_weights`` refuses buffers that
+lack them. On a CPU tensor it runs ``fused_embedding_plain``, the same
 arithmetic in plain PyTorch (bf16 products emulated as
 ``a.bfloat16().float() @ w.bfloat16().float()``), which the tests and the
 chip check compare against. The Pallas selector matmuls become indexing.
@@ -96,23 +101,94 @@ def _pool_constants(
     return consts
 
 
+# The wgmma operand streams the trunk and the head read (csrc/trunk_pool.cuh):
+# k16 x N bf16 operand tiles in the K-major layout, in the order the kernels
+# consume them, behind wp's and wh's own bytes.
+UP_N = 96  # hidden columns of an up pass
+WP_BYTES = 128 * 192 * 2
+WH_BYTES = 768 * 96 * 2
+HEAD_OPS_BYTES = 768 * 96 * 2
+
+
+def trunk_ops_bytes(n_blocks: int) -> int:
+    """Bytes of the trunk's operand stream: patch_proj, then per block 4 x (up pass, its down k-steps)."""
+    return WP_BYTES + n_blocks * 2 * 192 * 384 * 2
+
+
+def kmajor_tiles(w: torch.Tensor) -> torch.Tensor:
+    """
+    A (K, N) matrix as wgmma's k16 x N operand tiles in the K-major layout
+    without swizzle: per k-step s, core matrices of 8 columns (n) by 8 rows
+    (k), 128 contiguous bytes each, the two along k next to each other and
+    those along n 256 bytes apart. Returns (K / 16, N / 8, 2, 8, 8): k-step,
+    n group, k half, n, k; element [s, ng, kh, n, k] is w[16 s + 8 kh + k, 8 ng + n].
+    """
+    k, n = w.shape
+    return w.reshape(k // 16, 2, 8, n // 8, 8).permute(0, 3, 1, 4, 2).contiguous()
+
+
+def trunk_operands(wp: torch.Tensor, upw: torch.Tensor, dnw: torch.Tensor) -> torch.Tensor:
+    """
+    The trunk's operand stream as bytes: patch_proj's 8 tiles (k16 x 192);
+    then for each block and each of its four up passes p, the up product's
+    12 tiles of hidden columns 96 p .. 96 p + 95 (k16 x 96) and the down
+    product's 6 tiles of those hidden rows (k16 x 192).
+    """
+    parts = [kmajor_tiles(wp)]
+    for up, down in zip(upw, dnw):
+        for p in range(up.shape[1] // UP_N):
+            parts.append(kmajor_tiles(up[:, p * UP_N : (p + 1) * UP_N]))
+            parts.append(kmajor_tiles(down[p * UP_N : (p + 1) * UP_N]))
+    return torch.cat([t.reshape(-1).view(torch.uint8) for t in parts])
+
+
+def _with_bytes(head: torch.Tensor, behind: torch.Tensor) -> torch.Tensor:
+    """A buffer of ``head``'s bytes followed by ``behind``'s; returns the view of its head."""
+    raw = torch.cat([head.contiguous().view(torch.uint8).reshape(-1), behind])
+    return raw.view(head.dtype)[: head.numel()].view(head.shape)
+
+
 def _kernel_weights(net: EmbeddingNet) -> Dict[str, torch.Tensor]:
-    """The net's weights in the kernel's types (bf16 matrices, f32 biases)."""
+    """
+    The net's weights in the kernel's types (bf16 matrices, f32 biases); wp
+    and wh head buffers that hold the trunk's and the head's operand streams
+    behind them.
+    """
     cache = _cache(net)
     if "weights" not in cache:
         b16 = torch.bfloat16
+        wp = net.patch_proj.w.to(b16).contiguous()
+        upw = torch.stack([blk.up.w for blk in net.trunk]).to(b16).contiguous()
+        dnw = torch.stack([blk.down.w for blk in net.trunk]).to(b16).contiguous()
+        wh = net.head.w.to(b16).contiguous()
         cache["weights"] = {
-            "wp": net.patch_proj.w.to(b16).contiguous(),
+            "wp": _with_bytes(wp, trunk_operands(wp, upw, dnw)),
             "bp": net.patch_proj.b.float().contiguous(),
-            "upw": torch.stack([blk.up.w for blk in net.trunk]).to(b16).contiguous(),
+            "upw": upw,
             "upb": torch.stack([blk.up.b for blk in net.trunk]).float().contiguous(),
-            "dnw": torch.stack([blk.down.w for blk in net.trunk]).to(b16).contiguous(),
+            "dnw": dnw,
             "dnb": torch.stack([blk.down.b for blk in net.trunk]).float().contiguous(),
             "q": net.pool_query.to(b16).contiguous(),
-            "wh": net.head.w.to(b16).contiguous(),
+            "wh": _with_bytes(wh, kmajor_tiles(wh).reshape(-1).view(torch.uint8)),
             "bh": net.head.b.float().contiguous(),
         }
     return cache["weights"]
+
+
+def check_weights(w: Dict[str, torch.Tensor], n_blocks: int) -> None:
+    """
+    Raise unless ``w["wp"]`` and ``w["wh"]`` head buffers that hold the
+    operand streams the kernels read behind them (``_kernel_weights``'s own):
+    a copy made with ``clone``, ``contiguous`` or ``to`` ends at its last value.
+    """
+    for what, need in (("wp", WP_BYTES + trunk_ops_bytes(n_blocks)), ("wh", WH_BYTES + HEAD_OPS_BYTES)):
+        t = w[what]
+        held = t.untyped_storage().nbytes() - t.storage_offset() * t.element_size()
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or held < need:
+            raise ValueError(
+                f"the trunk kernels read {need} B from {what}'s buffer, which holds {held}: "
+                "pass the tensors of _kernel_weights, not copies"
+            )
 
 
 def fused_embedding_plain(
@@ -192,6 +268,7 @@ def launch_trunk(
     dev = net.pos.device
     pool = _pool_constants(net, starts, num_patches, p_pad)
     w = _kernel_weights(net)
+    check_weights(w, len(net.trunk))
     out = torch.empty((b, len(starts), cfg.embedding_dim), device=dev, dtype=torch.float32)
     feats = torch.empty((b, p_pad, cfg.hidden_dim), device=dev, dtype=torch.bfloat16)
     scores = torch.empty((b, p_pad, cfg.pool_heads), device=dev, dtype=torch.float32)
@@ -246,6 +323,8 @@ def fused_embedding_from_patches(
         return fused_embedding_plain(net, patches, starts, num_patches)
     if patches.device.type != "cuda":
         raise ValueError(f"fused_embedding_from_patches: unsupported device {patches.device}")
+    if patches.data_ptr() % 16:
+        raise ValueError("fused_embedding_from_patches needs 16-byte aligned patches (the kernel copies rows by TMA)")
     return launch_trunk("embedding_pool", net, [patches.data_ptr()], [b], b, p_pad, num_patches, starts)
 
 

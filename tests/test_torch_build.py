@@ -37,7 +37,7 @@ def test_target_names_differ_per_source_and_are_stable():
     assert all(os.path.dirname(t) == build.BUILD_DIR for t in targets)
 
 
-@pytest.mark.parametrize("header", ["mel_common.cuh", "trunk_pool.cuh", "mma_sync.cuh"])
+@pytest.mark.parametrize("header", ["mel_common.cuh", "trunk_pool.cuh", "mma_sync.cuh", "hopper.cuh"])
 def test_a_changed_header_changes_every_target(csrc, header):
     before = {name: build._target(name)[1] for name in build.SOURCES}
     with open(csrc / header, "a") as f:
