@@ -10,7 +10,8 @@ bf16-DFT variants), prints each kernel's registers, shared memory and
 tensor-core instruction counts (HMMA for mma.sync, HGMMA for wgmma) from
 ``cuobjdump`` and fails unless the libraries on wgmma (K1b, K2, K4) hold
 HGMMA and ptxas serialised none of their wgmmas, holds each kernel against its
-plain PyTorch version on the card, on noise and on a tonal input, then
+plain PyTorch version on the card, on noise and on a tonal input, prints each
+mel kernel's distance from the float64 mel beside the plain float32 mel's, then
 drives every path a user calls at full width,
 each with the launch counters set to 0 just before it and read just after:
 ``featurize_batch`` in each pooling formulation on 2048 clips (``SpeechEmbeddings``
@@ -113,7 +114,12 @@ from heybuddy_tpu_torch.constants import (
     DEFAULT_ADVERSARIAL_BATCH_SIZE,
     DEFAULT_NEGATIVE_BATCH_SIZE,
     DEFAULT_POSITIVE_BATCH_SIZE,
+    MEL_HOP_LENGTH,
+    MEL_LOG_EPS,
     MEL_N_FFT,
+    MEL_SCALE_ADD,
+    MEL_SCALE_DIV,
+    MEL_WIN_LENGTH,
     RUNTIME_WINDOW_STRIDE,
 )
 from heybuddy_tpu_torch.convert import wakeword_params_to_numpy
@@ -194,17 +200,17 @@ PEAK_BF16 = 989e12
 # Tolerances, each with its reason:
 # K1, K1b, K3: a DFT of int16-range audio against the plain float32 version:
 #     5e-3 absolute + 1e-4 relative on log-mel values of about -1..4 (the JAX
-#     suite's bound between its Pallas and XLA mel paths). K1, K1b and K3
-#     compute a split product of fp16 pairs (22 significant bits of each
-#     operand, the x_lo b_lo term of about 2^-22 dropped), as close to the
-#     float32 mel as float32's own rounding; K1b on wgmma, the others on
-#     mma.sync.
+#     suite's bound between its Pallas and XLA mel paths). K1 and K3 compute
+#     a float32 real FFT on the CUDA cores, K1b a split product of fp16 pairs
+#     on wgmma (22 significant bits of each operand, the x_lo b_lo term of
+#     about 2^-22 dropped): both as close to the float32 mel as float32's own
+#     rounding.
 MEL_ATOL, MEL_RTOL = 5e-3, 1e-4
-# K1, K1b, K3 also: the split's precision. fp16 pairs stay within 6.1e-5 of the
-#     plain version on the tonal input and 1e-6 on noise; bf16 pairs (16
-#     significant bits) reach 2.3e-3 on the tone, inside MEL_ATOL but enough
-#     to move K4's embeddings a mean 1.2e-2. This bound, between the two,
-#     fails a return to the lower precision.
+# K1, K1b, K3 also: float32 precision. The FFT and the fp16 pairs stay within
+#     about 7e-5 of the plain version on the tonal input and 1e-6 on noise;
+#     bf16 pairs (16 significant bits) reach 2.3e-3 on the tone, inside
+#     MEL_ATOL but enough to move K4's embeddings a mean 1.2e-2. This bound,
+#     between the two, fails a return to a lower precision.
 SPLIT_ATOL = 5e-4
 # the bf16-DFT variants against their plain version (bf16-rounded operands,
 #     float32 products): the JAX suite's bound between the bf16 and float32
@@ -212,7 +218,10 @@ SPLIT_ATOL = 5e-4
 BF16_DFT_ATOL = 1e-2
 # the libraries whose kernels must run on the tensor cores: HMMA (mma.sync) or
 # HGMMA (wgmma) in their SASS; those redesigned for Hopper must hold HGMMA, and
-# ptxas must not have serialised their wgmmas (its C7510-C7520 warnings)
+# ptxas must not have serialised their wgmmas (its C7510-C7520 warnings). The
+# float32 mel of K1, K3 and K4 runs on the CUDA cores by design (a real FFT,
+# csrc/mel_fft.cuh); mel_patches and mel_spectrogram keep HMMA through their
+# bf16-DFT entries.
 TENSOR_CORE_LIBS = ("mel_patches", "mel_patches_fat", "embedding_pool", "mel_spectrogram", "featurize")
 WGMMA_LIBS = ("mel_patches_fat", "embedding_pool", "featurize")
 # K2, K4: the bf16 rounding points (RMS outputs, feats, GELU, softmax weights)
@@ -332,6 +341,18 @@ def tonal_audio(rng: np.random.Generator, b: int, t: int) -> np.ndarray:
     return (tone + noise).astype(np.float32)
 
 
+def kernel_label(fn: str) -> str:
+    """The kernel's own name inside the mangled ``fn``: the length-prefixed
+    identifier that ends with ``_kernel`` (its length may follow other
+    digits), else ``fn``."""
+    for m in re.finditer(r"\d+(?=[A-Za-z_])", fn):
+        for i in range(m.start(), m.end()):
+            name = fn[m.end() : m.end() + int(fn[i : m.end()])]
+            if name.endswith("_kernel"):
+                return name
+    return fn
+
+
 def resource_report() -> None:
     """Per library: registers and static shared memory of each kernel, its dynamic
     shared memory and the numbers of HMMA and HGMMA (tensor-core) instructions in its SASS."""
@@ -350,8 +371,7 @@ def resource_report() -> None:
                 fn = m.group(1)
             elif "REG:" in line:
                 usage = dict(re.findall(r"(REG|SHARED|LOCAL):(\d+)", line))
-                label = re.search(r"[A-Za-z_]+_kernel", fn)
-                kernels.append(f"{label.group(0) if label else fn}{' (bf16 DFT)' if 'ILi1E' in fn else ''}: "
+                kernels.append(f"{kernel_label(fn)}{' (bf16 DFT)' if 'ILi1E' in fn else ''}: "
                                f"{usage.get('REG')} registers, {usage.get('SHARED')} B static shared, "
                                f"{usage.get('LOCAL')} B local")
         hmma = len(re.findall(r"\bHMMA\.", sass))
@@ -378,7 +398,7 @@ def check_mel(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float = MEL
 
 
 def check_split(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
-    """A split-DFT kernel (K1, K3) against its plain version: MEL_ATOL, then SPLIT_ATOL."""
+    """A float32 mel kernel (K1, K3: FFT; K1b: split DFT) against its plain version: MEL_ATOL, then SPLIT_ATOL."""
     err = check_mel(name, got, ref)
     check(err <= SPLIT_ATOL, f"{name}: max |d| {err:.3e} exceeds the split's limit {SPLIT_ATOL}")
     return err
@@ -1548,15 +1568,15 @@ PRETRAIN_CHECK_TEXTS, PRETRAIN_CHECK_SPEAKERS = 128, 2
 # (a) one step card vs CPU from the bundled npz, the same indices and draws.
 # The log-mel is ill-conditioned where a view is near silence (log(power +
 # 1e-6) of int16-range audio): a sample exactly 0 on one device and not on the
-# other, or the 22-bit operands of K3's split DFT against float32's 24, move a
-# frame's quiet bins far, and the whole step's loss by 0.3-0.5% and its
-# gradient by 5-6% of its norm (PERF.md). So the step is held in parts:
+# other, or K3's rounding against the plain mel's, move a frame's quiet bins
+# far, and the whole step's loss by 0.3-0.5% and its gradient by 5-6% of its
+# norm (PERF.md). So the step is held in parts:
 # (a1) the views: the augment bound of the generate phase (AUGMENT_ATOL);
 # (a2) K3 on the views against the float64 mel: max(MEL_ATOL, this x the plain
-#     float32 mel's own distance from float64). The split keeps 22 of
-#     float32's 24 significant bits and the tensor cores accumulate in their
-#     own float32, so on these frames K3 reads 5-6.7x the plain version's
-#     distance (1.06e-2 / 1.22e-2 against 2.1e-3 / 1.8e-3 on an H100). K3's
+#     float32 mel's own distance from float64). K3's float32 FFT sums in
+#     another order than the plain product; a split DFT of 22-bit operands,
+#     K3's earlier method, read 5-6.7x the plain version's distance on these
+#     frames (1.06e-2 / 1.22e-2 against 2.1e-3 / 1.8e-3 on an H100). K3's
 #     bf16-DFT entry (8-bit operands) must fail the same limit;
 K3_SPLIT_SPREAD = 10.0
 # (a3) the step after the mel (embedding forward, losses, backward) on the same
@@ -2750,8 +2770,8 @@ class QualityLog(logging.Handler):
 # (a) tools/mel_precision_probe: accuracy on its 16 realistic clips, timing at
 #     batch 2048 in TOOLS_MEL_PASSES passes of TOOLS_MEL_ITERS calls (the
 #     script's defaults are 6 of 10); the records' arrays on the card held
-#     against the same arrays by the plain path on the card, K3 by the split's
-#     limit, its bf16 DFT by BF16_DFT_ATOL, the features by K2's rule;
+#     against the same arrays by the plain path on the card, K3 by
+#     SPLIT_ATOL, its bf16 DFT by BF16_DFT_ATOL, the features by K2's rule;
 # (b) tools/diagnose_stream_fps on a 1-minute stream (seed 31; the script's
 #     default is 15 minutes) with CHECKPOINT: one K1 / K2 a 1024-window
 #     segment, scores card vs CPU within SCORE_ATOL, hits equal at a threshold
@@ -3010,6 +3030,9 @@ def main() -> int:
 
     # ---- each kernel against its plain version ------------------------------------------
     errs = {k: 0.0 for k in ("K1", "K1b", "K2", "K3", "K4", "K1-bf16", "K3-bf16", "K1b-bf16")}
+    # each mel kernel's largest distance from the float64 mel, by input kind,
+    # beside the plain float32 mel's own ("plain")
+    f64_dist: Dict[str, Dict[str, float]] = {"noise": {}, "tonal": {}}
     bf16 = torch.bfloat16
     cases = [("noise", rng.normal(0.0, 1000.0, (b, t)), b, t, expect)
              for b, t, expect in ((64, 23040, 35), (3, 17280, 26), (2, 32000, 49), (3, 20001, 30),
@@ -3036,6 +3059,13 @@ def main() -> int:
         errs["K3-bf16"] = max(errs["K3-bf16"], check_mel(
             "K3-bf16", s16, mk.mel_spectrogram_plain(audio, bf16), BF16_DFT_ATOL, 0.0))
         k1_err = (patches[:, :n] - mk.mel_patches_plain(audio)[0][:, :n]).abs().max().item()
+        ref64 = mk.mel_patches_plain(audio, accumulate=torch.float64)[0][:, :n]
+        for key, got64 in (("plain", mk.mel_patches_plain(audio)[0][:, :n]), ("K1", patches[:, :n]),
+                           ("K3", spec[:, : 4 * n].reshape(b, n, 128)), ("K1b", fat[:, :n]),
+                           ("K1-bf16", p16[:, :n]), ("K3-bf16", s16[:, : 4 * n].reshape(b, n, 128)),
+                           ("K1b-bf16", f16[:, :n])):
+            dist = (got64 - ref64).abs().max().item()
+            f64_dist[kind][key] = max(f64_dist[kind].get(key, 0.0), dist)
         print(f"K1/K1b/K3 {kind} t={t} b={b}: num_patches {n}, frames {spec.shape[1]}; K1b loads its "
               f"hop rows by {mk.fat_load_path(audio)}; max |d| vs "
               f"plain K1 {k1_err:.3e} K3 {k3_err:.3e} K1b {err:.3e} (limits {MEL_ATOL} + {MEL_RTOL} "
@@ -3044,6 +3074,8 @@ def main() -> int:
               f"K1 {err16:.3e} K3 {errs['K3-bf16']:.3e} K1b {errf16:.3e} (limit {BF16_DFT_ATOL}), vs K1 "
               f"{(p16[:, :n] - patches[:, :n]).abs().max().item():.3e}; K1b-bf16 vs K1-bf16 "
               f"{f16_vs_k1:.3e} (limit {MEL_ATOL} + {MEL_RTOL} |ref|)")
+        print(f"  mel vs the float64 mel ({kind} t={t}): " + ", ".join(
+            f"{key} {f64_dist[kind][key]:.3e}" for key in f64_dist[kind]) + " (maxima so far)")
         check(layout == 0.0, "K3 differs from K1's layout")
         err, limit = check_k2(net, patches, n, t)
         errs["K2"] = max(errs["K2"], err)
@@ -3265,19 +3297,42 @@ def main() -> int:
     t0 = time.perf_counter()
     featurizer(clips)  # numpy in, numpy out: host loading, copies both ways, K1, K2
     call_ms = (time.perf_counter() - t0) * 1e3
+    # The nearest cuFFT composition of K3's function at the same batch, a
+    # yardstick of the FFT's cost and not a library column (the port never
+    # calls it): torch.stft over 512 points, hop 160, the 400-tap periodic Hann
+    # window centred in the frame, then the power of the 128 bins kept, the
+    # filterbank product and the scaled log.
+    hann = torch.hann_window(MEL_WIN_LENGTH, periodic=True, device=dev)
+    fb_dev = torch.from_numpy(mel_filterbank()[: mk.N_FREQ_PAD]).to(dev)
+
+    def cufft_mel() -> torch.Tensor:
+        z = torch.stft(audio, n_fft=MEL_N_FFT, hop_length=MEL_HOP_LENGTH, win_length=MEL_WIN_LENGTH,
+                       window=hann, center=False, return_complex=True)[:, : mk.N_FREQ_PAD]
+        power = (z.real.square() + z.imag.square()).transpose(1, 2)
+        return torch.log(torch.matmul(power, fb_dev) + MEL_LOG_EPS) / MEL_SCALE_DIV + MEL_SCALE_ADD
+
+    cufft_ms = cuda_ms(cufft_mel)
+    cufft_err = (cufft_mel() - mk.mel_spectrogram_plain(audio)).abs().max().item()
+    print(f"yardstick: the cuFFT composition of K3's function (torch.stft, power, filterbank, log) at "
+          f"{BATCH} x {CLIP}: {cufft_ms:.4f} ms against K3's {times['K3'][0]:.4f} ms; max |d| vs plain K3 "
+          f"{cufft_err:.3e}")
 
     # Bounds: the least work of each function, not of the kernel's own method.
     # A mel frame needs at least: the Hann window on its 400 taps; a real
-    # 512-point FFT, 2.5 N log2 N FLOP (the kernels compute a direct DFT
-    # instead, 400 x 256 FMAs: both counts are printed); the power of the bins that
-    # any mel filter reads; the filterbank's non-zero products (the triangular
-    # filters overlap by one, so 231 of its 128 x 32 entries); and log + scale
-    # per mel bin. The trunk of K2 is dense and counted as it is.
+    # 512-point FFT, that is a 256-point complex FFT at the split-radix count
+    # 4 N log2 N - 6 N + 8 (the fewest of the usual algorithms) and, for each
+    # bin that any mel filter reads, the post-twiddle (a sum and a difference
+    # of Z[k] and conj Z[256 - k], one complex product by a table value, one
+    # complex add: 12 FLOP) and the power (3); the filterbank's non-zero
+    # products (the triangular filters overlap by one, so 231 of its 128 x 32
+    # entries); and log + scale per mel bin. The trunk of K2 is dense and
+    # counted as it is.
     usable, _, p_pad = mk.patch_geometry(CLIP)
     frames = num_frames(CLIP)  # 141: K3 computes every frame, K1 the 140 of whole patches
     fbank = mel_filterbank()
-    per_frame = (mk.TAPS + 2.5 * MEL_N_FFT * np.log2(MEL_N_FFT)
-                 + 3 * int((fbank != 0).any(axis=1).sum()) + 2 * int(np.count_nonzero(fbank))
+    half = MEL_N_FFT // 2
+    per_frame = (mk.TAPS + 4 * half * np.log2(half) - 6 * half + 8
+                 + (12 + 3) * int((fbank != 0).any(axis=1).sum()) + 2 * int(np.count_nonzero(fbank))
                  + 3 * fbank.shape[1])
     consts = (mk.TAPS * 256 + 128 * 32) * 4
     cfg = net.config
@@ -3293,9 +3348,19 @@ def main() -> int:
     audio_bytes = BATCH * CLIP * 4
     out_bytes = BATCH * n_windows * 96 * 4
     k1_ops = BATCH * usable * per_frame
-    print(f"bounds: {per_frame:.0f} FLOP per mel frame (the kernels' direct DFT does "
-          f"{mk.TAPS * 2 * mk.N_FREQ_PAD * 2 + mk.N_FREQ_PAD * 32 * 2}); K1 {k1_ops / 1e9:.3f} GFLOP, "
-          f"K2 {k2_ops / 1e9:.3f} GFLOP at batch {BATCH}")
+    # The FFT of K1, K3 and K4's float32 mel (csrc/mel_fft.cuh) as the kernels
+    # compute it: the window on the 400 taps; two passes of 16 radix-16 DFTs
+    # (each 8 radix-4 DFTs of 16 adds, 4 complex twiddles of 6 FLOP and 4 of 4,
+    # one exact); 15 complex twiddles of 6 FLOP on each of 16 lanes; the
+    # post-twiddle and the power, 16 FLOP a bin kept; then the band products
+    # and the log as above.
+    fft_flop = (mk.TAPS + 2 * 16 * (8 * 16 + 4 * 6 + 4 * 4) + 16 * 15 * 6 + 16 * mk.N_FREQ_PAD
+                + 2 * int(np.count_nonzero(fbank)) + 3 * fbank.shape[1])
+    if per_frame > fft_flop:
+        raise AssertionError(f"a mel frame's least work {per_frame} exceeds the FFT's own count {fft_flop}")
+    print(f"bounds: {per_frame:.0f} FLOP per mel frame (the float32 kernels' FFT does {fft_flop}, the "
+          f"bf16 entries' direct DFT {mk.TAPS * 2 * mk.N_FREQ_PAD * 2 + mk.N_FREQ_PAD * 32 * 2}); K1 "
+          f"{k1_ops / 1e9:.3f} GFLOP, K2 {k2_ops / 1e9:.3f} GFLOP at batch {BATCH}")
     work = {  # (seconds of operations at their peak rate, bytes, what the operations are)
         "K1": (k1_ops / PEAK_FP32, audio_bytes + BATCH * p_pad * 128 * 4 + consts, "fp32"),
         "K3": (BATCH * frames * per_frame / PEAK_FP32,
@@ -3312,16 +3377,17 @@ def main() -> int:
         t_bytes = nbytes / PEAK_BYTES
         return (t_ops * 1e3, "operations") if t_ops >= t_bytes else (t_bytes * 1e3, "bytes")
 
-    # Floors of each kernel's own method: the direct DFT (400 x 256 products a
-    # frame) as 3 16-bit tensor-core products (split) or 1 (bf16 DFT); K1b's
-    # the same over its 480 hop-block rows, 64 hop rows for every 62 frames;
-    # plus the float32 tail (power, filterbank); K2's trunk is the function's
-    # own work. The larger of those operations at their peak and the
-    # function's bytes.
+    # Floors of each kernel's own method: for K1, K3 and K4's mel the FFT
+    # above at the fp32 rate; for the bf16 entries the direct DFT (400 x 256
+    # products a frame) as one 16-bit tensor-core product, K1b's as 3 (the
+    # split) over its 480 hop-block rows, 64 hop rows for every 62 frames,
+    # each plus the float32 tail (power, filterbank); K2's trunk is the
+    # function's own work. The larger of those operations at their peak and
+    # the function's bytes.
     dft_flop = mk.TAPS * 2 * mk.N_FREQ_PAD * 2
     fat_flop = mk.HOP_BLOCKS * 160 * 2 * mk.N_FREQ_PAD * 2 * 64 / 62
     tail_s = (2 * mk.N_FREQ_PAD + 2 * mk.N_FREQ_PAD * 32) / PEAK_FP32
-    frame_s = {"K1": 3 * dft_flop / PEAK_BF16 + tail_s, "K3": 3 * dft_flop / PEAK_BF16 + tail_s,
+    frame_s = {"K1": fft_flop / PEAK_FP32, "K3": fft_flop / PEAK_FP32,
                "K1-bf16": dft_flop / PEAK_BF16 + tail_s, "K3-bf16": dft_flop / PEAK_BF16 + tail_s,
                "K1b": 3 * fat_flop / PEAK_BF16 + tail_s, "K1b-bf16": fat_flop / PEAK_BF16 + tail_s}
     method_s = {k: BATCH * (frames if k.startswith("K3") else usable) * v for k, v in frame_s.items()}
@@ -3345,6 +3411,9 @@ def main() -> int:
     kernels = []
     for kid, (name, src, replaces, path) in meta.items():
         bound_ms, bound_by = bound(kid)
+        if floor(kid) < bound_ms:
+            raise AssertionError(f"{kid}: the floor of its method {floor(kid):.4f} ms is under the "
+                                 f"function's bound {bound_ms:.4f} ms")
         print(f"{kid} {name:20s} kernel_ms {times[kid][0]:.4f} plain_ms {times[kid][1]:.4f} "
               f"bound_ms {bound_ms:.4f} ({bound_by}, {work[kid][2]}) floor of its method "
               f"{floor(kid):.4f} ms max_abs_err {errs[kid]:.3e} launches on path {path}: "
@@ -3367,6 +3436,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "paths": paths, "featurize_ms": fused_ms,
                       "mega_ms": mega_ms, "mega_wins": mega_wins, "clips_per_s": BATCH / fused_ms * 1e3,
                       "call_ms": call_ms, "predict_ms": predict_s * 1e3, "batch": BATCH,
+                      "mel_float64_distance": f64_dist, "mel_cufft_yardstick_ms": cufft_ms,
                       "train": train["summary"], "generate": generate["summary"],
                       "stream": {**stream["summary"], "train": stream["train"]}, "listen": listen,
                       "pretrain": pretrain["summary"], "onnx": onnx["summary"], "vits": vits["summary"],

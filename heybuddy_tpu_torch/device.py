@@ -9,12 +9,13 @@ the plain PyTorch versions of the kernels.
 TF32 is switched off for both matmuls and cuDNN when this module is imported.
 The mel DFT multiplies int16-range audio, and TF32 (one product of 10-bit
 mantissas, about three decimal digits) would move the log-mel far outside
-the tolerance the port is held to. The mel kernels do use the tensor cores,
-but as a split product of fp16 pairs (three fp16 products that keep 22
-significant bits of each operand, with exact power-of-two scalings that keep
-both in fp16's normal range, ``csrc/mel_common.cuh``), not TF32; the plain float32
-versions they are checked against, and the wake-word head (float32 in the
-JAX reference too), must not fall to TF32 either.
+the tolerance the port is held to. The float32 mel kernels compute a real
+FFT on the CUDA cores (``csrc/mel_fft.cuh``), and the hop-block one a split
+product of fp16 pairs on the tensor cores (three fp16 products that keep 22
+significant bits of each operand, ``csrc/mel_patches_fat.cu``), neither in
+TF32; the plain float32 versions they are checked against, and the
+wake-word head (float32 in the JAX reference too), must not fall to TF32
+either.
 """
 
 from __future__ import annotations

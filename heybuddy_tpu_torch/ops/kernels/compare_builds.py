@@ -1,19 +1,23 @@
 """
-Time this checkout's K1, K1b (both entries), K2 and K4 against other
-versions' builds of the same sources on one card, in alternating pairs.
+Time this checkout's K1, K3 (each with its bf16-DFT entry), K1b (both
+entries), K2 and K4 against other versions' builds of the same sources on one
+card, in alternating pairs.
 
     python -m heybuddy_tpu_torch.ops.kernels.compare_builds OTHER [OTHER ...]
 
 Each OTHER is the root of another checkout of the repo (for example the
 parent commit, unpacked with ``git archive``, or a copy of the sources with
 one phase of a kernel deleted). Its ``mel_patches.cu``,
-``mel_patches_fat.cu``, ``embedding_pool.cu`` and ``featurize.cu``, with
-whatever headers sit beside them, are built with this checkout's flags into
-``heybuddy_tpu_torch/_build/other-<hash>/`` and launched through this
-checkout's wrappers (``build.library_from``): both versions get the same
-inputs and the same launch code, so their C entries must match (a K1
-build from before its row-stride argument is launched without it); an entry
-the other build lacks is skipped. On 2048 seeded clips of 23040 samples, as
+``mel_spectrogram.cu``, ``mel_patches_fat.cu``, ``embedding_pool.cu`` and
+``featurize.cu``, with whatever headers sit beside them, are built with this
+checkout's flags into ``heybuddy_tpu_torch/_build/other-<hash>/`` and
+launched through this checkout's wrappers (``build.library_from``): both
+versions get the same inputs and the same launch code, so their C entries
+must match (a K1 build from before its row-stride argument is launched
+without it); an entry the other build lacks is skipped. Both get this
+checkout's constants (``mel_constants``): a build that reads less of a
+buffer, such as one from before the FFT table behind the taps' operands,
+ignores the rest. On 2048 seeded clips of 23040 samples, as
 ``chip_smoke.py`` times them, each of 10 pairs times both versions by CUDA
 events (the median of 11 runs after 3 warm-ups), this checkout first in
 even pairs and the other first in odd ones. For each OTHER it prints the two
@@ -49,7 +53,7 @@ from heybuddy_tpu_torch.ops.kernels import melspec_kernel as mk
 from heybuddy_tpu_torch.ops.windows import embedding_window_starts
 from heybuddy_tpu_torch.utils.cuda_timing import cuda_ms, nvidia_smi_line
 
-KERNELS = ("mel_patches", "mel_patches_fat", "embedding_pool", "featurize")
+KERNELS = ("mel_patches", "mel_spectrogram", "mel_patches_fat", "embedding_pool", "featurize")
 BATCH = 2048
 CLIP = 23040
 PAIRS = 10  # the fewest pairs that can show a difference (9 of 10 wins)
@@ -109,21 +113,26 @@ def compare(fn: Callable[[], torch.Tensor], name: str, other_lib: str, pairs: in
 
 
 # the library of each timed entry that is not its library's main one
-ENTRY_LIBRARY = {"mel_patches_fat_bf16": "mel_patches_fat"}
+ENTRY_LIBRARY = {
+    "mel_patches_bf16": "mel_patches",
+    "mel_spectrogram_bf16": "mel_spectrogram",
+    "mel_patches_fat_bf16": "mel_patches_fat",
+}
 
 
-def _k1(audio: torch.Tensor) -> torch.Tensor:
-    """K1 on dense ``audio`` through whichever build of ``mel_patches`` is
-    loaded: one without the row-stride argument (its ``mel_patches_row_stride``
-    symbol) is launched with the ints it takes."""
+def _k1(audio: torch.Tensor, dft_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K1 (or its bf16 entry) on dense ``audio`` through whichever build of
+    ``mel_patches`` is loaded: one without the row-stride argument (its
+    ``mel_patches_row_stride`` symbol) is launched with the ints it takes."""
     if hasattr(build.library("mel_patches"), "mel_patches_row_stride"):
-        return mk.mel_patches(audio)[0]
+        return mk.mel_patches(audio, dft_dtype=dft_dtype)[0]
     b, t = audio.shape
     usable, _, p_pad = mk.patch_geometry(t)
     taps, _, fb = mk.kernel_constants(audio.device)
     out = torch.empty((b, p_pad, mk.PATCH_FRAMES * MEL_BINS), device=audio.device, dtype=torch.float32)
+    entry = "mel_patches_bf16" if dft_dtype == torch.bfloat16 else "mel_patches"
     build.launch("mel_patches", audio.device, [audio.data_ptr(), taps.data_ptr(), fb.data_ptr(), out.data_ptr()],
-                 [b, t, usable, p_pad])
+                 [b, t, usable, p_pad], entry=entry)
     return out
 
 
@@ -137,6 +146,9 @@ def kernel_runs(dev: torch.device) -> Dict[str, Callable[[], torch.Tensor]]:
     patches, n = mk.mel_patches(audio)
     return {
         "mel_patches": lambda: _k1(audio),
+        "mel_patches_bf16": lambda: _k1(audio, torch.bfloat16),
+        "mel_spectrogram": lambda: mk.mel_spectrogram(audio),
+        "mel_spectrogram_bf16": lambda: mk.mel_spectrogram(audio, torch.bfloat16),
         "mel_patches_fat": lambda: mk.mel_patches(audio, "fat")[0],
         "mel_patches_fat_bf16": lambda: mk.mel_patches(audio, "fat", torch.bfloat16)[0],
         "embedding_pool": lambda: ek.fused_embedding_from_patches(net, patches, starts, n),

@@ -4,17 +4,17 @@
 //
 // Replaces heybuddy_tpu/ops/pallas/featurize_kernel.py::fused_featurize
 // (featurize_batch(pooling="mega")): int16-range float32 audio (b, t) ->
-// embeddings (b, W, 96) float32. It runs K1's mel body (mel_common.cuh) and
+// embeddings (b, W, 96) float32. It runs K1's mel body (mel_fft.cuh) and
 // K2's trunk and pooling (trunk_pool.cuh) as they are, so for the same audio
 // its output equals K1 followed by K2 bit for bit.
 //
 // What bounds it: operations. The function's least work is the mel by an FFT
-// (about 13 kFLOP per frame) at the fp32 rate plus the trunk (about 26.5
+// (about 9.4 kFLOP per frame) at the fp32 rate plus the trunk (about 26.5
 // MFLOP per clip of 35 patches) at the bf16 tensor-core rate, against only
 // the audio read (92 KB per 1.44 s clip) and the 6 KB of embeddings written.
-// The kernel runs K1's split direct DFT (fp16 pairs, mma.sync) and K2's
-// wgmma trunk and pooling. What fusion saves is the patch round trip through
-// device memory (20 KB per clip written by K1, read by K2) and a launch.
+// The kernel runs K1's float32 FFT on the CUDA cores and K2's wgmma trunk and
+// pooling. What fusion saves is the patch round trip through device memory
+// (20 KB per clip written by K1, read by K2) and a launch.
 //
 // Design: K2's two kernels, the first (`featurize_trunk_kernel`) computing
 // its patch rows itself. A persistent block takes a contiguous range of
@@ -25,14 +25,14 @@
 // patch may start a mel chunk of any length), into a shared-memory buffer
 // of the chunk's patch rows in the patch layout (p, k*32 + m), which takes
 // the place of K2's prefetched rows; then each warpgroup runs K2's trunk
-// tile on its 64 rows. The mel scratch (145 KB) overlays the trunk's operand
+// tile on its 64 rows. The mel scratch (146 KB) overlays the trunk's operand
 // ring and activations, so the producer fills the ring for a chunk once its
 // mel is over (`mel_done`). The pooling kernel is K2's. The Pallas kernel's
 // frame->patch redistribution matmuls at Precision.HIGHEST, its smaller
 // frame chunk (32) and its raised VMEM limit exist for Mosaic's layout rules
 // and have no counterpart here.
 
-#include "mel_common.cuh"
+#include "mel_fft.cuh"
 #include "trunk_pool.cuh"
 
 namespace {
@@ -43,16 +43,14 @@ using Smem = trunk::TrunkSmem;
 constexpr int TRUNK_SMEM = Smem::BYTES + 1024;  // and the alignment slack
 constexpr int POOL_SMEM = trunk::POOL_SMEM_BYTES + 1024;
 constexpr int MEL_BAR = 3;  // the consumers' named barrier (1, 2: the warpgroups')
-// The mel body a clip segment at a time, 144 frames (a 1.44 s clip's 140)
-// and three basis tiles in flight a pass: each basis tile read from L2 serves
-// three times K1's frames, and one block an SM hides less latency than K1's
-// three. Its scratch overlays the operand ring and the trunk's activations.
-constexpr int MEL_MT = 9;
-constexpr int MEL_STAGES = 3;
-constexpr int MEL_FRAMES = 16 * MEL_MT;
+// The mel body a clip segment at a time, 144 frames (a 1.44 s clip's 140): the
+// staged audio, the filterbank and the FFT table serve three times K1's
+// frames a pass. Its scratch overlays the operand ring and the trunk's
+// activations.
+constexpr int MEL_FRAMES = 144;
 
 static_assert(TRUNK_SMEM <= 232448 && POOL_SMEM <= 232448, "at most 227 KB of shared memory a block");
-static_assert(mel::DftSmem<MEL_MT, MEL_STAGES>::BYTES <= Smem::WORK_END,
+static_assert(mel::fft_smem_bytes<MEL_FRAMES, 1>() <= Smem::WORK_END,
               "the mel scratch fits over the ring and the trunk's activations");
 static_assert(mel::THREADS == trunk::CONSUMERS * 128, "the consumer warpgroups run the mel body");
 static_assert(trunk::PD == 4 * mel::NMEL, "a patch is 4 frames of mel bins");
@@ -155,7 +153,7 @@ __global__ void __launch_bounds__(trunk::THREADS, 1) featurize_trunk_kernel(cons
       const float* audio_clip = args.audio + static_cast<size_t>(ch.clip0 + k) * args.t;
       for (int f0 = 4 * ch.pa; f0 < 4 * ch.pb; f0 += MEL_FRAMES) {
         const int fr = 4 * k * ch.span + f0 - 4 * ch.pa;  // the chunk's frame of frame f0
-        mel::logmel_chunk<3, MEL_MT, MEL_STAGES>(
+        mel::logmel_chunk<MEL_FRAMES>(
             audio_clip, args.t, f0, 4 * ch.pb, 4 * ch.pb, args.basis, args.fb, smem,
             [&](int fl, int m, float v) {
               const int f = fr + fl;  // frame k of patch row p: values k * 32 .. of the row

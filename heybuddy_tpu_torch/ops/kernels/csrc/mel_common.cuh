@@ -1,9 +1,11 @@
-// The mel body shared by the mel kernels for Hopper, sm_90a: K1
-// (mel_patches.cu), K3 (mel_spectrogram.cu) and K4 (featurize.cu) run
-// `logmel_chunk`; K1b (mel_patches_fat.cu) computes its spectrum another way
-// (one wgmma product over hop rows) and shares the tail (`mel_log_store`).
-// One source of the arithmetic keeps every kernel's log-mel equal, bit for
-// bit, for the same audio.
+// What the mel kernels for Hopper, sm_90a, share. K1 (mel_patches.cu), K3
+// (mel_spectrogram.cu) and K4 (featurize.cu) compute their float32 log-mel
+// with mel_fft.cuh's `logmel_chunk`, a real FFT on the CUDA cores; their
+// bf16-DFT entries with `logmel_chunk_bf16` below; K1b (mel_patches_fat.cu)
+// computes its spectrum another way (one wgmma product over hop rows, its
+// audio split into fp16 pairs by `operands<3>`). All of them end in the tail
+// `mel_log_store`, so a frame's log-mel follows one source of arithmetic
+// from its power on.
 //
 // Per frame f: spectrum = audio[160 f + 56 .. 160 f + 456) @ basis (400, 256),
 // the windowed real-DFT basis restricted to the 400 rows the centred Hann
@@ -12,40 +14,33 @@
 // weight). Then power = re^2 + im^2, mel = power @ fb (128, 32),
 // log(mel + 1e-6) / 10 + 2.
 //
-// Numerics: the DFT runs on the tensor cores (mma_sync.cuh) as a split
-// product (TERMS = 3). The audio x and the float32 basis b are split into
-// fp16 pairs, x = x_hi + x_lo and b = b_hi + b_lo (lo = fp16(v - hi), after
-// exact power-of-two scalings that keep both inside fp16's normal range), and
-//   spectrum = x_hi b_hi + x_hi b_lo + x_lo b_hi
-// with float32 accumulation. Each product of fp16 values is exact; a pair
-// carries 22 significant bits (an int16-range integer sample is exact in it)
-// and the dropped x_lo b_lo term is about 2^-22 of each product, so the
-// spectrum keeps float32-like accuracy. A bf16 pair carries only 16 bits:
-// on a tone with noise 60 dB below it, its error in the quiet bins moved the
-// log-mel by 2e-3, inside 5e-3 + 1e-4 |ref| but enough to move K4's
-// embeddings by a mean 1.2e-2 through the trunk's bf16 rounding points; the
-// fp16 pair moves the log-mel by 4e-5, as much as float32 itself (PERF.md).
-// This is not TF32 (whose one-term product keeps 10 bits). TERMS = 1 is the
-// bf16-DFT variant of the TPU kernel (dft_dtype=bfloat16): bf16(x) bf16(b)
-// alone. Power, filterbank and log stay float32 on the CUDA cores, compiled
-// without fast math, with the accurate logf.
+// The bf16-DFT variant of the TPU kernel (dft_dtype=bfloat16) rounds the
+// audio x and the basis b to bf16 and sums their exact products in float32:
+// bf16(x) bf16(b) on the tensor cores (mma_sync.cuh). An FFT cannot
+// reproduce that rounding, so `logmel_chunk_bf16` keeps the direct DFT.
+// K1b's split product of fp16 pairs, x = x_hi + x_lo and b = b_hi + b_lo
+// (lo = fp16(v - hi), after exact power-of-two scalings that keep both
+// inside fp16's normal range), is x_hi b_hi + x_hi b_lo + x_lo b_hi with
+// float32 accumulation: 22 significant bits a pair, float32-like accuracy
+// (a bf16 pair's 16 bits moved the log-mel by 2e-3 on a tone with noise 60
+// dB below it; PERF.md). Power, filterbank and log stay float32 on the CUDA
+// cores, compiled without fast math, with the accurate logf.
 //
-// Layout of `logmel_chunk`: 256 threads compute one chunk of 48 frames (three
-// m16 tiles). The chunk's audio goes to shared memory once as x_hi / x_lo
-// (16-bit) hop rows of 160 samples that start at tap 0 of the chunk's first
-// frame: frame f, tap k lies at hop row f + k / 160, column k % 160, so a
-// 16-tap k-step (160 % 16 == 0) is a plain 16 x 16 block of hop rows and
-// overlapping frames need no im2col. Rows are padded to 168 values so
-// ldmatrix is conflict-free. The basis's operands, split once beside the
-// float32 basis (the buffer `basis` points at), stream from L2 in 16-row
-// tiles of 16-bit hi / lo values by cp.async through a ring of STAGES slots,
-// STAGES - 1 k-steps ahead. 8 warps x 32 columns cover the 256 cos | sin
-// columns: 3 x 4 m16n8 tiles, 48 float32 accumulators per thread. A bin's re
-// and im land in different warps, so the sin warps write im^2 to shared
-// memory (over the dead audio / basis tiles) and the cos warps add re^2 in
-// place; the power rows then go through the mel product against the
-// filterbank, loaded into shared memory beside them with each mel bin's band
-// of non-zero bins, and each value to the caller's
+// Layout of `logmel_chunk_bf16`: 256 threads compute one chunk of 48 frames
+// (three m16 tiles). The chunk's audio goes to shared memory once as bf16 hop
+// rows of 160 samples that start at tap 0 of the chunk's first frame: frame
+// f, tap k lies at hop row f + k / 160, column k % 160, so a 16-tap k-step
+// (160 % 16 == 0) is a plain 16 x 16 block of hop rows and overlapping frames
+// need no im2col. Rows are padded to 168 values so ldmatrix is
+// conflict-free. The basis's bf16 operand, rounded once beside the float32
+// basis (the buffer `basis` points at), streams from L2 in 16-row tiles by
+// cp.async through a ring of STAGES slots, STAGES - 1 k-steps ahead. 8 warps
+// x 32 columns cover the 256 cos | sin columns: 3 x 4 m16n8 tiles, 48 float32
+// accumulators per thread. A bin's re and im land in different warps, so the
+// sin warps write im^2 to shared memory (over the dead audio / basis tiles)
+// and the cos warps add re^2 in place; the power rows then go through the mel
+// product against the filterbank, loaded into shared memory beside them with
+// each mel bin's band of non-zero bins, and each value to the caller's
 // `store(frame_in_chunk, mel_bin, value)`.
 
 #pragma once
@@ -65,7 +60,7 @@ constexpr int TAPS = 400;    // rows [56, 456)
 constexpr int NBIN = 128;    // DFT bins kept (cos block, then sin block)
 constexpr int NCOL = 2 * NBIN;
 constexpr int NMEL = 32;
-constexpr int FCHUNK = 48;   // frames per chunk: 12 patches, 3 m16 tiles
+constexpr int FCHUNK = 48;   // frames per chunk: 12 patches (3 m16 tiles of the bf16 DFT)
 constexpr int KT = 16;       // basis rows per tile: one k-step
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -75,16 +70,16 @@ constexpr int MT = FCHUNK / 16;                   // 3 m16 tiles
 constexpr int NT = NCOL / WARPS / 8;              // 4 n8 tiles per warp
 constexpr int KSTEPS = TAPS / KT;                 // 25
 constexpr int PLD = NBIN + 8;                     // power row stride: conflict-free fragment stores
-// the split DFT's exact power-of-two scalings: x 2^-8 keeps int16-range audio
-// (and up to 2^24) inside fp16's range, b 2^8 lifts the basis's small values
-// out of fp16's subnormals; their products are x b
+// K1b's split DFT's exact power-of-two scalings: x 2^-8 keeps int16-range
+// audio (and up to 2^24) inside fp16's range, b 2^8 lifts the basis's small
+// values out of fp16's subnormals; their products are x b
 constexpr float X_SCALE = 1.0f / 256.0f;
 constexpr float B_SCALE = 256.0f;
-// The basis the kernels take is the float32 (TAPS, NCOL) matrix followed in
-// the same buffer by its operands, each (TAPS, NCOL) of 16-bit values: the
-// fp16 pair hi, lo of b B_SCALE, then bf16(b) (melspec_kernel.mel_constants).
-constexpr int OPS_HI = 0;
-constexpr int OPS_LO = TAPS * NCOL;
+// The taps buffer the kernels take is the float32 (TAPS, NCOL) matrix followed
+// by its operands, each (TAPS, NCOL) of 16-bit values: the fp16 pair hi, lo of
+// b B_SCALE (read by no kernel of this tree: the prefix a split-DFT build of
+// K1, K3 and K4 reads), then bf16(b) from 16-bit value OPS_BF16 on; and last
+// the FFT's table (mel_fft.cuh FFT_TABLE_OFFSET; melspec_kernel.mel_constants).
 constexpr int OPS_BF16 = 2 * TAPS * NCOL;
 
 // The filterbank the kernels take is the float32 (NBIN, NMEL) matrix followed
@@ -97,37 +92,24 @@ constexpr int FB_FLOATS = NBIN * NMEL + 2 * NMEL;
 // an SM, which hides more latency.
 constexpr int STAGES = 2;
 
-// scratch of `logmel_chunk` for chunks of 16 MTILES frames and NSTAGE basis
-// tiles in flight, bytes; the power rows and the filterbank come after the
-// DFT, over its dead tiles
-template <int MTILES, int NSTAGE>
+// scratch of `logmel_chunk_bf16`, bytes; the power rows and the filterbank
+// come after the DFT, over its dead tiles
 struct DftSmem {
-  static constexpr int HOPS = 16 * MTILES + (TAPS - 1) / HOP;  // hop rows a chunk reads
-  static constexpr int XHI = 0;                                 // HOPS x LDX 16-bit
-  static constexpr int XLO = XHI + HOPS * LDX * 2;
-  static constexpr int BHI = XLO + HOPS * LDX * 2;              // NSTAGE x KT x LDB 16-bit
-  static constexpr int BLO = BHI + NSTAGE * KT * LDB * 2;
-  static constexpr int DFT_END = BLO + NSTAGE * KT * LDB * 2;
-  static constexpr int POWER = 0;                               // 16 MTILES x PLD float
-  static constexpr int FB = POWER + 16 * MTILES * PLD * 4;      // FB_FLOATS float
+  static constexpr int HOPS = FCHUNK + (TAPS - 1) / HOP;       // hop rows a chunk reads
+  static constexpr int X = 0;                                   // HOPS x LDX bf16
+  static constexpr int B = X + HOPS * LDX * 2;                  // STAGES x KT x LDB bf16
+  static constexpr int DFT_END = B + STAGES * KT * LDB * 2;
+  static constexpr int POWER = 0;                               // FCHUNK x PLD float
+  static constexpr int FB = POWER + FCHUNK * PLD * 4;           // FB_FLOATS float
   static constexpr int TAIL_END = FB + FB_FLOATS * 4;
   static constexpr int BYTES = DFT_END > TAIL_END ? DFT_END : TAIL_END;
 };
-constexpr size_t SMEM_BYTES = DftSmem<MT, STAGES>::BYTES;  // 67392 B
+constexpr size_t SMEM_BYTES = DftSmem::BYTES;  // 42752 B
 
 static_assert(HOP % 16 == 0, "a 16-tap k-step never crosses a hop row");
 static_assert(TAP0 % 4 == 0 && HOP % 4 == 0, "audio loads in groups of four samples");
 static_assert(TAPS % KT == 0 && KT == 16, "one basis tile per k-step covers the taps exactly");
 static_assert((LDX * 2) % 16 == 0 && (LDB * 2) % 16 == 0, "ldmatrix rows are 16-byte aligned");
-
-// `span` samples of one clip from sample g0 on into shared memory, zero past t.
-__device__ __forceinline__ void load_audio(const float* __restrict__ audio_clip, int t, long g0,
-                                           int span, float* audio_s) {
-  for (int i = threadIdx.x; i < span; i += THREADS) {
-    const long g = g0 + i;
-    audio_s[i] = g < t ? audio_clip[g] : 0.0f;
-  }
-}
 
 __device__ __forceinline__ void load_fb(const float* __restrict__ fb, float* fb_s) {
   for (int i = threadIdx.x; i < FB_FLOATS; i += THREADS) fb_s[i] = fb[i];
@@ -181,8 +163,8 @@ __device__ __forceinline__ void zero_chunk(int nf, int f0, int n_out, Store stor
 }
 
 // The DFT's 16-bit operands of an audio sample x, as raw bits: for the split
-// DFT (TERMS 3) the fp16 pair hi = fp16(x X_SCALE), lo = fp16(x X_SCALE - hi);
-// for the bf16 DFT (TERMS 1) bf16(x) alone.
+// DFT (TERMS 3, K1b) the fp16 pair hi = fp16(x X_SCALE), lo = fp16(x X_SCALE -
+// hi); for the bf16 DFT (TERMS 1) bf16(x) alone.
 template <int TERMS>
 __device__ __forceinline__ void operands(float x, uint16_t& hi, uint16_t& lo) {
   if constexpr (TERMS == 3) {
@@ -205,62 +187,48 @@ struct BlockSync {
   __device__ __forceinline__ void operator()() const { __syncthreads(); }
 };
 
-// Scaled log-mel of frames f0 .. f0 + 16 MTILES - 1 (48 by default) of one
-// clip (t samples) through store(), as mel_log_store says; TERMS is 3 (split
-// DFT) or 1 (bf16 DFT). A frame's values depend only on its frame, not on
-// MTILES or NSTAGE. `basis` is the buffer the OPS_ offsets describe; `smem`
-// holds DftSmem<MTILES, NSTAGE>::BYTES (SMEM_BYTES by default); threads 0 ..
-// THREADS - 1 of the caller's block run it and
-// `sync` is their barrier (the block's, unless the block has more threads).
-// NSTAGE basis tiles are in flight (a caller with the room,
-// dft_smem_bytes(NSTAGE), may take more than STAGES); the values do not
-// depend on it. Starts
-// with a barrier, so a caller may run chunks back to back over the same
-// scratch.
-template <int TERMS, int MTILES = MT, int NSTAGE = STAGES, typename Store, typename Sync = BlockSync>
-__device__ __forceinline__ void logmel_chunk(const float* __restrict__ audio_clip, int t, int f0,
-                                             int usable, int n_out, const float* __restrict__ basis,
-                                             const float* __restrict__ fb, unsigned char* smem,
-                                             Store store, Sync sync = Sync()) {
-  static_assert(TERMS == 1 || TERMS == 3, "split DFT (3 terms) or bf16 DFT (1 term)");
+// Scaled log-mel of frames f0 .. f0 + 47 of one clip (t samples) by the bf16
+// DFT through store(), as mel_log_store says. `basis` is the taps buffer (its
+// bf16 operand at OPS_BF16); `smem` holds SMEM_BYTES; the block's THREADS threads run
+// it. Starts with a barrier, so a caller may run chunks back to back over the
+// same scratch.
+template <typename Store>
+__device__ __forceinline__ void logmel_chunk_bf16(const float* __restrict__ audio_clip, int t, int f0,
+                                                  int usable, int n_out, const float* __restrict__ basis,
+                                                  const float* __restrict__ fb, unsigned char* smem,
+                                                  Store store) {
   if (f0 >= usable) {
-    zero_chunk(16 * MTILES, f0, n_out, store);
+    zero_chunk(FCHUNK, f0, n_out, store);
     return;
   }
-  using L = DftSmem<MTILES, NSTAGE>;
-  uint16_t* xhi_s = reinterpret_cast<uint16_t*>(smem + L::XHI);
-  uint16_t* xlo_s = reinterpret_cast<uint16_t*>(smem + L::XLO);
-  uint16_t* bhi_s = reinterpret_cast<uint16_t*>(smem + L::BHI);
-  uint16_t* blo_s = reinterpret_cast<uint16_t*>(smem + L::BLO);
+  using L = DftSmem;
+  uint16_t* x_s = reinterpret_cast<uint16_t*>(smem + L::X);
+  uint16_t* b_s = reinterpret_cast<uint16_t*>(smem + L::B);
   float* power_s = reinterpret_cast<float*>(smem + L::POWER);
   float* fb_s = reinterpret_cast<float*>(smem + L::FB);
-  const uint16_t* ops = reinterpret_cast<const uint16_t*>(basis + TAPS * NCOL);
-  const uint16_t* bhi_g = ops + (TERMS == 3 ? OPS_HI : OPS_BF16);
-  const uint16_t* blo_g = ops + OPS_LO;
+  const uint16_t* b_g = reinterpret_cast<const uint16_t*>(basis + TAPS * NCOL) + OPS_BF16;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
 
-  // basis tile s (rows 16 s .. 16 s + 15) into ring slot s % NSTAGE by
+  // basis tile s (rows 16 s .. 16 s + 15) into ring slot s % STAGES by
   // cp.async, then close its group (empty past the last tile): group s holds
-  // tile s, so waiting for all but the newest NSTAGE - 2 groups finds tile s
+  // tile s, so waiting for all but the newest STAGES - 2 groups finds tile s
   constexpr int ROW_PIECES = NCOL / 8;  // 16-byte pieces per basis row
   auto stage = [&](int s) {
     if (s < KSTEPS) {
-      const int slot = (s % NSTAGE) * KT * LDB;
+      const int slot = (s % STAGES) * KT * LDB;
       for (int p = tid; p < KT * ROW_PIECES; p += THREADS) {
         const int r = p / ROW_PIECES;
         const int c = (p - r * ROW_PIECES) * 8;
-        const int g = (s * KT + r) * NCOL + c;
-        mma::cp_async16(bhi_s + slot + r * LDB + c, bhi_g + g);
-        if constexpr (TERMS == 3) mma::cp_async16(blo_s + slot + r * LDB + c, blo_g + g);
+        mma::cp_async16(b_s + slot + r * LDB + c, b_g + (s * KT + r) * NCOL + c);
       }
     }
     mma::cp_async_commit();
   };
 
-  sync();  // the scratch may still be read by the previous chunk
+  __syncthreads();  // the scratch may still be read by the previous chunk
 #pragma unroll
-  for (int s = 0; s < NSTAGE - 1; ++s) stage(s);
+  for (int s = 0; s < STAGES - 1; ++s) stage(s);
   {
     // four samples at a time (HOP % 4 == 0: a group stays in its hop row).
     // g0 is a multiple of 4, so when t is too (and the clip's base is 16-byte
@@ -283,48 +251,33 @@ __device__ __forceinline__ void logmel_chunk(const float* __restrict__ audio_cli
 #pragma unroll
         for (int e = 0; e < 4; ++e) v[e] = g + e < t ? audio_clip[g + e] : 0.0f;
       }
-      uint16_t hi[4], lo[4];
+      uint16_t x[4], unused;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) operands<TERMS>(v[e], hi[e], lo[e]);
-      const int off = r * LDX + i - r * HOP;
-      *reinterpret_cast<uint2*>(xhi_s + off) = make_uint2(pack2(hi[0], hi[1]), pack2(hi[2], hi[3]));
-      if constexpr (TERMS == 3)
-        *reinterpret_cast<uint2*>(xlo_s + off) = make_uint2(pack2(lo[0], lo[1]), pack2(lo[2], lo[3]));
+      for (int e = 0; e < 4; ++e) operands<1>(v[e], x[e], unused);
+      *reinterpret_cast<uint2*>(x_s + r * LDX + i - r * HOP) =
+          make_uint2(pack2(x[0], x[1]), pack2(x[2], x[3]));
     }
   }
 
-  float acc[MTILES][NT][4];
+  float acc[MT][NT][4];
   mma::zero(acc);
   for (int s = 0; s < KSTEPS; ++s) {
-    mma::cp_async_wait<NSTAGE - 2>();
-    sync();  // tile s (and the audio, on entry) visible; tile s - 1 consumed
-    stage(s + NSTAGE - 1);  // over tile s - 1
+    mma::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile s (and the audio, on entry) visible; tile s - 1 consumed
+    stage(s + STAGES - 1);  // over tile s - 1
     // taps 16 s .. 16 s + 15 of frame row f: hop row f + s / 10, columns 16 (s % 10) ..
     const int a_off = (s / (HOP / KT)) * LDX + (s % (HOP / KT)) * KT;
-    const int b_off = (s % NSTAGE) * KT * LDB;
     uint32_t bh[NT][2];
-    uint32_t bl[NT][2];
-    mma::load_b<NT>(bhi_s + b_off, LDB, warp * NT * 8, bh);
-    if constexpr (TERMS == 3) mma::load_b<NT>(blo_s + b_off, LDB, warp * NT * 8, bl);
+    mma::load_b<NT>(b_s + (s % STAGES) * KT * LDB, LDB, warp * NT * 8, bh);
 #pragma unroll
-    for (int i = 0; i < MTILES; ++i) {
+    for (int i = 0; i < MT; ++i) {
       uint32_t ah[4];
-      uint32_t al[4];
-      mma::ldmatrix_a(xhi_s + a_off + 16 * i * LDX, LDX, ah);
-      if constexpr (TERMS == 3) mma::ldmatrix_a(xlo_s + a_off + 16 * i * LDX, LDX, al);
+      mma::ldmatrix_a(x_s + a_off + 16 * i * LDX, LDX, ah);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        if constexpr (TERMS == 3) {
-          mma::mma_16816_f16(acc[i][j], ah, bh[j][0], bh[j][1]);
-          mma::mma_16816_f16(acc[i][j], ah, bl[j][0], bl[j][1]);
-          mma::mma_16816_f16(acc[i][j], al, bh[j][0], bh[j][1]);
-        } else {
-          mma::mma_16816(acc[i][j], ah, bh[j][0], bh[j][1]);
-        }
-      }
+      for (int j = 0; j < NT; ++j) mma::mma_16816(acc[i][j], ah, bh[j][0], bh[j][1]);
     }
   }
-  sync();  // audio and basis tiles dead: power and filterbank go over them
+  __syncthreads();  // audio and basis tiles dead: power and filterbank go over them
   load_fb(fb, fb_s);  // visible to mel_log_store after the power passes' barriers
 
   // warps 0-3 hold the cos columns (re of bins 32 w ..), warps 4-7 the sin
@@ -334,7 +287,7 @@ __device__ __forceinline__ void logmel_chunk(const float* __restrict__ audio_cli
   for (int pass = 1; pass >= 0; --pass) {
     if (half == pass) {
 #pragma unroll
-      for (int i = 0; i < MTILES; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -351,10 +304,10 @@ __device__ __forceinline__ void logmel_chunk(const float* __restrict__ audio_cli
             }
           }
     }
-    sync();
+    __syncthreads();
   }
 
-  mel_log_store<PLD>(power_s, fb_s, 16 * MTILES, f0, usable, n_out, threadIdx.x, store);
+  mel_log_store<PLD>(power_s, fb_s, FCHUNK, f0, usable, n_out, threadIdx.x, store);
 }
 
 }  // namespace mel

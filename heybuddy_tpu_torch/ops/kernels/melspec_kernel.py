@@ -20,12 +20,14 @@ Counterparts of the JAX package's ``ops/pallas/melspec_kernel.py``:
   before the DFT product, float32 accumulation. The JAX suite bounds it at
   1e-2 from the float32 mel.
 
-On the card K1, K1b and K3 compute the DFT as a split tensor-core product of
-fp16 pairs (``csrc/mel_common.cuh``), within 5e-4 of the float32 plain
-version. The kernels read the basis's operands and the filterbank's bands
-from behind the float32 constants (``mel_constants``), so their C entries
-take the same pointers as before; each wrapper raises unless the buffers it
-passes hold those bytes (``check_constants``).
+On the card K1 and K3 (and K4's mel) compute each frame's spectrum as a
+float32 real FFT on the CUDA cores (``csrc/mel_fft.cuh``), and K1b as a split
+tensor-core product of fp16 pairs (``csrc/mel_patches_fat.cu``), both within
+5e-4 of the float32 plain version. The kernels read their precomputed data
+from behind the float32 constants (``mel_constants``): the FFT's window and
+twiddle table, the basis's 16-bit operands, the filterbank's bands; so their
+C entries take the same pointers as before, and each wrapper raises unless
+the buffers it passes hold those bytes (``check_constants``).
 
 Unlike the Pallas kernels nothing pads the batch. On a CUDA tensor each
 wrapper launches its hand-written kernel (``csrc/mel_patches.cu``,
@@ -109,6 +111,33 @@ def _numpy_constants() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 # the split DFT's power-of-two scaling of the basis (csrc/mel_common.cuh B_SCALE)
 SPLIT_BASIS_SCALE = 256.0
+# The float32 FFT of K1, K3 and K4 (csrc/mel_fft.cuh FFT_*): a frame's 512
+# windowed samples as 256 complex points (even, odd sample pairs), transformed
+# by two radix-16 passes of 16 lanes. Its table, offsets in float32 values:
+# the window w[n] (512), the first pass's twiddles W256^(l k1) at k1 * 16 + l
+# and the post-twiddles W512^k of the bins kept, each complex as (cos, -sin).
+FFT_POINTS = MEL_N_FFT // 2
+FFT_RADIX = 16
+FFT_WIN = 0
+FFT_TW1 = FFT_WIN + MEL_N_FFT
+FFT_TW2 = FFT_TW1 + 2 * FFT_RADIX * FFT_RADIX
+FFT_TABLE_FLOATS = FFT_TW2 + 2 * N_FREQ_PAD
+
+
+@functools.lru_cache(maxsize=None)
+def _numpy_fft_table() -> np.ndarray:
+    """The FFT's table (``FFT_*`` offsets), computed in float64 and rounded once to float32."""
+    padded = np.zeros(MEL_N_FFT)
+    padded[TAP0 : TAP0 + TAPS] = np.hanning(MEL_WIN_LENGTH + 1)[:MEL_WIN_LENGTH]  # dft_basis's window
+    lanes = np.arange(FFT_RADIX)
+    tw1 = 2.0 * np.pi * (lanes[:, None] * lanes[None, :]) / FFT_POINTS  # [k1, l]
+    tw2 = 2.0 * np.pi * np.arange(N_FREQ_PAD) / MEL_N_FFT
+    pairs = [np.stack([np.cos(a), -np.sin(a)], axis=-1).reshape(-1) for a in (tw1, tw2)]
+    table = np.concatenate([padded, *pairs]).astype(np.float32)
+    assert table.size == FFT_TABLE_FLOATS
+    return table
+
+
 # K1b's operand tiles (csrc/mel_patches_fat.cu): k16 x n128, n128 = the cos
 # and the sin columns of 64 bins, in the order the kernel consumes them
 FAT_K = 16
@@ -120,15 +149,20 @@ FAT_STAGES = (N_FREQ_PAD // FAT_BINS) * HOP_BLOCKS * (MEL_HOP_LENGTH // FAT_K)  
 def _with_operands(taps: torch.Tensor) -> torch.Tensor:
     """
     One float32 buffer that holds ``taps`` (400, 256) and behind it the DFT
-    operands of K1, K3 and K4, each (400, 256) of 16-bit values: the fp16 pair
-    hi = fp16(b * 256), lo = fp16(b * 256 - hi), then bf16(b) for the bf16 DFT
-    (``csrc/mel_common.cuh`` OPS_*). Returns the (400, 256) float32 view of
-    its head, whose data pointer is the buffer's.
+    operands, each (400, 256) of 16-bit values: the fp16 pair hi = fp16(b *
+    256), lo = fp16(b * 256 - hi), then bf16(b) for the bf16 DFT
+    (``csrc/mel_common.cuh`` OPS_*); last the FFT's table
+    (``_numpy_fft_table``, ``csrc/mel_fft.cuh``). No kernel of this tree reads
+    the fp16 pair: it stays so that the buffer's prefix is the one a build of
+    the split-DFT K1, K3 and K4 reads (``compare_builds`` launches such a build
+    on these constants). Returns the (400, 256) float32 view of its head,
+    whose data pointer is the buffer's.
     """
     scaled = taps * SPLIT_BASIS_SCALE  # exact: a power of two
     hi = scaled.half()
     lo = (scaled - hi.float()).half()
-    raw = [t.contiguous().view(torch.uint8).reshape(-1) for t in (taps, hi, lo, taps.bfloat16())]
+    table = torch.from_numpy(_numpy_fft_table()).to(taps.device)
+    raw = [t.contiguous().view(torch.uint8).reshape(-1) for t in (taps, hi, lo, taps.bfloat16(), table)]
     return torch.cat(raw).view(torch.float32)[: taps.numel()].view(taps.shape)
 
 
@@ -199,11 +233,13 @@ def mel_constants(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, tor
 
 
 # bytes the kernels read from the buffers that ``taps``, ``blocks`` and ``fb``
-# head: the float32 taps and three 16-bit operands (``csrc/mel_common.cuh``
-# OPS_*); the float32 hop blocks and three 16-bit operands
+# head: the float32 taps, three 16-bit operands (``csrc/mel_common.cuh``
+# OPS_*) and the FFT's table from FFT_TABLE_OFFSET on (``csrc/mel_fft.cuh``);
+# the float32 hop blocks and three 16-bit operands
 # (``csrc/mel_patches_fat.cu`` OPS_*); the float32 filterbank and two int32
 # bands (FB_FLOATS)
-OPERAND_BYTES = TAPS * 2 * N_FREQ_PAD * (4 + 3 * 2)
+FFT_TABLE_OFFSET = TAPS * 2 * N_FREQ_PAD * (4 + 3 * 2)
+OPERAND_BYTES = FFT_TABLE_OFFSET + FFT_TABLE_FLOATS * 4
 FAT_OPERAND_BYTES = MEL_HOP_LENGTH * HOP_BLOCKS * 2 * N_FREQ_PAD * 4 + FAT_STAGES * FAT_TILE_BYTES * 3
 BAND_BYTES = (N_FREQ_PAD + 2) * MEL_BINS * 4
 
@@ -246,7 +282,8 @@ def _logmel_taps(
     accumulate: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """
-    The first ``n_frames`` frames by the 400-tap DFT of K1, K3 and K4; with
+    The first ``n_frames`` frames by the 400-tap DFT: the plain version of K1,
+    K3 and K4's mel (whose float32 kernels compute it by an FFT); with
     ``dft_dtype=torch.bfloat16`` the frames and the basis are rounded to bf16
     first and multiplied in float32 (each product exact). ``accumulate=
     torch.float64`` computes the float32 operands' DFT and tail in double

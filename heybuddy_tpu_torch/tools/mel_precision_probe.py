@@ -16,7 +16,7 @@ kernels' own basis and filterbank), against
 
 * ``xla_melspec``: the plain float32 mel (``mel_spectrogram_plain``),
 * ``pallas_f32`` / ``pallas_bf16``: K3 (``mel_spectrogram``) with the
-  float32 (split fp16-pair) and the bf16 DFT,
+  float32 FFT and the bf16 DFT,
 
 and the (16, 96) feature deltas through K1 (float32 and bf16 DFT) -> K2
 against ``featurize_batch(pooling="banded", compute_dtype=torch.float32)``.

@@ -1,26 +1,29 @@
-"""The numerics of the mel kernels' tensor-core DFT, and the bf16-DFT variant,
-on the CPU.
+"""The numerics of the split tensor-core DFT, and the bf16-DFT variant, on
+the CPU.
 
-On the card K1, K3 and K4 compute the DFT as a split product: audio x and
-basis b each become a pair of 16-bit values, hi + lo, and the spectrum is
-x_hi b_hi + x_hi b_lo + x_lo b_hi with float32 accumulation
-(``csrc/mel_common.cuh``). Here that arithmetic is emulated in plain PyTorch
-(every product of two 16-bit values is exact in float64, and the terms are
-summed there) and held to the JAX package's float32 mel. The kernels use fp16
-pairs; bf16 pairs, the first design, are emulated beside them to show why:
-both pass the mel tolerance, but on a tone with noise 60 dB below it the bf16
-pair is more than ten times further from float32.
+A split product: audio x and basis b each become a pair of 16-bit values, hi
++ lo, and the spectrum is x_hi b_hi + x_hi b_lo + x_lo b_hi with float32
+accumulation. K1b (``dft_mode="fat"``, ``csrc/mel_patches_fat.cu``) computes
+its DFT so, and so did K1, K3 and K4 before their float32 mel became a real
+FFT on the CUDA cores (``csrc/mel_fft.cuh``, emulated in
+``test_torch_mel_fft.py``). Here that arithmetic is emulated in plain
+PyTorch (every product of two 16-bit values is exact in float64, and the
+terms are summed there) and held to the JAX package's float32 mel: the
+design's history as much as K1b's check. The kernels used fp16 pairs; bf16
+pairs, the first design, are emulated beside them to show why: both pass the
+mel tolerance, but on a tone with noise 60 dB below it the bf16 pair is more
+than ten times further from float32.
 
 The bf16-DFT variant (``dft_dtype=torch.bfloat16``, the TPU kernels'
 ``dft_dtype=jnp.bfloat16``) runs its plain version here against JAX's Pallas
 kernels in interpret mode, in both of ``mel_patches``' modes.
 
-K1b (``dft_mode="fat"``) computes the same split as one product of the hop
-rows against the three hop-aligned basis blocks, then shifted sums
-(``csrc/mel_patches_fat.cu``). Its split is emulated here the same way, and
-so is the kernel's walk: its operand tiles decoded from the buffer behind
-the blocks as its wgmma descriptors read them, its 64-row tiles over the
-flat hop rows, the halo, the shifted sums in the epilogue and the pad rows.
+K1b computes the split as one product of the hop rows against the three
+hop-aligned basis blocks, then shifted sums. Its split is emulated here the
+same way, and so is the kernel's walk: its operand tiles decoded from the
+buffer behind the blocks as its wgmma descriptors read them, its 64-row
+tiles over the flat hop rows, the halo, the shifted sums in the epilogue and
+the pad rows.
 """
 
 import numpy as np
@@ -218,14 +221,16 @@ def test_int16_samples_are_exact_in_their_pair(dtype, scale):
 
 
 def test_the_basis_buffer_holds_its_operands_behind_it():
+    """The float32 taps, the fp16 pair and the bf16 operand, then the FFT's table."""
     taps, _, _ = mk.mel_constants(torch.device("cpu"))
     assert torch.equal(taps, torch.from_numpy(mk._numpy_constants()[0]))
     n = taps.numel()
     raw = torch.frombuffer(bytearray(bytes(taps.untyped_storage())), dtype=torch.uint8)
-    assert raw.numel() == n * (4 + 3 * 2)
+    assert raw.numel() == n * (4 + 3 * 2) + mk.FFT_TABLE_FLOATS * 4
+    assert mk.FFT_TABLE_OFFSET == n * (4 + 3 * 2)
     hi = raw[4 * n : 6 * n].view(torch.float16).reshape(taps.shape)
     lo = raw[6 * n : 8 * n].view(torch.float16).reshape(taps.shape)
-    b16 = raw[8 * n :].view(torch.bfloat16).reshape(taps.shape)
+    b16 = raw[8 * n : 10 * n].view(torch.bfloat16).reshape(taps.shape)
     scaled = taps * mk.SPLIT_BASIS_SCALE
     assert torch.equal(hi, scaled.half())
     assert torch.equal(lo, (scaled - hi.float()).half())
