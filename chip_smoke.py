@@ -8,9 +8,11 @@ kernels/csrc`` (K1 mel patches, K1b its hop-block form, K2 fused embedding,
 K3 mel spectrogram, K4 one-kernel featurizer; K1, K1b and K3 with their
 bf16-DFT variants), prints each kernel's registers, shared memory and
 tensor-core instruction counts (HMMA for mma.sync, HGMMA for wgmma) from
-``cuobjdump`` and fails unless the libraries on wgmma (K1b, K2, K4) hold
-HGMMA and ptxas serialised none of their wgmmas, holds each kernel against its
-plain PyTorch version on the card, on noise and on a tonal input, prints each
+``cuobjdump`` and fails unless the libraries on wgmma (K1b, K2, K4, and K1
+and K3 through their bf16-DFT entries) hold HGMMA and ptxas serialised none
+of their wgmmas, holds each kernel against its
+plain PyTorch version on the card, on noise and on a tonal input (K3 against
+K1's layout bit for bit, in float32 and in the bf16 DFT), prints each
 mel kernel's distance from the float64 mel beside the plain float32 mel's, then
 drives every path a user calls at full width,
 each with the launch counters set to 0 just before it and read just after:
@@ -220,10 +222,10 @@ BF16_DFT_ATOL = 1e-2
 # HGMMA (wgmma) in their SASS; those redesigned for Hopper must hold HGMMA, and
 # ptxas must not have serialised their wgmmas (its C7510-C7520 warnings). The
 # float32 mel of K1, K3 and K4 runs on the CUDA cores by design (a real FFT,
-# csrc/mel_fft.cuh); mel_patches and mel_spectrogram keep HMMA through their
-# bf16-DFT entries.
+# csrc/mel_fft.cuh); mel_patches and mel_spectrogram hold HGMMA through their
+# bf16-DFT entries (csrc/mel_dft.cuh).
 TENSOR_CORE_LIBS = ("mel_patches", "mel_patches_fat", "embedding_pool", "mel_spectrogram", "featurize")
-WGMMA_LIBS = ("mel_patches_fat", "embedding_pool", "featurize")
+WGMMA_LIBS = ("mel_patches", "mel_patches_fat", "embedding_pool", "mel_spectrogram", "featurize")
 # K2, K4: the bf16 rounding points (RMS outputs, feats, GELU, softmax weights)
 #     turn any change of float32 summation order into one-ulp bf16 flips that
 #     the trunk carries on to the output. The plain version computed in float32
@@ -3058,6 +3060,7 @@ def main() -> int:
         s16 = mk.mel_spectrogram(audio, dft_dtype=bf16)
         errs["K3-bf16"] = max(errs["K3-bf16"], check_mel(
             "K3-bf16", s16, mk.mel_spectrogram_plain(audio, bf16), BF16_DFT_ATOL, 0.0))
+        layout16 = (p16[:, :n].reshape(b, 4 * n, 32) - s16[:, : 4 * n]).abs().max().item()
         k1_err = (patches[:, :n] - mk.mel_patches_plain(audio)[0][:, :n]).abs().max().item()
         ref64 = mk.mel_patches_plain(audio, accumulate=torch.float64)[0][:, :n]
         for key, got64 in (("plain", mk.mel_patches_plain(audio)[0][:, :n]), ("K1", patches[:, :n]),
@@ -3070,13 +3073,15 @@ def main() -> int:
               f"hop rows by {mk.fat_load_path(audio)}; max |d| vs "
               f"plain K1 {k1_err:.3e} K3 {k3_err:.3e} K1b {err:.3e} (limits {MEL_ATOL} + {MEL_RTOL} "
               f"|ref| and {SPLIT_ATOL}); K1b vs K1 {fat_vs_k1:.3e} (limit {MEL_ATOL} + {MEL_RTOL} |ref|); "
-              f"K3 vs K1 layout {layout:.3e} (one mel body: 0 expected); bf16 DFT vs its plain "
+              f"K3 vs K1 layout {layout:.3e}, K3-bf16 vs K1-bf16 layout {layout16:.3e} (one mel body each: 0 "
+              f"expected); bf16 DFT vs its plain "
               f"K1 {err16:.3e} K3 {errs['K3-bf16']:.3e} K1b {errf16:.3e} (limit {BF16_DFT_ATOL}), vs K1 "
               f"{(p16[:, :n] - patches[:, :n]).abs().max().item():.3e}; K1b-bf16 vs K1-bf16 "
               f"{f16_vs_k1:.3e} (limit {MEL_ATOL} + {MEL_RTOL} |ref|)")
         print(f"  mel vs the float64 mel ({kind} t={t}): " + ", ".join(
             f"{key} {f64_dist[kind][key]:.3e}" for key in f64_dist[kind]) + " (maxima so far)")
         check(layout == 0.0, "K3 differs from K1's layout")
+        check(layout16 == 0.0, "K3-bf16 differs from K1-bf16's layout")
         err, limit = check_k2(net, patches, n, t)
         errs["K2"] = max(errs["K2"], err)
         starts = embedding_window_starts(t)
@@ -3100,6 +3105,18 @@ def main() -> int:
         print(f"{key} t={t} b={b}, base offset 4 B: loads its hop rows by {mk.fat_load_path(audio)}; "
               f"max |d| vs plain {err:.3e}")
     check(mk.fat_load_path(audio) == "plain", "an unaligned base took the TMA path")
+    # K1-bf16 on row-strided views of one segment (the stream's 1280 and an odd
+    # stride, whose rows its 4-byte path stages) against their contiguous
+    # copies: a frame's bits depend on its samples only
+    for stride in (1280, 1283):
+        seg = torch.from_numpy(offset_rng.normal(0.0, 1000.0, stride * 63 + CLIP).astype(np.float32)).to(dev)
+        view = seg.as_strided((64, CLIP), (stride, 1))
+        a16, _ = mk.mel_patches(view, dft_dtype=bf16)
+        c16, _ = mk.mel_patches(view.contiguous(), dft_dtype=bf16)
+        torch.cuda.synchronize()
+        print(f"K1-bf16 on a row-strided view (64 rows {stride} apart) vs its contiguous copy: equal "
+              f"{bool(torch.equal(a16, c16))}, max |d| {(a16 - c16).abs().max().item():.3e}")
+        check(bool(torch.equal(a16, c16)), f"K1-bf16 on a view {stride} apart differs from its copy")
 
     clips = np.clip(rng.normal(0.0, 0.05, (BATCH, CLIP)), -1.0, 1.0).astype(np.float32)
     audio = torch.from_numpy(clips * 32767.0).to(dev)
@@ -3112,10 +3129,15 @@ def main() -> int:
     errs["K1b-bf16"] = max(errs["K1b-bf16"], check_k1(audio, n, "fat", bf16)[2])
     spec = mk.mel_spectrogram(audio)
     errs["K3"] = max(errs["K3"], check_split("K3", spec, mk.mel_spectrogram_plain(audio)))
-    errs["K1-bf16"] = max(errs["K1-bf16"], check_k1(audio, n, "chunked", bf16)[2])
-    errs["K3-bf16"] = max(errs["K3-bf16"], check_mel(
-        "K3-bf16", mk.mel_spectrogram(audio, dft_dtype=bf16), mk.mel_spectrogram_plain(audio, bf16),
-        BF16_DFT_ATOL, 0.0))
+    p16, _, err16 = check_k1(audio, n, "chunked", bf16)
+    errs["K1-bf16"] = max(errs["K1-bf16"], err16)
+    s16 = mk.mel_spectrogram(audio, dft_dtype=bf16)
+    errs["K3-bf16"] = max(errs["K3-bf16"], check_mel("K3-bf16", s16, mk.mel_spectrogram_plain(audio, bf16),
+                                                     BF16_DFT_ATOL, 0.0))
+    layout16 = (p16[:, :n].reshape(BATCH, 4 * n, 32) - s16[:, : 4 * n]).abs().max().item()
+    print(f"K3-bf16 vs K1-bf16 layout at {BATCH} x {CLIP}: {layout16:.3e} (one mel body: 0 expected)")
+    check(layout16 == 0.0, "K3-bf16 differs from K1-bf16's layout")
+    del p16, s16
     print(f"kernels at {BATCH} x {CLIP}: max |d| vs plain K1 {errs['K1']:.3e} K1b {errs['K1b']:.3e} "
           f"K3 {errs['K3']:.3e} K1-bf16 {errs['K1-bf16']:.3e} K3-bf16 {errs['K3-bf16']:.3e} "
           f"K1b-bf16 {errs['K1b-bf16']:.3e} (maxima over every shape so far)")
@@ -3316,6 +3338,35 @@ def main() -> int:
     print(f"yardstick: the cuFFT composition of K3's function (torch.stft, power, filterbank, log) at "
           f"{BATCH} x {CLIP}: {cufft_ms:.4f} ms against K3's {times['K3'][0]:.4f} ms; max |d| vs plain K3 "
           f"{cufft_err:.3e}")
+    # The cuBLAS composition of the bf16 DFT's function, likewise a yardstick
+    # the port never calls: the frames as a strided view of the audio, rounded
+    # to bf16, one bf16 GEMM against the (400, 256) bf16 basis with float32
+    # output where the build's torch.mm takes out_dtype (else a bf16 matmul,
+    # whose output rounds to bf16), then power, filterbank and log.
+    taps_b16 = mk.mel_constants(dev)[0].bfloat16()
+    n_frames = num_frames(CLIP)
+
+    def cublas_dft(out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+        frames_x = audio.as_strided((BATCH, n_frames, mk.TAPS), (CLIP, MEL_HOP_LENGTH, 1), mk.TAP0).bfloat16()
+        x2 = frames_x.reshape(-1, mk.TAPS)
+        z = torch.mm(x2, taps_b16, out_dtype=out_dtype) if out_dtype else torch.matmul(x2, taps_b16).float()
+        z = z.view(BATCH, n_frames, 2 * mk.N_FREQ_PAD)
+        re, im = z[..., : mk.N_FREQ_PAD], z[..., mk.N_FREQ_PAD :]
+        return torch.log(torch.matmul(re * re + im * im, fb_dev) + MEL_LOG_EPS) / MEL_SCALE_DIV + MEL_SCALE_ADD
+
+    try:
+        cublas_dft(torch.float32)
+        cublas_dtype: Optional[torch.dtype] = torch.float32
+        cublas_form = "torch.mm(out_dtype=torch.float32): float32 output"
+    except (TypeError, RuntimeError) as exc:
+        cublas_dtype = None
+        cublas_form = f"bf16 torch.matmul, its output rounded to bf16 (torch.mm with out_dtype: {type(exc).__name__})"
+    cublas_ms = cuda_ms(lambda: cublas_dft(cublas_dtype))
+    cublas_err = (cublas_dft(cublas_dtype) - mk.mel_spectrogram_plain(audio, bf16)).abs().max().item()
+    print(f"yardstick: the cuBLAS composition of the bf16 DFT's function (strided frames, {cublas_form}, power, "
+          f"filterbank, log) at {BATCH} x {CLIP}: {cublas_ms:.4f} ms against K3-bf16's {times['K3-bf16'][0]:.4f} ms; "
+          f"max |d| vs plain K3-bf16 {cublas_err:.3e}")
+    del taps_b16
 
     # Bounds: the least work of each function, not of the kernel's own method.
     # A mel frame needs at least: the Hann window on its 400 taps; a real
@@ -3359,7 +3410,8 @@ def main() -> int:
     if per_frame > fft_flop:
         raise AssertionError(f"a mel frame's least work {per_frame} exceeds the FFT's own count {fft_flop}")
     print(f"bounds: {per_frame:.0f} FLOP per mel frame (the float32 kernels' FFT does {fft_flop}, the "
-          f"bf16 entries' direct DFT {mk.TAPS * 2 * mk.N_FREQ_PAD * 2 + mk.N_FREQ_PAD * 32 * 2}); K1 "
+          f"bf16 entries' direct DFT {mk.TAPS * 2 * mk.N_FREQ_PAD * 2} and the tail "
+          f"{3 * mk.N_FREQ_PAD + 2 * int(np.count_nonzero(fbank)) + 3 * fbank.shape[1]}); K1 "
           f"{k1_ops / 1e9:.3f} GFLOP, K2 {k2_ops / 1e9:.3f} GFLOP at batch {BATCH}")
     work = {  # (seconds of operations at their peak rate, bytes, what the operations are)
         "K1": (k1_ops / PEAK_FP32, audio_bytes + BATCH * p_pad * 128 * 4 + consts, "fp32"),
@@ -3378,19 +3430,29 @@ def main() -> int:
         return (t_ops * 1e3, "operations") if t_ops >= t_bytes else (t_bytes * 1e3, "bytes")
 
     # Floors of each kernel's own method: for K1, K3 and K4's mel the FFT
-    # above at the fp32 rate; for the bf16 entries the direct DFT (400 x 256
-    # products a frame) as one 16-bit tensor-core product, K1b's as 3 (the
-    # split) over its 480 hop-block rows, 64 hop rows for every 62 frames,
-    # each plus the float32 tail (power, filterbank); K2's trunk is the
+    # above at the fp32 rate; for the bf16 entries of K1 and K3 the direct DFT
+    # (400 x 256 products a frame) as one 16-bit tensor-core product over the
+    # tile rows their walk computes (csrc/mel_dft.cuh: items of up to 128
+    # frames flat across the clips, every item 128 rows, the rows past its
+    # frames included), K1b's as 3 (the split) over its 480 hop-block rows,
+    # 64 hop rows for every 62 frames; each plus the float32 tail that
+    # mel_log_store runs (the power of the 128 bins, the filterbank's band
+    # products and the log, as fft_flop counts them); K2's trunk is the
     # function's own work. The larger of those operations at their peak and
     # the function's bytes.
     dft_flop = mk.TAPS * 2 * mk.N_FREQ_PAD * 2
     fat_flop = mk.HOP_BLOCKS * 160 * 2 * mk.N_FREQ_PAD * 2 * 64 / 62
-    tail_s = (2 * mk.N_FREQ_PAD + 2 * mk.N_FREQ_PAD * 32) / PEAK_FP32
+    tail_s = (3 * mk.N_FREQ_PAD + 2 * int(np.count_nonzero(fbank)) + 3 * fbank.shape[1]) / PEAK_FP32
     frame_s = {"K1": fft_flop / PEAK_FP32, "K3": fft_flop / PEAK_FP32,
                "K1-bf16": dft_flop / PEAK_BF16 + tail_s, "K3-bf16": dft_flop / PEAK_BF16 + tail_s,
                "K1b": 3 * fat_flop / PEAK_BF16 + tail_s, "K1b-bf16": fat_flop / PEAK_BF16 + tail_s}
     method_s = {k: BATCH * (frames if k.startswith("K3") else usable) * v for k, v in frame_s.items()}
+    dft_rows = {k: mk.dft_walk(BATCH, u)[1] * mk.DFT_ITEM for k, u in (("K1-bf16", usable), ("K3-bf16", frames))}
+    for k, rows in dft_rows.items():
+        method_s[k] = rows * frame_s[k]
+    print(f"the bf16 DFT's walk computes {dft_rows['K1-bf16']} tile rows for K1-bf16's {BATCH * usable} frames "
+          f"({dft_rows['K1-bf16'] / (BATCH * usable):.4f} a frame), {dft_rows['K3-bf16']} for K3-bf16's "
+          f"{BATCH * frames} ({dft_rows['K3-bf16'] / (BATCH * frames):.4f})")
     method_s["K2"] = k2_ops / PEAK_BF16
     method_s["K4"] = method_s["K1"] + method_s["K2"]
 
@@ -3437,6 +3499,7 @@ def main() -> int:
                       "mega_ms": mega_ms, "mega_wins": mega_wins, "clips_per_s": BATCH / fused_ms * 1e3,
                       "call_ms": call_ms, "predict_ms": predict_s * 1e3, "batch": BATCH,
                       "mel_float64_distance": f64_dist, "mel_cufft_yardstick_ms": cufft_ms,
+                      "mel_cublas_bf16_yardstick_ms": cublas_ms, "mel_cublas_bf16_form": cublas_form,
                       "train": train["summary"], "generate": generate["summary"],
                       "stream": {**stream["summary"], "train": stream["train"]}, "listen": listen,
                       "pretrain": pretrain["summary"], "onnx": onnx["summary"], "vits": vits["summary"],

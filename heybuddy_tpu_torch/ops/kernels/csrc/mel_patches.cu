@@ -8,7 +8,7 @@
 // (p, k*32 + m) is the spectrogram's own (4p + k, m) order: real frames are
 // stored flat, and rows num_patches..p_pad-1 are exact zeros. The float32
 // arithmetic is mel_fft.cuh's, shared with K3 and K4; the bf16 DFT is
-// mel_common.cuh's `logmel_chunk_bf16`, shared with K3's bf16 entry.
+// mel_dft.cuh's `mel_dft_kernel`, shared with K3's bf16 entry.
 //
 // What bounds it: the function's bytes. A real 512-point FFT (a 256-point
 // complex FFT at the split-radix count and the post-twiddle), the power of
@@ -21,14 +21,16 @@
 // sums), on the CUDA cores: at the fp32 rate under the byte bound, so its
 // floor is the bytes too, and what limits it in practice is shared memory
 // (the exchange, the staged audio) and instruction throughput. The bf16 entry
-// keeps the direct DFT, 400 x 256 products a frame on mma.sync.
+// keeps the direct DFT, 400 x 256 products a frame on wgmma (mel_dft.cuh says
+// what bounds it).
 //
 // Design: persistent blocks of 256 threads, two an SM (97 KB of shared
 // memory each), walk items of 32 frames (8 patches) of one clip, clip-major;
 // a block stages the next item's audio span by cp.async while it transforms
 // the current one, a half-warp a frame (mel_fft.cuh `logmel_walk`). Items
-// that hold no real frame only write the zero pad rows. The bf16 entry keeps
-// a block a (clip, chunk of 48 frames) on the direct DFT. The frame-selector
+// that hold no real frame only write the zero pad rows. The bf16 entry's
+// persistent blocks walk items of 128 frames flat across the clips, the
+// basis streamed by TMA (mel_dft.cuh). The frame-selector
 // and lane-placement matmuls of the Pallas kernel are plain indexed stores
 // here.
 //
@@ -37,25 +39,13 @@
 // overlapping, so the segment is read where it lies instead of being copied
 // out window by window; each block reads its own clip's samples either way.
 // The 16-byte copies stay whenever a clip pointer is 16-byte aligned and t %
-// 4 == 0 (mel_fft.cuh tests each one); 4-byte copies stage the others.
+// 4 == 0 (mel_fft.cuh and mel_dft.cuh test each one); 4-byte copies stage
+// the others.
 
+#include "mel_dft.cuh"
 #include "mel_fft.cuh"
 
 namespace {
-
-// the bf16 DFT: a block a (clip, chunk of 48 frames)
-__global__ void __launch_bounds__(mel::THREADS, 3)
-mel_patches_bf16_kernel(const float* __restrict__ audio, const float* __restrict__ basis,
-                        const float* __restrict__ fb, float* __restrict__ out,
-                        int t, long ld, int usable, int p_pad) {
-  extern __shared__ float4 smem4[];
-  const int clip = blockIdx.x;
-  const int f0 = blockIdx.y * mel::FCHUNK;
-  float* out_clip = out + static_cast<size_t>(clip) * p_pad * 4 * mel::NMEL;
-  mel::logmel_chunk_bf16(audio + static_cast<size_t>(clip) * ld, t, f0, usable, 4 * p_pad, basis, fb,
-                         reinterpret_cast<unsigned char*>(smem4),
-                         [&](int fl, int m, float v) { out_clip[(f0 + fl) * mel::NMEL + m] = v; });
-}
 
 // the float32 FFT: persistent blocks walk (clip, 32 frames) items
 __global__ void __launch_bounds__(mel::THREADS, 2)
@@ -73,8 +63,10 @@ mel_patches_kernel(const float* __restrict__ audio, const float* __restrict__ ba
 
 }  // namespace
 
-// the larger entry's (the float32 FFT's)
-extern "C" int mel_patches_smem_bytes() { return static_cast<int>(mel::FFT_SMEM_BYTES); }
+// the larger entry's (the bf16 DFT's)
+extern "C" int mel_patches_smem_bytes() {
+  return static_cast<int>(mel::FFT_SMEM_BYTES > mel::dft::SMEM_BYTES ? mel::FFT_SMEM_BYTES : mel::dft::SMEM_BYTES);
+}
 
 // the entries take the row stride `ld` after t; a build that says so here
 // (compare_builds.py reads it) is launched with it
@@ -97,12 +89,6 @@ extern "C" int mel_patches_launch(const void* audio, const void* basis, const vo
 extern "C" int mel_patches_bf16_launch(const void* audio, const void* basis, const void* fb,
                                        void* out, int b, int t, int ld, int usable, int p_pad,
                                        void* stream) {
-  const cudaError_t err = cudaFuncSetAttribute(mel_patches_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(mel::SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(b, (4 * p_pad + mel::FCHUNK - 1) / mel::FCHUNK);
-  mel_patches_bf16_kernel<<<grid, mel::THREADS, mel::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(audio), static_cast<const float*>(basis), static_cast<const float*>(fb),
-      static_cast<float*>(out), t, static_cast<long>(ld), usable, p_pad);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(mel::dft::launch(audio, basis, fb, out, b, t, ld, usable, 4 * p_pad,
+                                           static_cast<cudaStream_t>(stream)));
 }

@@ -7,7 +7,8 @@
 // last frame need not complete a patch). The float32 arithmetic is
 // mel_fft.cuh's, shared with K1 and K4, and a frame's values depend only on
 // its samples, so this kernel's frames equal K1's patch rows bit for bit;
-// the bf16 entry runs mel_common.cuh's `logmel_chunk_bf16`, as K1's does.
+// the bf16 entry runs mel_dft.cuh's `mel_dft_kernel`, as K1's does, and its
+// frames equal K1-bf16's bit for bit too.
 //
 // What bounds it: as K1, the function's bytes (a frame's least work is about
 // 9.4 kFLOP, below the card's fp32 ridge); the kernel's own method is that FFT
@@ -20,22 +21,10 @@
 // chunks of hops and the batch to its clip tile; here the audio copies are
 // masked past t and the stores past the last frame, so nothing is padded.
 
+#include "mel_dft.cuh"
 #include "mel_fft.cuh"
 
 namespace {
-
-// the bf16 DFT: a block a (clip, chunk of 48 frames)
-__global__ void __launch_bounds__(mel::THREADS, 3)
-mel_spectrogram_bf16_kernel(const float* __restrict__ audio, const float* __restrict__ basis,
-                            const float* __restrict__ fb, float* __restrict__ out, int t, int frames) {
-  extern __shared__ float4 smem4[];
-  const int clip = blockIdx.x;
-  const int f0 = blockIdx.y * mel::FCHUNK;
-  float* out_clip = out + static_cast<size_t>(clip) * frames * mel::NMEL;
-  mel::logmel_chunk_bf16(audio + static_cast<size_t>(clip) * t, t, f0, frames, frames, basis, fb,
-                         reinterpret_cast<unsigned char*>(smem4),
-                         [&](int fl, int m, float v) { out_clip[(f0 + fl) * mel::NMEL + m] = v; });
-}
 
 // the float32 FFT: persistent blocks walk (clip, 32 frames) items
 __global__ void __launch_bounds__(mel::THREADS, 2)
@@ -52,8 +41,10 @@ mel_spectrogram_kernel(const float* __restrict__ audio, const float* __restrict_
 
 }  // namespace
 
-// the larger entry's (the float32 FFT's)
-extern "C" int mel_spectrogram_smem_bytes() { return static_cast<int>(mel::FFT_SMEM_BYTES); }
+// the larger entry's (the bf16 DFT's)
+extern "C" int mel_spectrogram_smem_bytes() {
+  return static_cast<int>(mel::FFT_SMEM_BYTES > mel::dft::SMEM_BYTES ? mel::FFT_SMEM_BYTES : mel::dft::SMEM_BYTES);
+}
 
 // the float32 FFT (K3)
 extern "C" int mel_spectrogram_launch(const void* audio, const void* basis, const void* fb,
@@ -71,13 +62,6 @@ extern "C" int mel_spectrogram_launch(const void* audio, const void* basis, cons
 // the bf16 DFT (dft_dtype=bfloat16)
 extern "C" int mel_spectrogram_bf16_launch(const void* audio, const void* basis, const void* fb,
                                            void* out, int b, int t, int frames, void* stream) {
-  const cudaError_t err = cudaFuncSetAttribute(mel_spectrogram_bf16_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(mel::SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(b, (frames + mel::FCHUNK - 1) / mel::FCHUNK);
-  mel_spectrogram_bf16_kernel<<<grid, mel::THREADS, mel::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(audio), static_cast<const float*>(basis), static_cast<const float*>(fb),
-      static_cast<float*>(out), t, frames);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(mel::dft::launch(audio, basis, fb, out, b, t, t, frames, frames,
+                                           static_cast<cudaStream_t>(stream)));
 }

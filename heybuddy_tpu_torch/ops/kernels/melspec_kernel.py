@@ -23,9 +23,11 @@ Counterparts of the JAX package's ``ops/pallas/melspec_kernel.py``:
 On the card K1 and K3 (and K4's mel) compute each frame's spectrum as a
 float32 real FFT on the CUDA cores (``csrc/mel_fft.cuh``), and K1b as a split
 tensor-core product of fp16 pairs (``csrc/mel_patches_fat.cu``), both within
-5e-4 of the float32 plain version. The kernels read their precomputed data
-from behind the float32 constants (``mel_constants``): the FFT's window and
-twiddle table, the basis's 16-bit operands, the filterbank's bands; so their
+5e-4 of the float32 plain version; the bf16-DFT entries of K1 and K3 as one
+wgmma product over frames walked flat across the clips (``csrc/mel_dft.cuh``,
+``dft_walk``). The kernels read their precomputed data from behind the
+float32 constants (``mel_constants``): the FFT's window and twiddle table,
+the basis's 16-bit operands and wgmma tiles, the filterbank's bands; so their
 C entries take the same pointers as before, and each wrapper raises unless
 the buffers it passes hold those bytes (``check_constants``).
 
@@ -146,23 +148,63 @@ FAT_TILE_BYTES = FAT_K * 2 * FAT_BINS * 2
 FAT_STAGES = (N_FREQ_PAD // FAT_BINS) * HOP_BLOCKS * (MEL_HOP_LENGTH // FAT_K)  # 60
 
 
+# The bf16 DFT's wgmma operand (csrc/mel_dft.cuh): bf16(b) as 25 k16 x n256
+# tiles, the 128 cos | 128 sin columns side by side, k-step by k-step
+DFT_K = 16
+DFT_KSTEPS = TAPS // DFT_K  # 25
+DFT_TILE_BYTES = DFT_K * 2 * N_FREQ_PAD * 2
+# its walk (mel_dft.cuh ITEM, HALO): items of DFT_ITEM rows of the padded
+# frame sequence, clip c's frames f = 0 .. usable + DFT_HALO - 1 at row
+# c (usable + DFT_HALO) + f, the last DFT_HALO of each clip dropped
+DFT_ITEM = 128
+DFT_HALO = (TAPS - 1) // MEL_HOP_LENGTH
+
+
+def dft_walk(b: int, usable: int) -> Tuple[int, int]:
+    """
+    (rows a clip, items) of the bf16-DFT body's walk over ``b`` clips of
+    ``usable`` frames each: every item computes DFT_ITEM rows, the frames of
+    its rows and, where a row is a clip's padding or past the last clip, a
+    row it drops.
+    """
+    rows_clip = usable + DFT_HALO
+    return rows_clip, -(-b * rows_clip // DFT_ITEM)
+
+
+def dft_tiles(values: torch.Tensor) -> torch.Tensor:
+    """
+    The taps (400, 256) of 16-bit ``values`` as the bf16 DFT's operand tiles:
+    for each k-step s, rows 16 s .. 16 s + 15 and all 256 columns, as wgmma's
+    K-major layout without swizzle reads them (``fat_tiles``' layout): 8 x 8
+    core matrices of 8 columns (n) by 8 rows (k), 128 contiguous bytes each,
+    the two along k next to each other and the 32 along n 256 bytes apart.
+    Returns (DFT_KSTEPS, 32, 2, 8, 8): tile, n group, k half, n, k.
+    """
+    tiles = [values[s * DFT_K : (s + 1) * DFT_K].t().reshape(-1, 8, 2, 8).permute(0, 2, 1, 3)
+             for s in range(DFT_KSTEPS)]
+    return torch.stack(tiles).contiguous()
+
+
 def _with_operands(taps: torch.Tensor) -> torch.Tensor:
     """
     One float32 buffer that holds ``taps`` (400, 256) and behind it the DFT
     operands, each (400, 256) of 16-bit values: the fp16 pair hi = fp16(b *
-    256), lo = fp16(b * 256 - hi), then bf16(b) for the bf16 DFT
-    (``csrc/mel_common.cuh`` OPS_*); last the FFT's table
-    (``_numpy_fft_table``, ``csrc/mel_fft.cuh``). No kernel of this tree reads
-    the fp16 pair: it stays so that the buffer's prefix is the one a build of
-    the split-DFT K1, K3 and K4 reads (``compare_builds`` launches such a build
-    on these constants). Returns the (400, 256) float32 view of its head,
-    whose data pointer is the buffer's.
+    256), lo = fp16(b * 256 - hi), then bf16(b) row by row
+    (``csrc/mel_common.cuh`` OPS_*); then the FFT's table
+    (``_numpy_fft_table``, ``csrc/mel_fft.cuh``); last bf16(b) as the bf16
+    DFT's tiles (``dft_tiles``, ``csrc/mel_dft.cuh`` DFT_TILES_OFFSET). No
+    kernel of this tree reads the fp16 pair or the bf16 rows: they stay so
+    that the buffer's prefix is the one earlier builds of K1, K3 and K4 read
+    (``compare_builds`` launches such builds on these constants). Returns
+    the (400, 256) float32 view of its head, whose data pointer is the
+    buffer's.
     """
     scaled = taps * SPLIT_BASIS_SCALE  # exact: a power of two
     hi = scaled.half()
     lo = (scaled - hi.float()).half()
+    b16 = taps.bfloat16()
     table = torch.from_numpy(_numpy_fft_table()).to(taps.device)
-    raw = [t.contiguous().view(torch.uint8).reshape(-1) for t in (taps, hi, lo, taps.bfloat16(), table)]
+    raw = [t.contiguous().view(torch.uint8).reshape(-1) for t in (taps, hi, lo, b16, table, dft_tiles(b16))]
     return torch.cat(raw).view(torch.float32)[: taps.numel()].view(taps.shape)
 
 
@@ -234,12 +276,13 @@ def mel_constants(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, tor
 
 # bytes the kernels read from the buffers that ``taps``, ``blocks`` and ``fb``
 # head: the float32 taps, three 16-bit operands (``csrc/mel_common.cuh``
-# OPS_*) and the FFT's table from FFT_TABLE_OFFSET on (``csrc/mel_fft.cuh``);
-# the float32 hop blocks and three 16-bit operands
-# (``csrc/mel_patches_fat.cu`` OPS_*); the float32 filterbank and two int32
-# bands (FB_FLOATS)
+# OPS_*), the FFT's table from FFT_TABLE_OFFSET on (``csrc/mel_fft.cuh``) and
+# the bf16 DFT's tiles from DFT_TILES_OFFSET on (``csrc/mel_dft.cuh``); the
+# float32 hop blocks and three 16-bit operands (``csrc/mel_patches_fat.cu``
+# OPS_*); the float32 filterbank and two int32 bands (FB_FLOATS)
 FFT_TABLE_OFFSET = TAPS * 2 * N_FREQ_PAD * (4 + 3 * 2)
-OPERAND_BYTES = FFT_TABLE_OFFSET + FFT_TABLE_FLOATS * 4
+DFT_TILES_OFFSET = FFT_TABLE_OFFSET + FFT_TABLE_FLOATS * 4
+OPERAND_BYTES = DFT_TILES_OFFSET + DFT_KSTEPS * DFT_TILE_BYTES
 FAT_OPERAND_BYTES = MEL_HOP_LENGTH * HOP_BLOCKS * 2 * N_FREQ_PAD * 4 + FAT_STAGES * FAT_TILE_BYTES * 3
 BAND_BYTES = (N_FREQ_PAD + 2) * MEL_BINS * 4
 

@@ -64,7 +64,8 @@ def _raw(t: torch.Tensor) -> torch.Tensor:
 def _table() -> torch.Tensor:
     """The FFT's float32 table, read from behind the taps' operands."""
     taps, _, _ = mk.mel_constants(CPU)
-    return _raw(taps)[mk.FFT_TABLE_OFFSET :].view(torch.float32).clone()
+    end = mk.FFT_TABLE_OFFSET + mk.FFT_TABLE_FLOATS * 4  # the bf16 DFT's tiles follow it
+    return _raw(taps)[mk.FFT_TABLE_OFFSET : end].view(torch.float32).clone()
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -325,7 +326,7 @@ def test_check_constants_refuses_a_buffer_that_ends_before_the_table():
     """A taps buffer laid out as before the FFT (taps and 16-bit operands only) is too short."""
     taps, blocks, fb = mk.mel_constants(CPU)
     short = _raw(taps)[: mk.FFT_TABLE_OFFSET].clone().view(torch.float32)[: taps.numel()].view(taps.shape)
-    assert short.untyped_storage().nbytes() == mk.OPERAND_BYTES - mk.FFT_TABLE_FLOATS * 4
+    assert short.untyped_storage().nbytes() == mk.FFT_TABLE_OFFSET < mk.OPERAND_BYTES
     with pytest.raises(ValueError, match="taps"):
         mk.check_constants(short, fb, blocks)
     mk.check_constants(taps, fb, blocks)

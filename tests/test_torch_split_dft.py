@@ -221,13 +221,14 @@ def test_int16_samples_are_exact_in_their_pair(dtype, scale):
 
 
 def test_the_basis_buffer_holds_its_operands_behind_it():
-    """The float32 taps, the fp16 pair and the bf16 operand, then the FFT's table."""
+    """The float32 taps, the fp16 pair and the bf16 operand, then the FFT's table, then the bf16 DFT's tiles."""
     taps, _, _ = mk.mel_constants(torch.device("cpu"))
     assert torch.equal(taps, torch.from_numpy(mk._numpy_constants()[0]))
     n = taps.numel()
     raw = torch.frombuffer(bytearray(bytes(taps.untyped_storage())), dtype=torch.uint8)
-    assert raw.numel() == n * (4 + 3 * 2) + mk.FFT_TABLE_FLOATS * 4
+    assert raw.numel() == n * (4 + 3 * 2) + mk.FFT_TABLE_FLOATS * 4 + n * 2
     assert mk.FFT_TABLE_OFFSET == n * (4 + 3 * 2)
+    assert mk.DFT_TILES_OFFSET == mk.FFT_TABLE_OFFSET + mk.FFT_TABLE_FLOATS * 4
     hi = raw[4 * n : 6 * n].view(torch.float16).reshape(taps.shape)
     lo = raw[6 * n : 8 * n].view(torch.float16).reshape(taps.shape)
     b16 = raw[8 * n : 10 * n].view(torch.bfloat16).reshape(taps.shape)
@@ -235,6 +236,8 @@ def test_the_basis_buffer_holds_its_operands_behind_it():
     assert torch.equal(hi, scaled.half())
     assert torch.equal(lo, (scaled - hi.float()).half())
     assert torch.equal(b16, taps.bfloat16())
+    tiles = raw[mk.DFT_TILES_OFFSET :].view(torch.bfloat16).view(mk.DFT_KSTEPS, 32, 2, 8, 8)
+    assert torch.equal(tiles, mk.dft_tiles(taps.bfloat16()))
 
 
 def test_the_filterbank_buffer_holds_each_bins_band_behind_it():
