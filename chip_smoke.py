@@ -2981,6 +2981,88 @@ def tools_phase(dev: torch.device, tmp: str) -> Dict:
     return {"paths": paths, "summary": summary}
 
 
+SWEEP_PASSES = 2  # timed passes of the sweep's variants (the tool's default is 8)
+E2E_CLIPS = 64
+E2E_TRAIN_STEPS = 50
+# the JSON keys of scripts/end_to_end_bench.py; the port's tool adds "device"
+E2E_KEYS = ("tts_clips_per_s", "tts_device_clips_per_s", "pipeline_clips_per_s", "pipeline_device_clips_per_s",
+            "featurize_clips_per_s", "train_steps_per_s", "probe_wall_s", "extrapolated")
+E2E_EXTRAPOLATED_KEYS = ("total_clips", "pipeline_clips_per_s", "feature_generation_s", "training_s",
+                         "end_to_end_s", "end_to_end_h")
+# the first value of K2's pooling group that must not build: a block's consumer threads hold one
+# (window, head) row each, four chunks' worth
+SWEEP_REFUSED_GROUP = 5
+
+
+def sweep_phase(dev: torch.device, tmp: str) -> Dict:
+    """
+    The two measuring tools: (a) ``kernel_perf_sweep``'s variants of K2 (the
+    stage stand-ins and the pooling groups that build), built at once, each
+    held against its check (a stand-in against its plain version by K2's
+    rule, a group bit for bit against the baseline) with each variant's
+    launches counted under its own label, then timed in SWEEP_PASSES
+    interleaved passes; a group of SWEEP_REFUSED_GROUP must fail to build.
+    (b) ``end_to_end_bench`` at --clips E2E_CLIPS --train-steps
+    E2E_TRAIN_STEPS: the JAX script's key set plus "device", every rate
+    finite and above 0.
+    """
+    from heybuddy_tpu_torch.tools import end_to_end_bench as e2e
+    from heybuddy_tpu_torch.tools import kernel_perf_sweep as kps
+
+    t_phase = time.perf_counter()
+    paths: Dict[str, Dict[str, int]] = {}
+    vs = kps.variants(kps.parse_tiles(None), skip_ablations=False)
+    build_s = build.build_all(["embedding_pool"], [v.defines for v in vs])
+    print(f"sweep (a): built {len(vs)} variants of embedding_pool in {build_s:.1f} s")
+    for v in vs:
+        report = kps.ptxas_report(build.BUILD_LOGS.get(build.label("embedding_pool", v.defines), ""))
+        print(f"  {v.label}: {'; '.join(report)}")
+        check(not any("SERIALISED" in line for line in report), f"sweep {v.label}: ptxas serialised its wgmmas")
+    try:
+        build.build_all(["embedding_pool"], [kps.tile_defines(SWEEP_REFUSED_GROUP)])
+        refused = None
+    except build.BuildError as exc:
+        refused = next((line.strip() for line in str(exc).splitlines() if "static assert" in line
+                        or "static_assert" in line), str(exc).splitlines()[-1])
+    print(f"  GROUP={SWEEP_REFUSED_GROUP}: refused by the build: {refused}")
+    check(refused is not None, f"K2 built with GROUP={SWEEP_REFUSED_GROUP}")
+    net, patches, starts, n = kps.inputs(BATCH, dev)
+    labels = [build.label("embedding_pool", v.defines) for v in vs]
+    checks, paths["sweep_checks"] = run_path(
+        "sweep_checks", lambda: kps.check_variants(vs, net, patches, starts, n, emit=lambda line: print(f"  {line}")),
+        tuple(labels))
+    # the baseline twice (the tiles' reference, then its own check), each other variant once
+    expect = {label: 1 for label in labels}
+    expect[labels[0]] = 2
+    check(paths["sweep_checks"] == expect, f"sweep checks launched {paths['sweep_checks']}, expected {expect}")
+    best = kps.time_variants(vs, net, patches, starts, n, SWEEP_PASSES, emit=lambda line: print(f"  {line}"))
+    base_ms = best[vs[0].label]
+    for v in vs:
+        print(f"  {v.label:>24}: {best[v.label]:.4f} ms (delta {base_ms - best[v.label]:+.4f}) {v.record()}")
+    sweep_s = time.perf_counter() - t_phase
+    del patches
+
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "e2e.json")
+    argv = ["--clips", str(E2E_CLIPS), "--train-steps", str(E2E_TRAIN_STEPS), "--json", out]
+    lines, paths["e2e_bench"] = run_path("e2e_bench", lambda: run_tool(e2e.main, argv),
+                                         ("mel_patches", "embedding_pool"))
+    e2e_s = time.perf_counter() - t0
+    with open(out) as f:
+        result = json.load(f)
+    print(f"sweep (b) end_to_end_bench {' '.join(argv[:4])}: {json.dumps(result)}; launches {paths['e2e_bench']}; "
+          f"{e2e_s:.1f} s")
+    check(set(result) == set(E2E_KEYS) | {"device"}, f"end_to_end_bench keys {sorted(result)}")
+    check(set(result["extrapolated"]) == set(E2E_EXTRAPOLATED_KEYS),
+          f"end_to_end_bench extrapolated keys {sorted(result['extrapolated'])}")
+    rates = [v for k, v in result.items() if k.endswith("_per_s")] + list(result["extrapolated"].values())
+    check(all(np.isfinite(v) and v > 0 for v in rates), f"end_to_end_bench rates {result}")
+    seconds = time.perf_counter() - t_phase
+    print(f"sweep phase: {seconds:.1f} s (sweep {sweep_s:.1f} s, end_to_end_bench {e2e_s:.1f} s)")
+    return {"paths": paths, "summary": {"sweep_ms": best, "sweep_build_s": build_s, "e2e": result,
+                                        "seconds": seconds}}
+
+
 def device_busy(fn: Callable[[], object]) -> Dict[str, float]:
     """Host-clock ms of ``fn`` under ``torch.profiler`` and the ms its CUDA
     kernels ran (None when the trace holds no device events; the device
@@ -3287,6 +3369,10 @@ def main() -> int:
         tools = tools_phase(dev, tmp)
         paths.update(tools["paths"])
         elapsed("tools")
+        # ---- the measuring tools: K2's stage stand-ins and tile sweep, the end-to-end bench ----
+        sweep = sweep_phase(dev, tmp)
+        paths.update(sweep["paths"])
+        elapsed("sweep")
     score_err = float(np.abs(s_gpu - s_cpu).max())
     print(f"predict scores card {np.round(s_gpu, 4).tolist()} vs plain path "
           f"{np.round(s_cpu, 4).tolist()}: max |d| {score_err:.3e}")
@@ -3504,6 +3590,7 @@ def main() -> int:
                       "stream": {**stream["summary"], "train": stream["train"]}, "listen": listen,
                       "pretrain": pretrain["summary"], "onnx": onnx["summary"], "vits": vits["summary"],
                       "mesh": mesh["summary"], "quality": quality["summary"], "tools": tools["summary"],
+                      "sweep": sweep["summary"],
                       "seconds": time.perf_counter() - START, **extract}))
     print(f"chip_smoke.py: {time.perf_counter() - START:.1f} s in all")
     print(json.dumps({"ok": True, "device": {

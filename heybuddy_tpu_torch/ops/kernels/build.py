@@ -18,6 +18,13 @@ kernels it went through. A library's main entry has its name; a variant
 missing ``nvcc`` or a failed build raises: there is no fallback. ``library_from`` points a kernel's launches at another build
 of its source for a while, so that one process can time two versions of a
 kernel through the same wrapper.
+
+A build may carry preprocessor ``defines`` (K2's stage stand-ins
+``HB_ABLATE_<STAGE>`` and its pooling group ``HB_K2_GROUP=<n>``): the
+library's hash then covers them too, and its launches count under its own
+``label``, ``<entry>[<defines>]``, never under the production entry's. With
+no defines the command, the library's name and the label are the
+production build's.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ import torch
 
 __all__ = [
     "SOURCES", "NVCC_FLAGS", "LAUNCHES", "library", "library_path", "build_all", "launch",
-    "library_from", "nvcc_command", "smem_bytes", "BuildError",
+    "library_from", "nvcc_command", "smem_bytes", "BuildError", "label",
 ]
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -52,13 +59,20 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# launches of each kernel in this process, by source name
+# launches of each kernel in this process, by entry (``label`` for a build with defines)
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LOCK = threading.Lock()
-_LIBS: Dict[str, ctypes.CDLL] = {}
-# compiler output (ptxas register / shared-memory report) of this process's builds
+_LIBS: Dict[str, ctypes.CDLL] = {}  # by label
+# compiler output (ptxas register / shared-memory report) of this process's builds, by label
 BUILD_LOGS: Dict[str, str] = {}
+
+Defines = Tuple[str, ...]
+
+
+def label(name: str, defines: Defines = ()) -> str:
+    """The name of a build: ``name``, or ``name[define define ...]`` for a build with defines."""
+    return f"{name}[{' '.join(defines)}]" if defines else name
 
 
 class BuildError(RuntimeError):
@@ -75,15 +89,17 @@ def _nvcc() -> str:
     raise BuildError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
-def nvcc_command(src: str, out: str) -> List[str]:
-    """The command that builds the kernel source ``src`` into the library ``out``."""
-    return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
+def nvcc_command(src: str, out: str, defines: Defines = ()) -> List[str]:
+    """The command that builds the kernel source ``src`` with ``defines`` into the library ``out``."""
+    return [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", out, src]
 
 
-def _target(name: str) -> Tuple[str, str]:
-    """(source path, library path); the name hashes the flags, source and headers."""
+def _target(name: str, defines: Defines = ()) -> Tuple[str, str]:
+    """(source path, library path); the name hashes the flags, the defines, source and headers."""
     src = os.path.join(CSRC, f"{name}.cu")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    if defines:
+        h.update(" ".join(f"-D{d}" for d in defines).encode())
     headers: List[str] = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     for path in (src, *headers):
         h.update(os.path.basename(path).encode())
@@ -97,15 +113,15 @@ def library_path(name: str) -> str:
     return _target(name)[1]
 
 
-def _start(name: str) -> Optional[Tuple[subprocess.Popen, str, str]]:
-    """Start nvcc for ``name`` unless its library is already built."""
-    src, out = _target(name)
+def _start(name: str, defines: Defines) -> Optional[Tuple[subprocess.Popen, str, str]]:
+    """Start nvcc for ``name`` with ``defines`` unless its library is already built."""
+    src, out = _target(name, defines)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     proc = subprocess.Popen(
-        nvcc_command(src, tmp),
+        nvcc_command(src, tmp, defines) if defines else nvcc_command(src, tmp),
         stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT,
         text=True,
@@ -124,17 +140,20 @@ def _finish(name: str, job: Tuple[subprocess.Popen, str, str]) -> None:
     os.replace(tmp, out)
 
 
-def build_all(names: Iterable[str] = SOURCES) -> float:
-    """Build every named kernel library in parallel; returns the seconds taken."""
+def build_all(names: Iterable[str] = SOURCES, defines: Iterable[Defines] = ((),)) -> float:
+    """
+    Build every named kernel library with each set of ``defines`` (default:
+    none), one nvcc each, all at once; returns the seconds taken.
+    """
     t0 = time.perf_counter()
     with _LOCK:
-        jobs = {name: _start(name) for name in names}
+        jobs = {label(name, d): _start(name, d) for name in names for d in defines}
         errors = []
-        for name, job in jobs.items():
+        for key, job in jobs.items():
             if job is None:
                 continue
             try:
-                _finish(name, job)
+                _finish(key, job)
             except BuildError as exc:
                 errors.append(str(exc))
         if errors:
@@ -142,22 +161,23 @@ def build_all(names: Iterable[str] = SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built first if needed."""
-    lib = _LIBS.get(name)
+def library(name: str, defines: Defines = ()) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (built with ``defines``), built first if needed."""
+    key = label(name, defines)
+    lib = _LIBS.get(key)
     if lib is None:
-        build_all([name])
+        build_all([name], [defines])
         with _LOCK:
-            lib = _LIBS.get(name)
+            lib = _LIBS.get(key)
             if lib is None:
-                lib = ctypes.CDLL(_target(name)[1])
-                _LIBS[name] = lib
+                lib = ctypes.CDLL(_target(name, defines)[1])
+                _LIBS[key] = lib
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(name: str, entry: str, n_pointers: int, n_ints: int):
-    fn = getattr(library(name), f"{entry}_launch")
+def _entry(name: str, entry: str, n_pointers: int, n_ints: int, defines: Defines = ()):
+    fn = getattr(library(name, defines), f"{entry}_launch")
     fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -169,20 +189,22 @@ def launch(
     pointers: Sequence[int],
     ints: Sequence[int],
     entry: Optional[str] = None,
+    defines: Defines = (),
 ) -> None:
     """
-    Launch kernel ``entry`` (default ``name``) of library ``name`` on
-    ``device``'s current stream with the given device pointers
-    (``tensor.data_ptr()``) and ints; raise if CUDA refused the launch, else
-    count it under ``entry``. The caller keeps the tensors alive.
+    Launch kernel ``entry`` (default ``name``) of library ``name``, built
+    with ``defines``, on ``device``'s current stream with the given device
+    pointers (``tensor.data_ptr()``) and ints; raise if CUDA refused the
+    launch, else count it under ``label(entry, defines)``. The caller keeps
+    the tensors alive.
     """
     entry = entry or name
-    fn = _entry(name, entry, len(pointers), len(ints))
+    fn = _entry(name, entry, len(pointers), len(ints), tuple(defines))
     with torch.cuda.device(device):
         status = fn(*pointers, *ints, torch.cuda.current_stream().cuda_stream)
     if status != 0:
-        raise RuntimeError(f"{entry}: CUDA error {status} at launch")
-    LAUNCHES[entry] += 1
+        raise RuntimeError(f"{label(entry, defines)}: CUDA error {status} at launch")
+    LAUNCHES[label(entry, defines)] += 1
 
 
 def smem_bytes(name: str) -> int:

@@ -23,6 +23,9 @@
 // block), so it still spreads over the card. Then
 // `embedding_pool_kernel` pools and runs the head, four 16-window chunks a
 // block. A row's result does not depend on the chunk it sits in.
+//
+// Built with -DHB_ABLATE_<STAGE> or -DHB_K2_GROUP=<n>, it is a variant for
+// the stage-cost sweep (trunk_pool.cuh), never the production kernel.
 
 #include "trunk_pool.cuh"
 
@@ -74,8 +77,14 @@ __global__ void __launch_bounds__(trunk::THREADS, 1) embedding_trunk_kernel(cons
   if (warp >= trunk::PRODUCER_WARP) {
     hopper::setmaxnreg_dec<trunk::PRODUCER_REGS>();
     if (warp == trunk::PRODUCER_WARP && leader) {
+#if defined(HB_ABLATE_TRUNK) && !defined(HB_ABLATE_NOOP)
+      // the `trunk` stand-in's consumers take patch_proj's slots only (the
+      // `noop` stand-in's take none)
+      for (int c = blockIdx.x; c < chunks; c += gridDim.x) ring.fill(args.net.trunk_ops(), trunk::PROJ_SLOTS);
+#elif !defined(HB_ABLATE_NOOP)
       for (int c = blockIdx.x; c < chunks; c += gridDim.x)
         ring.fill(args.net.trunk_ops(), trunk::PROJ_SLOTS + args.net.n_blocks * trunk::BLOCK_SLOTS);
+#endif
     } else if (warp == trunk::PRODUCER_WARP + 1 && leader) {
       // each chunk's patch rows, a bulk copy a row (the buffer's rows are
       // padded), once the previous chunk's are read

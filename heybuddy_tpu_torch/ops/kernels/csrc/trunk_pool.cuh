@@ -59,6 +59,15 @@
 //    for each 48 of its 96 columns, its weights streamed through a ring of
 //    their own. The Pallas selector matmuls (tile_h, gs, sel_h) and the
 //    banded (WH, P) weight matrix become indexing by window start.
+//
+// Build variants for K2's stage costs (tools/kernel_perf_sweep.py), none in
+// a production build: -DHB_ABLATE_<STAGE> replaces a stage by the JAX
+// kernel's stand-in of the same shape (its _trunk_pool_body's `ablate`;
+// embedding_kernel.ABLATIONS), each keeping the data the stand-in reads, and
+// where a stand-in reads fewer weights (TRUNK, HEAD_MM, NOOP) the producer
+// fills only the slots its consumers take. -DHB_K2_GROUP=<n> pools n < 4
+// chunks a block; the consumer warps past them pool nothing. Without these
+// defines the preprocessed source is the production one.
 
 #pragma once
 
@@ -209,7 +218,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float gelu(float h) { return 0.5f * h * (1.0f + erff(h * 0.70710678118654752f)); }
+__device__ __forceinline__ float gelu(float h) {
+#ifdef HB_ABLATE_GELU
+  return fmaxf(h, 0.0f);  // the `gelu` stand-in: ReLU
+#else
+  return 0.5f * h * (1.0f + erff(h * 0.70710678118654752f));
+#endif
+}
 
 // A ring of operand slots filled by a producer thread. Both sides count the
 // slots they have passed; slot i lives in ring position i % depth.
@@ -271,6 +286,13 @@ __device__ __forceinline__ void zero(float (&d)[N]) {
 // normalised pair of columns 8 j + 2 q, + 1 of row 8 h + g.
 template <int N, typename Out>
 __device__ __forceinline__ void rms_pairs(const float (&v)[N / 2], Out out) {
+#ifdef HB_ABLATE_TRUNK_RMS
+  // the `trunk_rms` stand-in: a block's up product reads the features as they are
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) out(h, j, v[4 * j + 2 * h], v[4 * j + 2 * h + 1]);
+#else
   float mean[2];
   float scale[2];
 #pragma unroll
@@ -297,6 +319,7 @@ __device__ __forceinline__ void rms_pairs(const float (&v)[N / 2], Out out) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       out(h, j, (v[4 * j + 2 * h] - mean[h]) * scale[h], (v[4 * j + 2 * h + 1] - mean[h]) * scale[h]);
+#endif
 }
 
 // The trunk of one warpgroup's tile of 64 rows, `rows` of them real (the
@@ -317,6 +340,25 @@ __device__ __forceinline__ void trunk_tile(const Weights& net, Ring& ring, int w
   const int q = lane & 3;
   const int ra = 16 * wi + g;  // this thread's accumulator rows: ra, ra + 8
 
+#ifdef HB_ABLATE_NOOP
+  // the `noop` stand-in, the streaming floor: every input value read and
+  // summed, 0 x each row's sum kept as its first score, which the pooling
+  // kernel adds to b_head; no weights, no products
+  {
+    constexpr int HALF = PD / 2;
+    const int r = 16 * wi + (lane & 15);
+    const int c0 = HALF * (lane >> 4);
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < HALF / 4; ++i) {
+      const float4 v = r < rows ? load(r, c0 + 4 * i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      s += (v.x + v.y) + (v.z + v.w);
+    }
+    input_read();
+    s += __shfl_xor_sync(0xffffffffu, s, 16);
+    if (lane < 16 && r < rows) scores_g[static_cast<size_t>(row_out(r)) * HEADS] = 0.0f * s;
+  }
+#else
   // xn (the A operand) is rewritten only after every warp's products that
   // read it are retired, and published to wgmma before the next product
   auto publish = [&](auto write) {
@@ -392,6 +434,7 @@ __device__ __forceinline__ void trunk_tile(const Weights& net, Ring& ring, int w
   auto to_xn = [&](int h, int j, float lo, float hi) {
     *reinterpret_cast<uint32_t*>(xn_s + a_index<HID>(ra + 8 * h, 8 * j + 2 * q)) = pack_bf16(lo, hi);
   };
+#ifndef HB_ABLATE_TRUNK  // the `trunk` stand-in: no residual block
   publish([&] { rms_pairs<HID>(acc, to_xn); });
 
   for (int blk = 0; blk < net.n_blocks; ++blk) {
@@ -439,7 +482,9 @@ __device__ __forceinline__ void trunk_tile(const Weights& net, Ring& ring, int w
     }
     if (blk + 1 < net.n_blocks) publish([&] { rms_pairs<HID>(acc, to_xn); });
   }
+#endif
 
+#ifndef HB_ABLATE_SOFTMAX  // the `softmax` stand-in reads no scores
   // scores a = feats @ Q: each thread's 48 columns of its two rows, then the
   // four threads of a row; the features of the warp's rows to the scratch
   float a[2][HEADS];
@@ -472,6 +517,7 @@ __device__ __forceinline__ void trunk_tile(const Weights& net, Ring& ring, int w
       *reinterpret_cast<float4*>(scores_g + static_cast<size_t>(row_out(r)) * HEADS) =
           make_float4(a[h][0], a[h][1], a[h][2], a[h][3]);
   }
+#endif
   __syncwarp();
   constexpr int ROW_PIECES = HID / 8;  // 16-byte pieces of a feature row
   for (int i = lane; i < 16 * ROW_PIECES; i += 32) {
@@ -481,33 +527,54 @@ __device__ __forceinline__ void trunk_tile(const Weights& net, Ring& ring, int w
       *reinterpret_cast<uint4*>(feats_g + static_cast<size_t>(row_out(r)) * HID + c) =
           *reinterpret_cast<const uint4*>(feats_s + r * LDF + c);
   }
+#endif
 }
 
 // ---- the pooling and head phase -------------------------------------------------------------
 
 constexpr int WC = 16;            // windows of a pooling chunk
-constexpr int GROUP = 4;          // chunks of a block: 64 head rows
+#ifndef HB_K2_GROUP
+#define HB_K2_GROUP 4
+#endif
+constexpr int GROUP = HB_K2_GROUP;  // chunks of a block: 64 head rows
 constexpr int WH = WC * HEADS;    // (window, head) rows of a chunk: 64, four m16 tiles
 constexpr int KPOS = 32;          // the positional code's k, 19 padded
 constexpr int PSPAN = 48;         // patches of a chunk staged at once
 constexpr int LDA_POS = KPOS + 8;
 constexpr int LDA_PAT = PSPAN + 8;
 constexpr int HEAD_RING = 8;
+#ifdef HB_ABLATE_HEAD_MM
+constexpr int HEAD_MM_SLOTS = HID / 16 / EMB_KS;  // the `head_mm` stand-in's product: w_head[:192]
+#endif
 constexpr int POOL_BAR = 3;       // the consumers' named barrier (1, 2: the warpgroups')
 
 // shared memory of the pooling phase, bytes from a 1024-byte-aligned base
 constexpr int S_RING = 0;                                       // HEAD_RING x SLOT
 constexpr int S_POS = S_RING + HEAD_RING * SLOT;                // KPOS x LDF bf16
 constexpr int S_APOS = S_POS + KPOS * LDF * 2;                  // GROUP WH x LDA_POS bf16
+#if HB_K2_GROUP < 4
+// Fewer chunks a block: the A tiles keep a row a consumer thread (those of the
+// slots past the block's chunks zero) and the head's A its 64 rows.
+constexpr int S_APAT = S_APOS + CONSUMERS * 128 * LDA_POS * 2;
+constexpr int S_FEATS = S_APAT + CONSUMERS * 128 * LDA_PAT * 2;
+constexpr int S_HEADA = S_APAT;
+constexpr int S_POOL_END = S_FEATS + GROUP * PSPAN * LDF * 2;
+constexpr int S_HMAX = S_HEADA + TILE * POOLED * 2 > S_POOL_END ? S_HEADA + TILE * POOLED * 2 : S_POOL_END;
+#else
 constexpr int S_APAT = S_APOS + GROUP * WH * LDA_POS * 2;       // GROUP WH x LDA_PAT bf16
 constexpr int S_FEATS = S_APAT + GROUP * WH * LDA_PAT * 2;      // GROUP x PSPAN x LDF bf16
 constexpr int S_HEADA = S_APAT;  // then the head's A: 64 x 768 bf16 core matrices, over both
 constexpr int S_HMAX = S_FEATS + GROUP * PSPAN * LDF * 2;       // GROUP x HEADS float
+#endif
 constexpr int S_SPAN = S_HMAX + GROUP * HEADS * 4;              // GROUP x (first, end) patch
 constexpr int S_BARS = S_SPAN + GROUP * 2 * 4;                  // full[HEAD_RING], empty[...]
 constexpr int POOL_SMEM_BYTES = S_BARS + 2 * HEAD_RING * 8;
 static_assert(S_HEADA + TILE * POOLED * 2 <= S_HMAX, "the head's A fits over the pooling tiles");
+#if HB_K2_GROUP < 4
+static_assert(GROUP >= 1, "a block pools at least one chunk");
+#else
 static_assert(GROUP * WH == CONSUMERS * 128 && GROUP * WC == TILE, "a thread a (window, head) row");
+#endif
 static_assert(WPAT <= KPOS && PSPAN % 16 == 0 && S_BARS % 8 == 0, "pooling tiles");
 
 // Pooling chunks of the batch: clip c's windows w0 .. w0 + 15, w0 = 16 k.
@@ -517,6 +584,10 @@ struct PoolChunk {
   int nw;  // windows of the chunk, 0 past the batch
   __device__ PoolChunk(int index, int b, int n_windows) {
     const int per_clip = (n_windows + WC - 1) / WC;
+#if HB_K2_GROUP < 4
+    // a slot past the block's GROUP chunks holds none: a chunk past the batch
+    if (index >= (static_cast<int>(blockIdx.x) + 1) * GROUP) index = b * per_clip;
+#endif
     clip = index / per_clip;
     w0 = (index - clip * per_clip) * WC;
     nw = clip < b ? min(WC, n_windows - w0) : 0;
@@ -542,10 +613,24 @@ __device__ __forceinline__ void pool_group(const Weights& net, const bf16* __res
   __syncthreads();
   if (warp >= PRODUCER_WARP) {
     hopper::setmaxnreg_dec<PRODUCER_REGS>();
+#if defined(HB_ABLATE_HEAD_MM) && !defined(HB_ABLATE_NOOP)
+    if (warp == PRODUCER_WARP && lane == 0) ring.fill(net.head_ops(), HEAD_MM_SLOTS);
+#elif !defined(HB_ABLATE_NOOP)
     if (warp == PRODUCER_WARP && lane == 0) ring.fill(net.head_ops(), HEAD_SLOTS);  // in flight during the pooling
+#endif
     return;
   }
   hopper::setmaxnreg_inc<CONSUMER_REGS>();
+#ifdef HB_ABLATE_NOOP
+  // the `noop` stand-in: b_head + the clip's first score, 0 x its first input row's sum
+  for (int i = tid; i < GROUP * WC * EMB; i += CONSUMERS * 128) {
+    const PoolChunk ch(blockIdx.x * GROUP + i / (WC * EMB), b, n_windows);
+    const int wr = (i / EMB) % WC;
+    if (wr < ch.nw)
+      out[(static_cast<size_t>(ch.clip) * n_windows + ch.w0 + wr) * EMB + i % EMB] =
+          __ldg(net.bh + i % EMB) + scores_g[static_cast<size_t>(ch.clip) * p_pad * HEADS];
+  }
+#else
 
   bf16* pos_s = reinterpret_cast<bf16*>(smem + S_POS);
   bf16* apos_s = reinterpret_cast<bf16*>(smem + S_APOS);
@@ -567,6 +652,7 @@ __device__ __forceinline__ void pool_group(const Weights& net, const bf16* __res
   }
   if (warp < GROUP) {
     const PoolChunk ch(first + warp, b, n_windows);
+#ifndef HB_ABLATE_SOFTMAX
     const float* sc = scores_g + static_cast<size_t>(ch.clip) * p_pad * HEADS;
     float m = -3.0e38f;
     if (ch.nw > 0)
@@ -574,6 +660,7 @@ __device__ __forceinline__ void pool_group(const Weights& net, const bf16* __res
 #pragma unroll
     for (int off = 16; off >= HEADS; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     if (lane < HEADS) hmax_s[warp * HEADS + lane] = m;
+#endif
     int lo = 1 << 30;
     int hi = 0;
     if (lane < ch.nw) {
@@ -601,6 +688,11 @@ __device__ __forceinline__ void pool_group(const Weights& net, const bf16* __res
   const bool live = w < mine.nw;
   const int p0 = live ? net.p0[mine.w0 + w] : 0;
   float wgt[WPAT];
+#ifdef HB_ABLATE_SOFTMAX
+  // the `softmax` stand-in: the static band, exp(pos @ Q - max) in bf16
+#pragma unroll
+  for (int k = 0; k < WPAT; ++k) wgt[k] = live ? round_bf16(__ldg(net.expc + k * HEADS + h)) : 0.0f;
+#else
   {
     const float* sc = scores_g + (static_cast<size_t>(mine.clip) * p_pad + p0) * HEADS + h;
     float denom = 0.0f;
@@ -612,8 +704,20 @@ __device__ __forceinline__ void pool_group(const Weights& net, const bf16* __res
 #pragma unroll
     for (int k = 0; k < WPAT; ++k) wgt[k] = round_bf16(wgt[k] / (denom + 1e-30f));
   }
+#endif
+#if !defined(HB_ABLATE_POSP) && !defined(HB_ABLATE_POOL_MM)
 #pragma unroll
   for (int k = 0; k < KPOS; ++k) apos_s[tid * LDA_POS + k] = k < WPAT ? __float2bfloat16(wgt[k]) : zero16;
+#endif
+#ifdef HB_ABLATE_POOL_MM
+  {
+    // the row's weight sum, where the pooling tiles would be
+    float sum = 0.0f;
+#pragma unroll
+    for (int k = 0; k < WPAT; ++k) sum += wgt[k];
+    reinterpret_cast<float*>(smem + S_APAT)[tid] = sum;
+  }
+#endif
 
   int n_sub = 0;  // spans of PSPAN patches the widest chunk needs
 #pragma unroll
@@ -643,7 +747,9 @@ __device__ __forceinline__ void pool_group(const Weights& net, const bf16* __res
     mma::cp_async_commit();
     mma::cp_async_wait<0>();
   };
+#ifndef HB_ABLATE_POOL_MM
   if (n_sub == 1) stage(0);
+#endif
   pool_sync();
 
   // pooled rows of two m16 tiles (four windows each) of chunk warp / 2: the
@@ -656,10 +762,32 @@ __device__ __forceinline__ void pool_group(const Weights& net, const bf16* __res
   for (int tt = 0; tt < 2; ++tt) {
     const int row0 = pc * WH + 16 * (2 * (warp % 2) + tt);
     float pacc[1][HID / 8][4];
+#ifdef HB_ABLATE_POOL_MM
+    {
+      // the `pool_mm` stand-in: row (w, h) is the clip's first patch's
+      // features plus the row's weight sum
+      const PoolChunk ch(first + pc, b, n_windows);
+      const bf16* f0 = feats_g + static_cast<size_t>(ch.clip) * p_pad * HID;
+      const float* wsum = reinterpret_cast<const float*>(smem + S_APAT);
+      const int g = lane >> 2;
+      const int q = lane & 3;
+#pragma unroll
+      for (int j = 0; j < HID / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pacc[0][j][e] = ch.nw > 0 ? __bfloat162float(f0[8 * j + 2 * q + (e & 1)]) + wsum[row0 + g + 8 * (e >> 1)]
+                                    : 0.0f;
+    }
+#else
     mma::zero(pacc);
+#ifndef HB_ABLATE_POSP  // the `posp` stand-in: no positional product
 #pragma unroll
     for (int k0 = 0; k0 < KPOS; k0 += 16)
+#if HB_K2_GROUP < 4
+      if (pc < GROUP)  // a warp past the block's chunks pools nothing
+#endif
       mma::mma_k16<1, HID / 8>(apos_s + k0, LDA_POS, row0, 16, 1, pos_s + k0 * LDF, LDF, 0, pacc);
+#endif
     for (int sub = 0; sub < n_sub; ++sub) {
       if (n_sub > 1) {
         pool_sync();  // the previous span's tiles consumed
@@ -668,11 +796,20 @@ __device__ __forceinline__ void pool_group(const Weights& net, const bf16* __res
       }
 #pragma unroll
       for (int k0 = 0; k0 < PSPAN; k0 += 16)
+#if HB_K2_GROUP < 4
+        if (pc < GROUP)
+#endif
         mma::mma_k16<1, HID / 8>(apat_s + k0, LDA_PAT, row0, 16, 1, fpat_s + (pc * PSPAN + k0) * LDF, LDF, 0,
                                  pacc);
     }
+#endif
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
+#ifdef HB_ABLATE_POOL_RMS
+      // the `pool_rms` stand-in: the pooled rows in bf16, not normalised
+#pragma unroll
+      for (int j = 0; j < HID / 8; ++j) nrm[tt][j][hr] = pack_bf16(pacc[0][j][2 * hr], pacc[0][j][2 * hr + 1]);
+#else
       float s = 0.0f;
 #pragma unroll
       for (int j = 0; j < HID / 8; ++j) s += pacc[0][j][2 * hr] + pacc[0][j][2 * hr + 1];
@@ -692,6 +829,7 @@ __device__ __forceinline__ void pool_group(const Weights& net, const bf16* __res
 #pragma unroll
       for (int j = 0; j < HID / 8; ++j)
         nrm[tt][j][hr] = pack_bf16((pacc[0][j][2 * hr] - mean) * scale, (pacc[0][j][2 * hr + 1] - mean) * scale);
+#endif
     }
   }
   pool_sync();  // every read of the pooling tiles done: the head's A goes over them
@@ -704,10 +842,21 @@ __device__ __forceinline__ void pool_group(const Weights& net, const bf16* __res
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int wr = 4 * (2 * (warp % 2) + tt) + 2 * hr + g / HEADS;
+#ifdef HB_ABLATE_HEAD_MM
+        // the `head_mm` stand-in: output row i of the clip reads its norm
+        // row i, (window i / 4, head i % 4), against w_head[:192]
+        const int i = HEADS * wr + g % HEADS;
+        if (i < WC) {
+#pragma unroll
+          for (int j = 0; j < HID / 8; ++j)
+            *reinterpret_cast<uint32_t*>(heada_s + a_index<HID>(WC * pc + i, 8 * j + 2 * q)) = nrm[tt][j][hr];
+        }
+#else
 #pragma unroll
         for (int j = 0; j < HID / 8; ++j)
           *reinterpret_cast<uint32_t*>(heada_s + a_index<POOLED>(WC * pc + wr, (g % HEADS) * HID + 8 * j + 2 * q)) =
               nrm[tt][j][hr];
+#endif
       }
   }
   hopper::fence_async_shared();
@@ -718,6 +867,19 @@ __device__ __forceinline__ void pool_group(const Weights& net, const bf16* __res
   const int wg = warp / 4;
   float hacc[EMB / 4];
   zero(hacc);
+#ifdef HB_ABLATE_HEAD_MM
+#pragma unroll 1
+  for (int s = 0; s < HEAD_MM_SLOTS; ++s) {
+    const unsigned char* slot = ring.acquire();
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < EMB_KS; ++kk)
+      hopper::wgmma_ss48(hacc, a_desc<HID>(heada_s, EMB_KS * s + kk),
+                         b_desc(slot + kk * T_EMB + wg * (EMB / 16) * CORE_N_BYTES), 1);
+    hopper::wgmma_commit();
+    ring.retire<HEAD_RING / 2>();
+  }
+#else
 #pragma unroll 1
   for (int s = 0; s < HEAD_SLOTS; ++s) {
     const unsigned char* slot = ring.acquire();
@@ -729,6 +891,7 @@ __device__ __forceinline__ void pool_group(const Weights& net, const bf16* __res
     hopper::wgmma_commit();
     ring.retire<HEAD_RING / 2>();  // half the ring's slots in flight
   }
+#endif
   ring.retire<0>();
   {
     const int wi = warp % 4;
@@ -749,6 +912,7 @@ __device__ __forceinline__ void pool_group(const Weights& net, const bf16* __res
       }
     }
   }
+#endif
 }
 
 }  // namespace trunk

@@ -27,6 +27,15 @@ lack them. On a CPU tensor it runs ``fused_embedding_plain``, the same
 arithmetic in plain PyTorch (bf16 products emulated as
 ``a.bfloat16().float() @ w.bfloat16().float()``), which the tests and the
 chip check compare against. The Pallas selector matmuls become indexing.
+
+``ablate`` is the JAX kernel's profiling switch: each member of ``ABLATIONS``
+replaces one stage with the JAX kernel's cheap stand-in of the same shape,
+so that timing the variants attributes the kernel's time to its stages
+(``tools/kernel_perf_sweep.py``). The plain version applies the stand-ins
+itself; on a CUDA tensor the wrapper launches a build of the kernel with
+``-DHB_ABLATE_<MEMBER>`` for each member (``ablation_defines``), whose
+launches count under that build's own label. An unknown member raises. The
+production path never sets it.
 """
 
 from __future__ import annotations
@@ -38,10 +47,39 @@ import torch
 from heybuddy_tpu_torch.models.embedding_net import EmbeddingNet, EmbeddingNetConfig, _band_constants
 from heybuddy_tpu_torch.ops.kernels import build
 
-__all__ = ["fused_embedding_from_patches", "fused_embedding_plain", "fused_embedding_windows"]
+__all__ = ["fused_embedding_from_patches", "fused_embedding_plain", "fused_embedding_windows", "ABLATIONS",
+           "ablation_defines", "spectrogram_patches"]
 
 # the geometry compiled into csrc/trunk_pool.cuh (K2 and K4)
 KERNEL_CONFIG = EmbeddingNetConfig()
+
+# The JAX kernel's stage stand-ins (heybuddy_tpu/ops/pallas/embedding_kernel.py,
+# _trunk_pool_body's ``ablate``), each the stage it replaces and by what.
+ABLATIONS = {
+    "noop": "everything: b_head plus 0 x the sum of the input",
+    "trunk": "the residual blocks: skipped",
+    "trunk_rms": "the RMS before each block's up product: skipped",
+    "gelu": "the exact-erf GELU: ReLU",
+    "softmax": "the softmax weights: the static band exp(pos @ Q - max)",
+    "pool_mm": "both pooling products: the clip's first patch's features plus the row's weight sum",
+    "posp": "the positional pooling product: skipped",
+    "pool_rms": "the grouped RMS: skipped",
+    "head_mm": "the four selected head products: one, norm[:, :W] @ w_head[:192]",
+}
+
+
+def check_ablate(ablate: frozenset) -> frozenset:
+    """``ablate`` as a frozenset; raise on a member that is not in ``ABLATIONS``."""
+    ablate = frozenset(ablate)
+    unknown = sorted(ablate - set(ABLATIONS))
+    if unknown:
+        raise ValueError(f"unknown ablation {unknown}; expected members of {sorted(ABLATIONS)}")
+    return ablate
+
+
+def ablation_defines(ablate: frozenset) -> Tuple[str, ...]:
+    """The preprocessor defines of K2's build for the stand-ins ``ablate``, sorted."""
+    return tuple(f"HB_ABLATE_{m.upper()}" for m in sorted(check_ablate(ablate)))
 
 
 def _bf(x: torch.Tensor) -> torch.Tensor:
@@ -105,6 +143,7 @@ def _pool_constants(
 # k16 x N bf16 operand tiles in the K-major layout, in the order the kernels
 # consume them, behind wp's and wh's own bytes.
 UP_N = 96  # hidden columns of an up pass
+POOL_CHUNK_WINDOWS = 16  # windows of a pooling chunk (WC)
 WP_BYTES = 128 * 192 * 2
 WH_BYTES = 768 * 96 * 2
 HEAD_OPS_BYTES = 768 * 96 * 2
@@ -197,13 +236,16 @@ def fused_embedding_plain(
     starts: Tuple[int, ...],
     num_patches: int,
     accumulate: torch.dtype = torch.float32,
+    ablate: frozenset = frozenset(),
 ) -> torch.Tensor:
     """
     The kernel's arithmetic in plain PyTorch: (b, p_pad, 128) -> (b, W, 96).
     ``accumulate=torch.float64`` sums the products in double precision: the
     chip check uses it to measure how far the float32 summation order alone
-    moves the output through the bf16 rounding points.
+    moves the output through the bf16 rounding points. ``ablate`` applies the
+    JAX kernel's stand-ins (``ABLATIONS``).
     """
+    ablate = check_ablate(ablate)
 
     def mm(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         return torch.matmul(a.to(accumulate), m.to(accumulate)).float()
@@ -216,24 +258,41 @@ def fused_embedding_plain(
     pool = _pool_constants(net, starts, num_patches, p_pad)
 
     x = patches.reshape(b * p_pad, cfg.patch_dim).float()
+    if "noop" in ablate:
+        s = x.sum() * 0.0
+        return (s + w["bh"]).expand(b, n_windows, cfg.embedding_dim).contiguous()
     feats = _bf(mm(_bf(_rms(x)), w["wp"].float()) + w["bp"])
-    for i in range(len(net.trunk)):
-        h = mm(_bf(_rms(feats)), w["upw"][i].float()) + w["upb"][i]
-        h = _bf(torch.nn.functional.gelu(h))  # exact erf GELU in float32
+    for i in range(0 if "trunk" in ablate else len(net.trunk)):
+        pre = feats if "trunk_rms" in ablate else _bf(_rms(feats))
+        h = mm(pre, w["upw"][i].float()) + w["upb"][i]
+        h = _bf(torch.relu(h) if "gelu" in ablate else torch.nn.functional.gelu(h))  # exact erf GELU in float32
         d = _bf(mm(h, w["dnw"][i].float()) + w["dnb"][i])
         feats = _bf(feats + d)
-    a = mm(feats, w["q"].float()).reshape(b, p_pad, heads)
-    # the shift cancels in the ratio; the kernel takes the max over real patches
-    a = a - a[:, :num_patches].max(dim=1, keepdim=True).values
-    ea = torch.exp(a).permute(0, 2, 1)  # (b, H, P)
-    e_sel = ea.repeat(1, n_windows, 1)  # row w*H + h holds head h
-    bw = pool["band"][None] * e_sel  # (b, WH, P)
-    weights = _bf(bw / (bw.sum(dim=2, keepdim=True) + 1e-30))
+    if "softmax" in ablate:
+        weights = _bf(pool["band"]).expand(b, n_windows * heads, p_pad)
+    else:
+        a = mm(feats, w["q"].float()).reshape(b, p_pad, heads)
+        # the shift cancels in the ratio; the kernel takes the max over real patches
+        a = a - a[:, :num_patches].max(dim=1, keepdim=True).values
+        ea = torch.exp(a).permute(0, 2, 1)  # (b, H, P)
+        e_sel = ea.repeat(1, n_windows, 1)  # row w*H + h holds head h
+        bw = pool["band"][None] * e_sel  # (b, WH, P)
+        weights = _bf(bw / (bw.sum(dim=2, keepdim=True) + 1e-30))
     feats3 = feats.reshape(b, p_pad, hidden)
-    numer1 = mm(weights, feats3)  # (b, WH, D)
-    numer2 = torch.einsum("bwp,wpd->bwd", weights.to(accumulate), pool["posp"].to(accumulate)).float()
-    pooled = (numer1 + numer2).reshape(b * n_windows, heads * hidden)
-    norm = _bf(_rms(pooled))
+    if "pool_mm" in ablate:
+        pooled = feats3[:, :1] + weights.sum(dim=2, keepdim=True)  # (b, WH, D)
+    else:
+        pooled = mm(weights, feats3)  # (b, WH, D)
+        if "posp" not in ablate:
+            pooled = pooled + torch.einsum(
+                "bwp,wpd->bwd", weights.to(accumulate), pool["posp"].to(accumulate)).float()
+    if "pool_rms" in ablate:
+        norm = _bf(pooled).reshape(b * n_windows, heads * hidden)
+    else:
+        norm = _bf(_rms(pooled.reshape(b * n_windows, heads * hidden)))
+    if "head_mm" in ablate:
+        rows = norm.reshape(b, n_windows * heads, hidden)[:, :n_windows]
+        return mm(rows, w["wh"][:hidden].float()) + w["bh"]
     out = mm(norm, w["wh"].float()) + w["bh"]
     return out.reshape(b, n_windows, cfg.embedding_dim)
 
@@ -255,6 +314,7 @@ def launch_trunk(
     p_pad: int,
     num_patches: int,
     starts: Tuple[int, ...],
+    defines: Tuple[str, ...] = (),
 ) -> torch.Tensor:
     """
     Launch a kernel built on ``csrc/trunk_pool.cuh`` (K2 ``embedding_pool``,
@@ -262,6 +322,8 @@ def launch_trunk(
     Its C entry takes the ``inputs`` pointers, then the output, the L2 scratch
     for features and scores, the weights and pooling constants; then the
     ``sizes`` ints, then p_pad, num_patches, W and the trunk depth.
+    ``defines`` selects a build of the source with those preprocessor
+    defines (``build.launch``): K2's stand-ins and pooling group size.
     """
     require_kernel_config(net)
     cfg = net.config
@@ -279,6 +341,7 @@ def launch_trunk(
         + [w[k].data_ptr() for k in ("wp", "bp", "upw", "upb", "dnw", "dnb", "q", "wh", "bh")]
         + [pool[k].data_ptr() for k in ("exp_c", "pos_bf16", "p0")],
         [*sizes, p_pad, num_patches, len(starts), len(net.trunk)],
+        defines=defines,
     )
     return out
 
@@ -300,13 +363,16 @@ def fused_embedding_from_patches(
     patches: torch.Tensor,
     window_starts: Sequence[int],
     num_patches: int,
+    ablate: frozenset = frozenset(),
 ) -> torch.Tensor:
     """
     (b, p_pad, 128) float32 patches (rows >= ``num_patches`` ignored) ->
     (b, W, 96) float32. Launches the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU one.
+    version for a CPU one; ``ablate``: the JAX kernel's stand-ins (module
+    docstring).
     """
     cfg = net.config
+    defines = ablation_defines(ablate)
     if not isinstance(patches, torch.Tensor) or patches.dtype != torch.float32 or patches.ndim != 3:
         raise ValueError("fused_embedding_from_patches takes a 3-D float32 tensor")
     if not patches.is_contiguous():
@@ -320,24 +386,24 @@ def fused_embedding_from_patches(
     if net.pos.device != patches.device:
         raise ValueError(f"net on {net.pos.device}, patches on {patches.device}")
     if patches.device.type == "cpu":
-        return fused_embedding_plain(net, patches, starts, num_patches)
+        return fused_embedding_plain(net, patches, starts, num_patches, ablate=frozenset(ablate))
     if patches.device.type != "cuda":
         raise ValueError(f"fused_embedding_from_patches: unsupported device {patches.device}")
     if patches.data_ptr() % 16:
         raise ValueError("fused_embedding_from_patches needs 16-byte aligned patches (the kernel copies rows by TMA)")
-    return launch_trunk("embedding_pool", net, [patches.data_ptr()], [b], b, p_pad, num_patches, starts)
+    if "head_mm" in ablate and len(starts) > POOL_CHUNK_WINDOWS:
+        # its rows norm[:, :W] of a clip lie in the clip's first pooling chunk
+        raise ValueError(f"the head_mm stand-in takes at most {POOL_CHUNK_WINDOWS} windows a clip")
+    return launch_trunk("embedding_pool", net, [patches.data_ptr()], [b], b, p_pad, num_patches, starts,
+                        defines)
 
 
-def fused_embedding_windows(
-    net: EmbeddingNet, spectrogram: torch.Tensor, window_starts: Sequence[int]
-) -> torch.Tensor:
+def spectrogram_patches(cfg: EmbeddingNetConfig, spectrogram: torch.Tensor) -> Tuple[torch.Tensor, int]:
     """
-    Spectrogram-layout entry to K2: (b, frames, 32) float32 scaled log-mel ->
-    (b, W, 96). Cuts the spectrogram to whole patches, lays them out as the
-    (b, p_pad, 128) patch tensor with zero pad rows, and runs
-    ``fused_embedding_from_patches`` (the CUDA kernel for a CUDA tensor).
+    A (b, frames, 32) spectrogram cut to whole patches and laid out as K2's
+    (b, p_pad, 128) patch tensor with zero pad rows; returns it and the
+    number of real patches.
     """
-    cfg = net.config
     if (
         not isinstance(spectrogram, torch.Tensor)
         or spectrogram.dtype != torch.float32
@@ -355,4 +421,17 @@ def fused_embedding_windows(
     patches[:, :num_patches] = spectrogram[:, : num_patches * cfg.patch_frames].reshape(
         b, num_patches, cfg.patch_dim
     )
-    return fused_embedding_from_patches(net, patches, window_starts, num_patches)
+    return patches, num_patches
+
+
+def fused_embedding_windows(
+    net: EmbeddingNet, spectrogram: torch.Tensor, window_starts: Sequence[int], ablate: frozenset = frozenset()
+) -> torch.Tensor:
+    """
+    Spectrogram-layout entry to K2: (b, frames, 32) float32 scaled log-mel ->
+    (b, W, 96). Lays the spectrogram out as patches (``spectrogram_patches``)
+    and runs ``fused_embedding_from_patches`` (the CUDA kernel for a CUDA
+    tensor) with ``ablate``.
+    """
+    patches, num_patches = spectrogram_patches(net.config, spectrogram)
+    return fused_embedding_from_patches(net, patches, window_starts, num_patches, ablate)

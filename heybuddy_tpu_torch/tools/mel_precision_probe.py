@@ -182,22 +182,6 @@ def card(device: torch.device) -> str:
     return nvidia_smi_line()
 
 
-def _elapsed_ms(fn: Callable[[], object], iters: int, device: torch.device) -> float:
-    """Milliseconds of ``iters`` calls of ``fn``: CUDA events on a card, the host clock on the CPU."""
-    if device.type == "cuda":
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    return (time.perf_counter() - t0) * 1e3
-
-
 @torch.no_grad()
 def timing(batch: int, iters: int, passes: int, device: DeviceLike = "cuda",
            emit: Callable[[str], None] = print) -> List[Dict]:
@@ -206,6 +190,7 @@ def timing(batch: int, iters: int, passes: int, device: DeviceLike = "cuda",
     with the fastest pass's ms per batch and clips/s."""
     from heybuddy_tpu_torch.ops.kernels import embedding_kernel as ek
     from heybuddy_tpu_torch.ops.windows import embedding_window_starts
+    from heybuddy_tpu_torch.utils.cuda_timing import elapsed_ms
 
     dev = resolve_device(device)
     name = card(dev)
@@ -232,7 +217,7 @@ def timing(batch: int, iters: int, passes: int, device: DeviceLike = "cuda",
     best = {label: float("inf") for label, _ in variants}
     for p in range(passes):
         for label, fn in variants:
-            best[label] = min(best[label], _elapsed_ms(fn, iters, dev) / iters)
+            best[label] = min(best[label], elapsed_ms(fn, iters, dev) / iters)
         emit(f"pass {p + 1}/{passes}: " + ", ".join(f"{k}={v:.4f}ms" for k, v in best.items()))
     records = []
     for label, ms in best.items():

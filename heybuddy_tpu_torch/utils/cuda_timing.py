@@ -7,11 +7,12 @@ from __future__ import annotations
 
 import statistics
 import subprocess
+import time
 from typing import Callable
 
 import torch
 
-__all__ = ["cuda_ms", "nvidia_smi_line"]
+__all__ = ["cuda_ms", "elapsed_ms", "nvidia_smi_line"]
 
 
 def cuda_ms(fn: Callable[[], object], warmup: int = 3, runs: int = 11) -> float:
@@ -28,6 +29,22 @@ def cuda_ms(fn: Callable[[], object], warmup: int = 3, runs: int = 11) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def elapsed_ms(fn: Callable[[], object], iters: int, device: torch.device) -> float:
+    """Milliseconds of ``iters`` calls of ``fn``: CUDA events on a card, the host clock on the CPU."""
+    if device.type == "cuda":
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def nvidia_smi_line() -> str:

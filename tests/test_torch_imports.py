@@ -93,6 +93,8 @@ TOOLS_MODULES = (
     "heybuddy_tpu_torch.tools.embedding_separation_probe",
     "heybuddy_tpu_torch.examples",
     "heybuddy_tpu_torch.examples.train_wake_word",
+    "heybuddy_tpu_torch.tools.kernel_perf_sweep",
+    "heybuddy_tpu_torch.tools.end_to_end_bench",
 )
 
 
