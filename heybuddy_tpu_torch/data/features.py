@@ -56,6 +56,7 @@ from heybuddy_tpu_torch.device import DeviceLike, resolve_device
 from heybuddy_tpu_torch.ops.augment import AugmentConfig, seeded_generator
 from heybuddy_tpu_torch.utils.log import logger
 from heybuddy_tpu_torch.utils.npy import AppendableNpyFile
+from heybuddy_tpu_torch.utils.profiling import span
 from heybuddy_tpu_torch.utils.strings import safe_name
 
 __all__ = ["TrainingFeaturesGenerator", "autoconfigure_batch_sizes"]
@@ -206,11 +207,13 @@ class TrainingFeaturesGenerator:
         take = min(n_real, room)
         if take <= 0:
             return 0
-        feats = device_arr[:take].cpu().numpy()
-        if np.isnan(feats).any():
-            embeddings = self._embeddings()
-            feats = embeddings._repair_nan(feats, embeddings.generator)
-        store.append(feats.astype(np.float32))
+        with span("features/drain/copy"):  # waits for the kernels queued before the copy, then copies
+            feats = device_arr[:take].cpu().numpy()
+        with span("features/drain/write"):
+            if np.isnan(feats).any():
+                embeddings = self._embeddings()
+                feats = embeddings._repair_nan(feats, embeddings.generator)
+            store.append(feats.astype(np.float32))
         return take
 
     def _featurize_stream(
@@ -313,10 +316,11 @@ class TrainingFeaturesGenerator:
             batches += 1
             # a stream of its own, apart from the classic augmenter's (seed, batch)
             generator = seeded_generator(dev, self.seed + seed_offset, 777, index)
-            return fused_features_batch(
-                batch_plans, embeddings.net, generator, noise_bank, impulse_bank, cfg, pad_only=pad_only,
-                l_max=tts.planner.max_samples, harmonics=tts.harmonics, clip_samples=cfg.target_samples,
-            )
+            with span("features/batch"):
+                return fused_features_batch(
+                    batch_plans, embeddings.net, generator, noise_bank, impulse_bank, cfg, pad_only=pad_only,
+                    l_max=tts.planner.max_samples, harmonics=tts.harmonics, clip_samples=cfg.target_samples,
+                )
 
         for sample in samples:
             if "plan" in sample:
@@ -399,11 +403,12 @@ class TrainingFeaturesGenerator:
         """Generate ``num_samples`` features into ``store``; returns the rows written."""
         if store is None:
             raise ValueError("generate needs a store")
-        overrides = {} if adversarial_phrases is None else {"num_adversarial_texts": adversarial_phrases}
-        speech = self._speech(adversarial, self.seed + seed_offset, **overrides)
-        if adversarial:
-            _merge_texts_sidecar(store.path, speech.get_adversarial_texts())
-        return self._featurize(speech, num_samples, pad_only, store, seed_offset)
+        with span("features/generate"):
+            overrides = {} if adversarial_phrases is None else {"num_adversarial_texts": adversarial_phrases}
+            speech = self._speech(adversarial, self.seed + seed_offset, **overrides)
+            if adversarial:
+                _merge_texts_sidecar(store.path, speech.get_adversarial_texts())
+            return self._featurize(speech, num_samples, pad_only, store, seed_offset)
 
     def _open_store(self, name: str) -> Tuple[str, AppendableNpyFile, int]:
         """The cache ``name`` (a stale one dropped first), its sidecar stamped; returns (path, store, rows)."""

@@ -28,6 +28,7 @@ from heybuddy_tpu_torch.constants import (
     SAMPLE_RATE,
 )
 from heybuddy_tpu_torch.device import DeviceLike
+from heybuddy_tpu_torch.utils.profiling import span
 
 __all__ = ["SpeechSampleGenerator"]
 
@@ -137,21 +138,23 @@ class SpeechSampleGenerator:
         generated = 0
         for i in range(total_batches):
             batch_samples = min(num_samples - i * self.batch_size, self.batch_size)
-            for text, audio in self.model(
-                texts=texts,
-                num_samples=batch_samples,
-                batch_size=self.batch_size,
-                slerp_weights=self.slerp_weights,
-                length_scales=self.length_scales,
-                noise_scales=self.noise_scales,
-                noise_scale_ws=self.noise_scale_ws,
-                max_speakers=self.max_speakers,
-                target_sample_rate=self.target_sample_rate,
-                seed=None if self.seed is None else self.seed + i,
-                settings_offset=i,
-                speakers_offset=i * self.batch_size,
-                as_plans=yield_plans,
-            ):
+            with span("tts/samples"):  # the batch's text and speaker draws and its model call
+                batch = self.model(
+                    texts=texts,
+                    num_samples=batch_samples,
+                    batch_size=self.batch_size,
+                    slerp_weights=self.slerp_weights,
+                    length_scales=self.length_scales,
+                    noise_scales=self.noise_scales,
+                    noise_scale_ws=self.noise_scale_ws,
+                    max_speakers=self.max_speakers,
+                    target_sample_rate=self.target_sample_rate,
+                    seed=None if self.seed is None else self.seed + i,
+                    settings_offset=i,
+                    speakers_offset=i * self.batch_size,
+                    as_plans=yield_plans,
+                )
+            for text, audio in batch:
                 generated += 1
                 if yield_plans and not isinstance(audio, np.ndarray):
                     yield {"plan": audio, "phrase": text}

@@ -58,6 +58,7 @@ from heybuddy_tpu_torch.ops.windows import embedding_window_starts
 from heybuddy_tpu_torch.parallel.mesh import Mesh, gather_rows, row_range
 from heybuddy_tpu_torch.utils.audio_io import audio_to_bct_array
 from heybuddy_tpu_torch.utils.log import logger
+from heybuddy_tpu_torch.utils.profiling import span
 
 __all__ = [
     "featurize_batch", "featurize_batch_per_window", "SpeechEmbeddings", "get_speech_embeddings", "POOLINGS",
@@ -239,18 +240,18 @@ class SpeechEmbeddings:
         return_spectrograms: bool = False,
         **_compat_kwargs: Any,
     ) -> Union[np.ndarray, Tuple[np.ndarray, np.ndarray]]:
-        batch, _sr = audio_to_bct_array(audio, sample_rate=SAMPLE_RATE)
-        mono = np.ascontiguousarray(batch.mean(axis=1) * 32767.0, dtype=np.float32)
-        b, t = mono.shape
-        mono_dev: Optional[torch.Tensor] = None
-        if self.mesh is None:
-            mono_dev = torch.from_numpy(mono).to(self.device)
-            embeddings = self._featurize(mono_dev).cpu().numpy()
-        else:
-            embeddings = self._featurize_sharded(mono).cpu().numpy()
-
-        if remove_nan:
-            embeddings = self._repair_nan(embeddings, self.generator)
+        with span("featurizer/embed"):
+            with span("featurizer/upload"):
+                batch, _sr = audio_to_bct_array(audio, sample_rate=SAMPLE_RATE)
+                mono = np.ascontiguousarray(batch.mean(axis=1) * 32767.0, dtype=np.float32)
+                b, t = mono.shape
+                mono_dev = torch.from_numpy(mono).to(self.device) if self.mesh is None else None
+            with span("featurizer/featurize"):
+                features = self._featurize(mono_dev) if self.mesh is None else self._featurize_sharded(mono)
+            with span("featurizer/download"):  # waits for the featurize kernels, then copies
+                embeddings = features.cpu().numpy()
+                if remove_nan:
+                    embeddings = self._repair_nan(embeddings, self.generator)
 
         if return_spectrograms:
             # per-audio-window spectrograms concatenated along the frame axis,

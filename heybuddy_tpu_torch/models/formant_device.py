@@ -37,6 +37,7 @@ import torch
 from heybuddy_tpu_torch.constants import CLIP_SAMPLES, SAMPLE_RATE
 from heybuddy_tpu_torch.device import DeviceLike, resolve_device
 from heybuddy_tpu_torch.models.formant import FormantSynthesizer
+from heybuddy_tpu_torch.utils.profiling import span
 
 __all__ = [
     "DEVICE_FORMANT_VERSION",
@@ -455,22 +456,27 @@ def fused_features_batch(
 
     dev = next(net.parameters()).device
     clip_samples = clip_samples or CLIP_SAMPLES
-    packed = pack_plans(plans, l_max)
-    t = _packed_tensors(packed, dev)
-    breath, white = noise if noise is not None else clip_noise(packed["seeds"], l_max, dev)
-    audio = render(t["tracks"], t["table"], t["scale"], t["noise_scale"], t["length"], breath, white,
-                   l_max=l_max, harmonics=harmonics, sample_rate=sample_rate)
-    del breath, white
-    clip = audio[:, :clip_samples] * (1.0 / 0.7)
-    lengths = torch.clamp(t["length"], max=clip_samples)
-    if pad_only:
-        staged = center_place(clip, lengths, clip_samples)
-    else:
-        b = clip.shape[0]
-        if draws is None:
-            draws = draw_augment(generator, b, clip_samples, config, dev)
-            draws["noise_rows"] = torch.randint(0, noise_bank.shape[0], (b,), generator=generator, device=dev)
-            draws["impulse_rows"] = torch.randint(0, impulse_bank.shape[0], (b,), generator=generator, device=dev)
-        staged = augment_batch(clip, lengths, noise_bank[draws["noise_rows"]], impulse_bank[draws["impulse_rows"]],
-                               config, draws=draws)
-    return featurize_batch(net, staged * 32767.0), len(plans)
+    with span("formant/pack"):
+        packed = pack_plans(plans, l_max)
+        t = _packed_tensors(packed, dev)
+    with span("formant/render"):
+        breath, white = noise if noise is not None else clip_noise(packed["seeds"], l_max, dev)
+        audio = render(t["tracks"], t["table"], t["scale"], t["noise_scale"], t["length"], breath, white,
+                       l_max=l_max, harmonics=harmonics, sample_rate=sample_rate)
+        del breath, white
+    with span("augment/batch"):
+        clip = audio[:, :clip_samples] * (1.0 / 0.7)
+        lengths = torch.clamp(t["length"], max=clip_samples)
+        if pad_only:
+            staged = center_place(clip, lengths, clip_samples)
+        else:
+            b = clip.shape[0]
+            if draws is None:
+                draws = draw_augment(generator, b, clip_samples, config, dev)
+                draws["noise_rows"] = torch.randint(0, noise_bank.shape[0], (b,), generator=generator, device=dev)
+                draws["impulse_rows"] = torch.randint(0, impulse_bank.shape[0], (b,), generator=generator,
+                                                      device=dev)
+            staged = augment_batch(clip, lengths, noise_bank[draws["noise_rows"]],
+                                   impulse_bank[draws["impulse_rows"]], config, draws=draws)
+    with span("featurizer/featurize_batch"):
+        return featurize_batch(net, staged * 32767.0), len(plans)

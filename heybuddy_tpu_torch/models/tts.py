@@ -48,6 +48,7 @@ from heybuddy_tpu_torch.models.formant import FormantSynthesizer
 from heybuddy_tpu_torch.text.phonemizer import get_phonemizer
 from heybuddy_tpu_torch.utils.audio_io import resample_audio
 from heybuddy_tpu_torch.utils.log import logger
+from heybuddy_tpu_torch.utils.profiling import span
 
 __all__ = [
     "BaseTTS",
@@ -356,18 +357,19 @@ class DeviceFormantTTS(BaseTTS):
         back as host-rendered float32 audio instead (consumers dispatch on
         the type)."""
         items: List[Any] = []
-        for text, speaker, params, clip_seed in _clip_tasks(self._host, texts, speakers, slerp_weight, seed):
-            plan = self.planner.plan(
-                text, speaker=speaker, length_scale=length_scale, noise_scale=noise_scale, seed=clip_seed,
-                speaker_params=params,
-            )
-            if plan is None:
-                items.append(self._host.synthesize(
+        with span("formant/plan"):
+            for text, speaker, params, clip_seed in _clip_tasks(self._host, texts, speakers, slerp_weight, seed):
+                plan = self.planner.plan(
                     text, speaker=speaker, length_scale=length_scale, noise_scale=noise_scale, seed=clip_seed,
                     speaker_params=params,
-                ))
-            else:
-                items.append(plan)
+                )
+                if plan is None:
+                    items.append(self._host.synthesize(
+                        text, speaker=speaker, length_scale=length_scale, noise_scale=noise_scale, seed=clip_seed,
+                        speaker_params=params,
+                    ))
+                else:
+                    items.append(plan)
         return items
 
 

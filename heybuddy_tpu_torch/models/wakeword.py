@@ -49,6 +49,7 @@ from heybuddy_tpu_torch.constants import (
 from heybuddy_tpu_torch.convert import restore_empty_lists, wakeword_params_from_numpy, wakeword_params_to_numpy
 from heybuddy_tpu_torch.device import DeviceLike, resolve_device
 from heybuddy_tpu_torch.models.embedding_net import flatten_params, unflatten_params
+from heybuddy_tpu_torch.utils.profiling import span
 
 __all__ = [
     "WakeWordMLPModel",
@@ -197,19 +198,21 @@ class WakeWordInferenceMixin:
     @torch.no_grad()
     def scores(self, features: np.ndarray) -> np.ndarray:
         """(n, 16, 96) features -> (n,) probabilities, as numpy."""
-        x = torch.from_numpy(np.ascontiguousarray(features, dtype=np.float32)).to(self.device)
-        return self(x).reshape(-1).cpu().numpy()
+        with span("wakeword/head"):
+            x = torch.from_numpy(np.ascontiguousarray(features, dtype=np.float32)).to(self.device)
+            return self(x).reshape(-1).cpu().numpy()
 
     def _predict_scores(self, audio: Any, min_frames: int = CLIP_SAMPLES) -> np.ndarray:
         from heybuddy_tpu_torch.models.featurizer import get_speech_embeddings
         from heybuddy_tpu_torch.utils.audio_io import audio_to_bct_array
 
-        audio_arr, _ = audio_to_bct_array(audio, sample_rate=SAMPLE_RATE)
-        n, _c, t = audio_arr.shape
-        if t < min_frames:
-            pad = min_frames - t
-            left = pad // 2
-            audio_arr = np.pad(audio_arr, ((0, 0), (0, 0), (left, pad - left)))
+        with span("wakeword/prepare"):
+            audio_arr, _ = audio_to_bct_array(audio, sample_rate=SAMPLE_RATE)
+            n, _c, t = audio_arr.shape
+            if t < min_frames:
+                pad = min_frames - t
+                left = pad // 2
+                audio_arr = np.pad(audio_arr, ((0, 0), (0, 0), (left, pad - left)))
         embeddings = get_speech_embeddings(device=self.device)(audio_arr)  # (n, frames, 96)
 
         frames = embeddings.shape[1]
@@ -218,10 +221,11 @@ class WakeWordInferenceMixin:
             # 16-embedding context slides in steps of 4; the max is the score
             step = 4
             k = (frames - FEATURE_FRAMES) // step + 1
-            windows = np.stack(
-                [embeddings[:, i * step : i * step + FEATURE_FRAMES] for i in range(k)], axis=1
-            )  # (n, k, 16, 96)
-            flat = windows.reshape(n * k, FEATURE_FRAMES, -1)
+            with span("wakeword/contexts"):
+                windows = np.stack(
+                    [embeddings[:, i * step : i * step + FEATURE_FRAMES] for i in range(k)], axis=1
+                )  # (n, k, 16, 96)
+                flat = windows.reshape(n * k, FEATURE_FRAMES, -1)
             return self.scores(flat).reshape(n, k).max(axis=1)
         return self.scores(embeddings)
 

@@ -30,6 +30,7 @@ from heybuddy_tpu_torch.runtime.model_thread import WakeWordModelThread
 from heybuddy_tpu_torch.utils.audio_io import resample_audio
 from heybuddy_tpu_torch.utils.codecs import read_wav_any
 from heybuddy_tpu_torch.utils.log import logger
+from heybuddy_tpu_torch.utils.profiling import span
 
 __all__ = ["run_listen", "ROLLING_SAMPLES"]
 
@@ -91,7 +92,8 @@ class _SerialModel:
 
     def get(self, timeout: Optional[float] = None) -> tuple:
         start = time.perf_counter()
-        scores = self._model.predict(self._pending, return_scores=True)
+        with span("listen/score"):
+            scores = self._model.predict(self._pending, return_scores=True)
         return (float(scores[0]) if scores else 0.0, time.perf_counter() - start)
 
     def stop(self) -> None:

@@ -20,6 +20,7 @@ import numpy as np
 
 from heybuddy_tpu_torch.device import DeviceLike
 from heybuddy_tpu_torch.utils.log import logger
+from heybuddy_tpu_torch.utils.profiling import span
 
 __all__ = ["WakeWordModelThread"]
 
@@ -64,7 +65,8 @@ class WakeWordModelThread:
             seq, audio = item
             start = time.perf_counter()
             try:
-                scores = self._model.predict(audio, return_scores=True)
+                with span("listen/score"):
+                    scores = self._model.predict(audio, return_scores=True)
                 score = float(scores[0]) if scores else 0.0
             except Exception as ex:
                 logger.error(f"Prediction failed for {self.checkpoint_path}: {ex}")

@@ -113,6 +113,7 @@ from heybuddy_tpu_torch.parallel.mesh import (
 )
 from heybuddy_tpu_torch.runtime.detection import count_detections
 from heybuddy_tpu_torch.utils.log import logger
+from heybuddy_tpu_torch.utils.profiling import span
 from heybuddy_tpu_torch.utils.strings import human_duration
 
 __all__ = ["WakeWordTrainer", "get_learning_rate", "adjust_negative_weight"]
@@ -318,63 +319,66 @@ class WakeWordTrainer:
         mesh = self.mesh
         rows = None if mesh is None else (mesh.rank * x.shape[0], mesh.size * x.shape[0])
         batch = x.shape[0] if rows is None else rows[1]
-        preds = self.model(x, train=True, generator=generator, batch_rows=rows)[:, 0].clamp(1e-7, 1.0 - 1e-7)
-        hard_neg = (y == 0) & (preds >= high_loss_threshold)
-        hard_pos = (y == 1) & (preds < 1.0 - high_loss_threshold)
-        mask = (hard_neg | hard_pos).float()
-        n_hard = mask.sum()
-        with torch.no_grad():
-            # metric statistics over the hard subset
-            held = preds.detach()
-            b_tp = (hard_pos & (held > activation_threshold)).sum().float()
-            b_fn = (hard_pos & (held <= activation_threshold)).sum().float()
-            b_fp = (hard_neg & (held >= activation_threshold)).sum().float()
-            b_nneg = hard_neg.sum().float()
-            if mesh is not None:
-                counts = all_reduce_sum(torch.stack([n_hard, b_tp, b_fn, b_fp, b_nneg]), mesh)
-                n_hard, b_tp, b_fn, b_fp, b_nneg = counts.unbind()
-        weights = torch.where(y == 1, 1.0, neg_weight) * mask
-        bce = -(y * torch.log(preds) + (1.0 - y) * torch.log(1.0 - preds))
-        masked_loss = (weights * bce).sum() / n_hard.clamp(min=1.0)
-        loss = masked_loss / carry["accum_steps"].float()
-        grads = torch.autograd.grad(loss, self._params)
+        with span("trainer/step"):
+            with span("trainer/forward"):
+                preds = self.model(x, train=True, generator=generator, batch_rows=rows)[:, 0]
+                preds = preds.clamp(1e-7, 1.0 - 1e-7)
+                hard_neg = (y == 0) & (preds >= high_loss_threshold)
+                hard_pos = (y == 1) & (preds < 1.0 - high_loss_threshold)
+                mask = (hard_neg | hard_pos).float()
+                n_hard = mask.sum()
+                with torch.no_grad():
+                    # metric statistics over the hard subset
+                    held = preds.detach()
+                    b_tp = (hard_pos & (held > activation_threshold)).sum().float()
+                    b_fn = (hard_pos & (held <= activation_threshold)).sum().float()
+                    b_fp = (hard_neg & (held >= activation_threshold)).sum().float()
+                    b_nneg = hard_neg.sum().float()
+                    if mesh is not None:
+                        counts = all_reduce_sum(torch.stack([n_hard, b_tp, b_fn, b_fp, b_nneg]), mesh)
+                        n_hard, b_tp, b_fn, b_fp, b_nneg = counts.unbind()
+                weights = torch.where(y == 1, 1.0, neg_weight) * mask
+                bce = -(y * torch.log(preds) + (1.0 - y) * torch.log(1.0 - preds))
+                masked_loss = (weights * bce).sum() / n_hard.clamp(min=1.0)
+                loss = masked_loss / carry["accum_steps"].float()
+            with span("trainer/backward"):
+                grads = torch.autograd.grad(loss, self._params)
+            with span("trainer/adam"), torch.no_grad():
+                flat_grad = torch.cat([g.reshape(-1) for g in grads])
+                loss = loss.detach()
+                if mesh is not None:
+                    # the rank's share of the loss rides on the gradient's all_reduce
+                    summed = all_reduce_sum(torch.cat([flat_grad, loss[None]]), mesh)
+                    flat_grad, loss = summed[:-1], summed[-1]
+                n_hard_i = n_hard.to(torch.int32)
+                total = carry["accum_samples"] + n_hard_i
+                fire = (total >= accumulation_target) & (n_hard_i > 0)
+                self._adam.update(flat_grad, fire, lr)
 
-        with torch.no_grad():
-            flat_grad = torch.cat([g.reshape(-1) for g in grads])
-            loss = loss.detach()
-            if mesh is not None:
-                # the rank's share of the loss rides on the gradient's all_reduce
-                summed = all_reduce_sum(torch.cat([flat_grad, loss[None]]), mesh)
-                flat_grad, loss = summed[:-1], summed[-1]
-            n_hard_i = n_hard.to(torch.int32)
-            total = carry["accum_samples"] + n_hard_i
-            fire = (total >= accumulation_target) & (n_hard_i > 0)
-            self._adam.update(flat_grad, fire, lr)
-
-            # a batch of >= 128 hard examples replaces the accumulated
-            # statistics, otherwise the metrics come from what was accumulated
-            # before this step
-            big = n_hard_i >= accumulation_target
-            zero = torch.zeros_like(b_tp)
-            stats = {
-                k: torch.where(big, b, carry[k])
-                for k, b in (("tp", b_tp), ("fn", b_fn), ("fp", b_fp), ("n_neg", b_nneg))
-            }
-            added = {"tp": b_tp, "fn": b_fn, "fp": b_fp, "n_neg": b_nneg}
-            new_carry = {
-                "accum_samples": torch.where(fire, torch.zeros_like(total), total),
-                "accum_steps": torch.where(
-                    fire, torch.ones_like(total), carry["accum_steps"] + (n_hard_i > 0).int()
-                ),
-                **{
-                    k: torch.where(fire, zero, stats[k] + torch.where(big, zero, added[k]))
-                    for k in stats
-                },
-            }
-            recall = stats["tp"] / (stats["tp"] + stats["fn"]).clamp(min=1.0)
-            fp_rate = stats["fp"] / stats["n_neg"].clamp(min=1.0)
-            # n_hard / batch as XLA computes a division by a constant: times its float32 reciprocal
-            metrics = torch.stack([loss, n_hard * (1.0 / batch), recall, fp_rate, fire.float(), n_hard])
+                # a batch of >= 128 hard examples replaces the accumulated
+                # statistics, otherwise the metrics come from what was accumulated
+                # before this step
+                big = n_hard_i >= accumulation_target
+                zero = torch.zeros_like(b_tp)
+                stats = {
+                    k: torch.where(big, b, carry[k])
+                    for k, b in (("tp", b_tp), ("fn", b_fn), ("fp", b_fp), ("n_neg", b_nneg))
+                }
+                added = {"tp": b_tp, "fn": b_fn, "fp": b_fp, "n_neg": b_nneg}
+                new_carry = {
+                    "accum_samples": torch.where(fire, torch.zeros_like(total), total),
+                    "accum_steps": torch.where(
+                        fire, torch.ones_like(total), carry["accum_steps"] + (n_hard_i > 0).int()
+                    ),
+                    **{
+                        k: torch.where(fire, zero, stats[k] + torch.where(big, zero, added[k]))
+                        for k in stats
+                    },
+                }
+                recall = stats["tp"] / (stats["tp"] + stats["fn"]).clamp(min=1.0)
+                fp_rate = stats["fp"] / stats["n_neg"].clamp(min=1.0)
+                # n_hard / batch as XLA computes a division by a constant: times its float32 reciprocal
+                metrics = torch.stack([loss, n_hard * (1.0 / batch), recall, fp_rate, fire.float(), n_hard])
         return new_carry, metrics
 
     @torch.no_grad()
@@ -492,17 +496,18 @@ class WakeWordTrainer:
         """The step's rows, gathered on the device from one host->device copy of
         the indices; under a mesh only this rank's rows of the padded batch
         (its slice of the index vector, then zero rows)."""
-        pad = 0
-        if self.mesh is not None:
-            lo, hi, per = row_range(sum(len(i) for i in idxs), self.mesh)
-            offsets = np.cumsum([0] + [len(i) for i in idxs])
-            idxs = [i[max(lo - a, 0) : max(min(hi - a, len(i)), 0)] for i, a in zip(idxs, offsets)]
-            pad = per - (hi - lo)
-        flat = self._h2d(np.concatenate(idxs))
-        parts = [pool.index_select(0, idx) for pool, idx in zip(pools, flat.split([len(i) for i in idxs]))]
-        if pad:
-            parts.append(parts[0].new_zeros((pad,) + tuple(parts[0].shape[1:])))
-        return parts[0] if len(parts) == 1 else torch.cat(parts)
+        with span("trainer/gather"):
+            pad = 0
+            if self.mesh is not None:
+                lo, hi, per = row_range(sum(len(i) for i in idxs), self.mesh)
+                offsets = np.cumsum([0] + [len(i) for i in idxs])
+                idxs = [i[max(lo - a, 0) : max(min(hi - a, len(i)), 0)] for i, a in zip(idxs, offsets)]
+                pad = per - (hi - lo)
+            flat = self._h2d(np.concatenate(idxs))
+            parts = [pool.index_select(0, idx) for pool, idx in zip(pools, flat.split([len(i) for i in idxs]))]
+            if pad:
+                parts.append(parts[0].new_zeros((pad,) + tuple(parts[0].shape[1:])))
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def _to_device(self, x: np.ndarray, y: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         """A host batch on the device; under a mesh this rank's rows of it,
@@ -693,22 +698,23 @@ class WakeWordTrainer:
             nonlocal last_m
             if not pending:
                 return
-            # one stack and one copy for the whole window between boundaries
-            stacked = torch.stack([p[2] for p in pending]).cpu().numpy()
-            for (p_lr, p_nw, _), m in zip(pending, stacked):
-                last_m = m
-                history["learning_rate"].append(p_lr)
-                history["negative_weight"].append(p_nw)
-                if m[4] > 0 or not history["loss"]:
-                    history["loss"].append(float(m[0]))
-                    history["recall"].append(float(m[2]))
-                    history["false_positive_rate"].append(float(m[3]))
-                else:
-                    history["loss"].append(history["loss"][-1])
-                    history["recall"].append(history["recall"][-1])
-                    history["false_positive_rate"].append(history["false_positive_rate"][-1])
-                history["high_loss_rate"].append(float(m[1]))
-            pending.clear()
+            with span("trainer/flush"):
+                # one stack and one copy for the whole window between boundaries
+                stacked = torch.stack([p[2] for p in pending]).cpu().numpy()
+                for (p_lr, p_nw, _), m in zip(pending, stacked):
+                    last_m = m
+                    history["learning_rate"].append(p_lr)
+                    history["negative_weight"].append(p_nw)
+                    if m[4] > 0 or not history["loss"]:
+                        history["loss"].append(float(m[0]))
+                        history["recall"].append(float(m[2]))
+                        history["false_positive_rate"].append(float(m[3]))
+                    else:
+                        history["loss"].append(history["loss"][-1])
+                        history["recall"].append(history["recall"][-1])
+                        history["false_positive_rate"].append(history["false_positive_rate"][-1])
+                    history["high_loss_rate"].append(float(m[1]))
+                pending.clear()
 
         for step, host_batch in step_source:
             if step >= num_steps:
@@ -849,37 +855,38 @@ class WakeWordTrainer:
         Gate-aware counting needs the device-resident plan (its pools keep
         row order); the streamed fallback keeps per-clip counting.
         """
-        totals = {"fp": 0.0, "tp": 0.0, "fn": 0.0, "tn": 0.0, "n_neg": 0.0, "gated_fp": 0.0, "stream_hours": 0.0}
-        keys = ("fp", "tp", "fn", "tn", "n_neg")
-        resident = self._device_plan_for(dataset)
-        if resident is not None:
-            # each source pool scored exactly once per eval
-            plan, pools = resident
-            for (ds, label), pool in zip(plan.sources, pools):
-                stride = getattr(ds, "stream_stride_seconds", None)
-                if stride and label == 0.0:
-                    preds = self._scores(pool).cpu().numpy()
-                    totals["gated_fp"] += float(
-                        count_detections(
-                            preds, gate_threshold, consecutive=gate_consecutive,
-                            debounce_windows=gate_debounce_windows,
+        with span("trainer/eval"):
+            totals = {"fp": 0.0, "tp": 0.0, "fn": 0.0, "tn": 0.0, "n_neg": 0.0, "gated_fp": 0.0, "stream_hours": 0.0}
+            keys = ("fp", "tp", "fn", "tn", "n_neg")
+            resident = self._device_plan_for(dataset)
+            if resident is not None:
+                # each source pool scored exactly once per eval
+                plan, pools = resident
+                for (ds, label), pool in zip(plan.sources, pools):
+                    stride = getattr(ds, "stream_stride_seconds", None)
+                    if stride and label == 0.0:
+                        preds = self._scores(pool).cpu().numpy()
+                        totals["gated_fp"] += float(
+                            count_detections(
+                                preds, gate_threshold, consecutive=gate_consecutive,
+                                debounce_windows=gate_debounce_windows,
+                            )
                         )
-                    )
-                    totals["stream_hours"] += pool.shape[0] * stride / 3600.0
-                    continue
-                key = (int(pool.shape[0]), float(label))
-                if key not in self._eval_labels:
-                    self._eval_labels[key] = torch.full((pool.shape[0],), label, device=self.device)
-                lo, hi = (0, pool.shape[0]) if self.mesh is None else row_range(pool.shape[0], self.mesh)[:2]
-                counts = self._eval_counts(pool[lo:hi], self._eval_labels[key][lo:hi], gate_threshold).cpu().numpy()
+                        totals["stream_hours"] += pool.shape[0] * stride / 3600.0
+                        continue
+                    key = (int(pool.shape[0]), float(label))
+                    if key not in self._eval_labels:
+                        self._eval_labels[key] = torch.full((pool.shape[0],), label, device=self.device)
+                    lo, hi = (0, pool.shape[0]) if self.mesh is None else row_range(pool.shape[0], self.mesh)[:2]
+                    counts = self._eval_counts(pool[lo:hi], self._eval_labels[key][lo:hi], gate_threshold).cpu().numpy()
+                    for k, v in zip(keys, counts):
+                        totals[k] += float(v)
+                return totals
+            for x_np, y_np in dataset:
+                counts = self._eval_counts(*self._to_device(x_np, y_np), gate_threshold).cpu().numpy()
                 for k, v in zip(keys, counts):
                     totals[k] += float(v)
             return totals
-        for x_np, y_np in dataset:
-            counts = self._eval_counts(*self._to_device(x_np, y_np), gate_threshold).cpu().numpy()
-            for k, v in zip(keys, counts):
-                totals[k] += float(v)
-        return totals
 
     # --- the stages ---------------------------------------------------------------
 

@@ -1,36 +1,32 @@
 """
 Tracing and timing utilities.
 
-Counterpart of the JAX package's ``utils/profiling.py``: ``stage_timer``
-wraps a pipeline stage with an EMA-tracked wall-clock span, and ``trace``
-names the same span in a device trace (``torch.profiler.record_function``
-where the JAX package uses ``jax.profiler.TraceAnnotation``).
-``start_profiler`` / ``stop_profiler`` bracket a ``torch.profiler.profile``
-of the CPU and, where there is one, the CUDA device, and write its Chrome
-trace into ``HEYBUDDY_PROFILE_DIR`` (default ``heybuddy-profile`` in the
-temporary directory). As in the JAX package, a profiler that cannot start
-logs a warning and returns None.
+``span(name)`` marks one layer's work as a named range of a
+``torch.profiler`` trace. It costs a flag check when no profiler runs: the
+program's ranges appear exactly when an operator runs a command under
+``torch.profiler`` (CPU and, where there is one, CUDA activity), on the
+profiler's clock, nested as the calls nest, beside the kernels they launch.
+A span never synchronises and never touches the device.
 
-A stage time is host wall clock: a span around asynchronous CUDA work ends
-when the work is queued, unless the stage waits for it.
+``stage_timer`` is a span that also times its stage on the host clock into
+``StageTimes`` (an EMA and a total per name), the counterpart of the JAX
+package's ``utils/profiling.py``. A stage time is host wall clock: a span
+around asynchronous CUDA work ends when the work is queued, unless the stage
+waits for it.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
-import tempfile
 import time
-from typing import Dict, Iterator, Optional
+from typing import ContextManager, Dict, Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-from heybuddy_tpu_torch.utils.log import logger
 from heybuddy_tpu_torch.utils.strings import human_duration
 
-__all__ = [
-    "StageTimes", "GLOBAL_STAGE_TIMES", "stage_timer", "trace", "start_profiler", "stop_profiler",
-]
+__all__ = ["StageTimes", "GLOBAL_STAGE_TIMES", "span", "stage_timer"]
 
 
 class StageTimes:
@@ -62,57 +58,22 @@ class StageTimes:
 
 GLOBAL_STAGE_TIMES = StageTimes()
 
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str) -> ContextManager[None]:
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler runs; otherwise one shared no-op context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
+
 
 @contextlib.contextmanager
 def stage_timer(name: str, times: Optional[StageTimes] = None) -> Iterator[None]:
-    """Time a stage and name the same span in the device trace."""
+    """Time a stage on the host clock and mark it as ``span(name)``."""
     times = times or GLOBAL_STAGE_TIMES
     start = time.perf_counter()
-    with torch.profiler.record_function(name):
+    with span(name):
         yield
     times.record(name, time.perf_counter() - start)
-
-
-@contextlib.contextmanager
-def trace(name: str) -> Iterator[None]:
-    """A span in the device trace alone (no host timing)."""
-    with torch.profiler.record_function(name):
-        yield
-
-
-_PROFILER: Optional[torch.profiler.profile] = None
-_PROFILER_DIR: Optional[str] = None
-
-
-def start_profiler(log_dir: Optional[str] = None) -> Optional[str]:
-    """Start a ``torch.profiler`` trace; returns the log dir (None on failure)."""
-    global _PROFILER, _PROFILER_DIR
-    log_dir = log_dir or os.environ.get(
-        "HEYBUDDY_PROFILE_DIR", os.path.join(tempfile.gettempdir(), "heybuddy-profile"))
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    try:
-        os.makedirs(log_dir, exist_ok=True)
-        profiler = torch.profiler.profile(activities=activities)
-        profiler.start()
-    except (OSError, RuntimeError) as ex:
-        logger.warning(f"Could not start profiler: {ex}")
-        return None
-    _PROFILER, _PROFILER_DIR = profiler, log_dir
-    logger.info(f"Profiler trace started -> {log_dir}")
-    return log_dir
-
-
-def stop_profiler() -> Optional[str]:
-    """Stop the trace ``start_profiler`` began and write it; returns the trace's path."""
-    global _PROFILER, _PROFILER_DIR
-    if _PROFILER is None:
-        return None
-    profiler, log_dir = _PROFILER, _PROFILER_DIR
-    _PROFILER = _PROFILER_DIR = None
-    profiler.stop()
-    path = os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json")
-    profiler.export_chrome_trace(path)
-    logger.info(f"Profiler trace stopped -> {path}")
-    return path
