@@ -3,14 +3,15 @@ Chip check of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the five hand-written kernel libraries from ``heybuddy_tpu_torch/ops/
+Builds the six hand-written kernel libraries from ``heybuddy_tpu_torch/ops/
 kernels/csrc`` (K1 mel patches, K1b its hop-block form, K2 fused embedding,
 K3 mel spectrogram, K4 one-kernel featurizer; K1, K1b and K3 with their
-bf16-DFT variants), prints each kernel's registers, shared memory and
+bf16-DFT variants; the formant render's voiced kernel), prints each kernel's
+registers, shared memory and
 tensor-core instruction counts (HMMA for mma.sync, HGMMA for wgmma) from
 ``cuobjdump`` and fails unless the libraries on wgmma (K1b, K2, K4, and K1
 and K3 through their bf16-DFT entries) hold HGMMA and ptxas serialised none
-of their wgmmas, holds each kernel against its
+of their wgmmas, and unless the voiced kernel spills nothing, holds each kernel against its
 plain PyTorch version on the card, on noise and on a tonal input (K3 against
 K1's layout bit for bit, in float32 and in the bf16 DFT), prints each
 mel kernel's distance from the float64 mel beside the plain float32 mel's, then
@@ -28,7 +29,8 @@ the CPU (and once more with TF32 on, which the limits must reject), one
 fired transformer step on the card against the CPU, ``convert`` run by the numpy ONNX runner against the card, and ``predict``
 with the new checkpoint; then feature generation: one 512-clip batch's
 render, augmentation and pad-only features on the card against the CPU with
-the same draws, timed stage by stage, and ``train`` from an empty dataset
+the same draws, timed stage by stage, the render's voiced kernel against its
+plain loop on the card, and ``train`` from an empty dataset
 directory on the fused ``formant-device`` route (K1 -> K2 once per batch of
 512) and on the host ``formant`` route, with both heads scored on the
 generated held-out caches; then the stream path: stream-window caches of each
@@ -226,6 +228,10 @@ BF16_DFT_ATOL = 1e-2
 # bf16-DFT entries (csrc/mel_dft.cuh).
 TENSOR_CORE_LIBS = ("mel_patches", "mel_patches_fat", "embedding_pool", "mel_spectrogram", "featurize")
 WGMMA_LIBS = ("mel_patches", "mel_patches_fat", "embedding_pool", "mel_spectrogram", "featurize")
+# the formant render's voiced kernel (CUDA cores, float32): its harmonic loop
+# keeps every sample's state in registers, so ptxas must report no spill (its
+# local memory is sinf / cosf's large-argument reduction, never a spill)
+NO_SPILL_LIBS = ("formant_voiced",)
 # K2, K4: the bf16 rounding points (RMS outputs, feats, GELU, softmax weights)
 #     turn any change of float32 summation order into one-ulp bf16 flips that
 #     the trunk carries on to the output. The plain version computed in float32
@@ -382,6 +388,9 @@ def resource_report() -> None:
               f"block; HMMA instructions {hmma}, HGMMA {hgmma}")
         if name in TENSOR_CORE_LIBS:
             check(hmma + hgmma > 0, f"{name}: no tensor-core instruction in its SASS")
+        if name in NO_SPILL_LIBS:
+            spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", build.BUILD_LOGS.get(name, ""))
+            check(bool(spills) and not any(int(n) for n in spills), f"{name}: ptxas spill report {spills}")
         if name in WGMMA_LIBS:
             check(hgmma > 0, f"{name}: no wgmma (HGMMA) in its SASS")
             serialised = [line for line in build.BUILD_LOGS.get(name, "").splitlines()
@@ -976,7 +985,8 @@ def generate_route(label: str, backend: str, rows: Dict[str, int], steps: int, d
     try:
         with contextlib.redirect_stdout(out):
             t0 = time.time()
-            rc, launches = run_path(f"generate_{label}", lambda: cli_main(argv), ("mel_patches", "embedding_pool"))
+            rc, launches = run_path(f"generate_{label}", lambda: cli_main(argv), ("mel_patches", "embedding_pool") + (
+                ("formant_voiced",) if backend == "formant-device" else ()))
             total_s = time.time() - t0
     finally:
         logger.removeHandler(log)
@@ -995,9 +1005,10 @@ def generate_route(label: str, backend: str, rows: Dict[str, int], steps: int, d
         check(data.shape == (n, 16, 96) and bool(np.isfinite(data).all()),
               f"generate {label}: cache {name} {data.shape}, expected ({n}, 16, 96), finite")
     # the featurize calls the batch sizes give: per cache, the fused batches
-    # of its plans and one classic call per embed batch of host-fallback clips
+    # of its plans and one classic call per embed batch of host-fallback
+    # clips; one voiced-kernel render per fused batch
     embed = autoconfigure_batch_sizes(dev)["embed_batch_size"]
-    expected = 0
+    expected = rendered = 0
     for name, n in rows.items():
         batches, fallback = log.fused.get(name, (0, n))
         want_batches = -(-(n - fallback) // GEN_BATCH) if backend == "formant-device" else 0
@@ -1006,8 +1017,9 @@ def generate_route(label: str, backend: str, rows: Dict[str, int], steps: int, d
               f"generate {label}: {name} made {batches} fused batches and {log.classic.get(name, 0)} classic "
               f"calls, expected {want_batches} and {want_classic} ({fallback} fallback clips)")
         expected += want_batches + want_classic
-    check(launches == {"mel_patches": expected, "embedding_pool": expected},
-          f"generate {label}: launched {launches}, expected {expected} of K1 and of K2")
+        rendered += want_batches
+    want = {"mel_patches": expected, "embedding_pool": expected, **({"formant_voiced": rendered} if rendered else {})}
+    check(launches == want, f"generate {label}: launched {launches}, expected {want}")
     # the loss logged every 1/20 of the stage, from the trainer's own records
     loss = np.array(log.losses)
     head, tail = float(loss[:3].mean()), float(loss[-3:].mean())
@@ -1077,6 +1089,38 @@ def plain_pad_only(plans: List, breath: torch.Tensor, white: torch.Tensor, net, 
     staged = fd.center_place(audio[:, :CLIP] * (1.0 / 0.7), torch.clamp(t["length"], max=CLIP), CLIP)
     patches, n = mk.mel_patches_plain((staged * 32767.0).float().contiguous(), accumulate=dtype)
     return ek.fused_embedding_plain(net, patches, embedding_window_starts(CLIP), n, accumulate=dtype)
+
+
+def voiced_phase(t: Dict[str, torch.Tensor], breath: torch.Tensor, harmonics: int) -> Dict:
+    """The render's voiced part alone on one batch: the kernel
+    (``csrc/formant_voiced.cu``) and its plain loop on the card, timed, and
+    their distance; the kernel's bound."""
+    args = (t["tracks"], t["scale"], t["noise_scale"], breath)
+    b, l_max = breath.shape
+    kw = dict(l_max=l_max, harmonics=harmonics, sample_rate=fd.SAMPLE_RATE)
+    err = float((fd._voiced_kernel(*args, **kw) - fd._voiced_plain(*args, **kw, dtype=torch.float32)).abs().max())
+    kernel_ms = cuda_ms(lambda: fd._voiced_kernel(*args, **kw), 2, 11)
+    plain_ms = cuda_ms(lambda: fd._voiced_plain(*args, **kw, dtype=torch.float32), 1, 3)
+    # The bound: the expression tree's 38 float32 operations a (sample,
+    # harmonic) at the float32 peak, over every one, and over those these
+    # inputs need (harmonics under Nyquist in runs whose amplitude knots are
+    # not both 0: the kernel's exits, which leave the sum unchanged); its
+    # bytes: the tracks, scales and breath read once, the output written once.
+    f0 = fd._upsample(t["tracks"][:, 0], fd.TRACK_STRIDE, l_max)
+    amp = t["tracks"][:, 5]
+    live = ((amp[:, :-1] != 0) | (amp[:, 1:] != 0)).repeat_interleave(fd.TRACK_STRIDE, dim=1)[:, :l_max]
+    needed = sum(int(((float(h) * f0 < 0.5 * fd.SAMPLE_RATE) & live).sum()) for h in range(1, harmonics + 1))
+    every = b * l_max * harmonics
+    n_bytes = (t["tracks"].numel() + 2 * b + 2 * breath.numel()) * 4
+    bound_ms, needed_ms = (max(38 * n / PEAK_FP32, n_bytes / PEAK_BYTES) * 1e3 for n in (every, needed))
+    print(f"generate voiced kernel (formant_voiced) at {b} x {l_max} x {harmonics}: {kernel_ms:.4f} ms (CUDA "
+          f"events, median of 11); bound {bound_ms:.4f} ms ({38 * every / 1e9:.2f} GFLOP at 38 a (sample, "
+          f"harmonic)), {needed_ms:.4f} ms for the {needed / every:.4f} of them these inputs need "
+          f"({kernel_ms / needed_ms:.2f}x); the plain loop on the card {plain_ms:.3f} ms ({plain_ms / kernel_ms:.0f}x "
+          f"the kernel); kernel vs plain max |d| {err:.3e}")
+    check(err <= 1e-3, f"the voiced kernel disagrees with its plain loop on the card: {err:.3e}")
+    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "needed_bound_ms": needed_ms,
+            "needed_share": needed / every, "max_abs_err": err}
 
 
 def generate_phase(net, dev: torch.device, tmp: str) -> Dict:
@@ -1177,8 +1221,9 @@ def generate_phase(net, dev: torch.device, tmp: str) -> Dict:
                     + white.numel() * 4 + audio.numel() * 4)
     render_bound = max(render_ops / PEAK_FP32, render_bytes / PEAK_BYTES) * 1e3
     print(f"generate render bound: {render_ops / 1e9:.2f} GFLOP float32 -> {render_ops / PEAK_FP32 * 1e3:.3f} ms, "
-          f"{render_bytes / 1e6:.1f} MB -> {render_bytes / PEAK_BYTES * 1e3:.3f} ms; the eager render "
-          f"{stage_ms['render']:.3f} ms = {stage_ms['render'] / render_bound:.1f}x its bound")
+          f"{render_bytes / 1e6:.1f} MB -> {render_bytes / PEAK_BYTES * 1e3:.3f} ms; the render (voiced kernel, "
+          f"eager unvoiced part) {stage_ms['render']:.3f} ms = {stage_ms['render'] / render_bound:.1f}x its bound")
+    voiced = voiced_phase(t, breath, tts.harmonics)
     print(f"generate stages of one {GEN_BATCH}-clip batch: host planning {plan_s:.3f} s for {len(samples)} clips "
           f"(host clock, {len(samples) / plan_s:.1f} clips/s, one thread); CUDA events (median): "
           f"{', '.join(f'{k} {v:.3f} ms' for k, v in stage_ms.items())}; one fused_features_batch to host features "
@@ -1238,7 +1283,7 @@ def generate_phase(net, dev: torch.device, tmp: str) -> Dict:
     print(f"generate under torch.profiler ({GEN_PROFILE_ROWS} clips, fused route, planning included): {share}")
     return {"generate_fused": fused["launches"], "generate_formant": host["launches"], "summary": {
         "plan_s": plan_s, "plan_clips": len(samples), "stage_ms": stage_ms, "batch_s": batch_s, "host_ms": host_ms,
-        "render_bound_ms": render_bound,
+        "render_bound_ms": render_bound, "voiced": voiced,
         "render_err": render_err, "render_limit": render_limit, "augment_err": augment_err,
         "pad_only_err": pad_err, "pad_only_limit": pad_limit, "fused": fused["summary"], "heldout": heldout,
         "formant": host["summary"], **{f"profiled_{k}": v for k, v in busy.items()}}}
@@ -1310,13 +1355,15 @@ def stream_phase(net, dev: torch.device, tmp: str) -> Dict:
                                         tts_backend=backend, seed=STREAM_SEED)
         t0 = time.perf_counter()
         it, launches = run_path(f"stream_{label}", lambda: gen.get_stream_window_features(STREAM_ROWS, **kwargs),
-                                ("mel_patches", "embedding_pool"))
+                                ("mel_patches", "embedding_pool") + (
+                                    ("formant_voiced",) if backend == "formant-device" else ()))
         seconds = time.perf_counter() - t0
         rows = np.load(os.path.join(tmp, f"stream-{label}", f"{it.name}.npy"))
         caches[label] = rows
         check(rows.shape == (STREAM_ROWS, 16, 96) and bool(np.isfinite(rows).all()),
               f"stream {label}: rows {rows.shape}, expected ({STREAM_ROWS}, 16, 96), finite")
-        check(launches == {"mel_patches": segments, "embedding_pool": segments},
+        check({k: launches[k] for k in ("mel_patches", "embedding_pool")} == {"mel_patches": segments,
+                                                                           "embedding_pool": segments},
               f"stream {label}: launched {launches}, expected {segments} of K1 and of K2 (one per segment)")
         out["launches"][label] = launches
         out["summary"][label] = {"windows_per_s": STREAM_ROWS / seconds, "seconds": seconds, "segments": segments}
@@ -1781,7 +1828,7 @@ def pretrain_phase(dev: torch.device, tmp: str) -> Dict:
                 "pretrain", lambda: cli_main(["pretrain-embedding", "-o", npz, "--tts-backend", "formant-device",
                                               "--adversarial-fraction", "0.25", "--focus-phrase", PRETRAIN_PHRASE,
                                               "--steps", str(PRETRAIN_STEPS)]),
-                ("mel_spectrogram",))
+                ("mel_spectrogram", "formant_voiced"))
         cli_s = time.perf_counter() - t0
     finally:
         logger.removeHandler(log)
@@ -3046,7 +3093,7 @@ def sweep_phase(dev: torch.device, tmp: str) -> Dict:
     out = os.path.join(tmp, "e2e.json")
     argv = ["--clips", str(E2E_CLIPS), "--train-steps", str(E2E_TRAIN_STEPS), "--json", out]
     lines, paths["e2e_bench"] = run_path("e2e_bench", lambda: run_tool(e2e.main, argv),
-                                         ("mel_patches", "embedding_pool"))
+                                         ("mel_patches", "embedding_pool", "formant_voiced"))
     e2e_s = time.perf_counter() - t0
     with open(out) as f:
         result = json.load(f)

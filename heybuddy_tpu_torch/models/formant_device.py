@@ -6,12 +6,15 @@ Counterpart of the JAX package's ``models/formant_device.py``:
 * the **host** plans (``DeviceFormantPlanner``, numpy, a copy of JAX's: the
   host synthesizer's own segment plan, formant / F0 tracks and phase,
   decimated 64x), so a ``ClipPlan`` is bit-equal to the JAX package's;
-* the **device** renders (``render``, plain PyTorch): linear upsampling of
-  the tracks, the voiced source-filter sum with the Chebyshev sin recurrence
-  over the harmonics (an unrolled loop of eager elementwise ops), and the
-  unvoiced residue as white noise shaped per 8 ms frame by matmul DFT ->
-  spectral envelope -> matmul iDFT -> overlap-add (cuFFT is not needed: the
-  128-point DFT is a matmul, TF32 off, ``device.py``).
+* the **device** renders (``render``): the voiced source-filter sum (linear
+  upsampling of the tracks, the phase, the Chebyshev sin recurrence over the
+  harmonics through the formant resonances) is one launch of the
+  hand-written kernel ``ops/kernels/csrc/formant_voiced.cu`` on the card and
+  its plain version, a loop of eager elementwise ops (``_voiced_plain``), on
+  the CPU; the unvoiced residue is eager PyTorch on either: white noise
+  shaped per 8 ms frame by matmul DFT -> spectral envelope -> matmul iDFT ->
+  overlap-add (cuFFT is not needed: the 128-point DFT is a matmul, TF32 off,
+  ``device.py``), then the mix, mask and peak normalisation.
 
 Randomness is split from the arithmetic: ``clip_noise`` draws each clip's
 breath and white noise from a ``torch.Generator`` seeded by the clip's seed
@@ -37,6 +40,7 @@ import torch
 from heybuddy_tpu_torch.constants import CLIP_SAMPLES, SAMPLE_RATE
 from heybuddy_tpu_torch.device import DeviceLike, resolve_device
 from heybuddy_tpu_torch.models.formant import FormantSynthesizer
+from heybuddy_tpu_torch.ops.kernels import build
 from heybuddy_tpu_torch.utils.profiling import span
 
 __all__ = [
@@ -237,31 +241,62 @@ def _c(value: float, dtype: torch.dtype) -> float:
     return float(np.float32(value)) if dtype == torch.float32 else float(value)
 
 
-@torch.no_grad()
-def render(
+@functools.lru_cache(maxsize=None)
+def _voiced_constants(harmonics: int, sample_rate: int, device: torch.device) -> torch.Tensor:
+    """The voiced kernel's table: the phase step 2 pi / sr, then 1 / sqrt(h)
+    for h = 1..harmonics, each rounded to float32 as ``_voiced_plain`` rounds it."""
+    table = [2.0 * np.pi / float(sample_rate)] + [1.0 / np.sqrt(h) for h in range(1, harmonics + 1)]
+    return torch.from_numpy(np.asarray(table).astype(np.float32)).to(device)
+
+
+def _voiced_kernel(
     tracks: torch.Tensor,
-    noise_table: torch.Tensor,
     scale: torch.Tensor,
     noise_scale: torch.Tensor,
-    length: torch.Tensor,
     breath: torch.Tensor,
-    white: torch.Tensor,
     *,
     l_max: int,
-    harmonics: int = DEFAULT_HARMONICS,
-    sample_rate: int = SAMPLE_RATE,
-    dtype: torch.dtype = torch.float32,
+    harmonics: int,
+    sample_rate: int,
+) -> torch.Tensor:
+    """``_voiced_plain`` in float32 on the card: one launch of
+    ``csrc/formant_voiced.cu`` (every sample's harmonic sum in registers)."""
+    b, n_tracks, n_dec = tracks.shape
+    if n_tracks != _N_TRACKS or (n_dec - 1) * TRACK_STRIDE < l_max:
+        raise ValueError(f"tracks {tuple(tracks.shape)} do not cover {l_max} samples")
+    if breath.shape != (b, l_max) or scale.shape != (b,) or noise_scale.shape != (b,):
+        raise ValueError(f"breath {tuple(breath.shape)}, scale {tuple(scale.shape)} and noise scale "
+                         f"{tuple(noise_scale.shape)} do not match {b} clips of {l_max} samples")
+    dev = tracks.device
+    tracks, scale, noise_scale, breath = (t.contiguous() for t in (tracks, scale, noise_scale, breath))
+    out = torch.empty((b, l_max), dtype=torch.float32, device=dev)
+    if b and l_max:
+        consts = _voiced_constants(harmonics, sample_rate, dev)
+        build.launch("formant_voiced", dev,
+                     [tracks.data_ptr(), scale.data_ptr(), noise_scale.data_ptr(), breath.data_ptr(),
+                      consts.data_ptr(), out.data_ptr()],
+                     [b, n_dec, l_max, harmonics, sample_rate])
+    return out
+
+
+def _voiced_plain(
+    tracks: torch.Tensor,
+    scale: torch.Tensor,
+    noise_scale: torch.Tensor,
+    breath: torch.Tensor,
+    *,
+    l_max: int,
+    harmonics: int,
+    sample_rate: int,
+    dtype: torch.dtype,
 ) -> torch.Tensor:
     """
-    The JAX package's ``_render_impl`` in PyTorch, given the noise draws:
-    (B, 8, Ld) tracks, (B, 24, 9) noise table, per-clip scale, noise scale
-    and length, breath (B, l_max) and white (B, l_max + 128) -> (B, l_max)
-    audio peak-normalized to 0.7, zero past each clip's length. Every tensor
-    on one device. ``dtype`` float32 is the JAX function's arithmetic;
-    float64 is the reference its float32 rounding is measured against.
+    The render's voiced part as eager elementwise ops, the kernel's plain
+    version: upsample the tracks, integrate the phase analytically per run,
+    sum the harmonics (Chebyshev sin recurrence, formant resonances, nasal
+    zero and murmur, Nyquist gate), then acc * amp + breath * (0.02
+    noise_scale) * amp. Every tensor ``dtype``, on one device.
     """
-    tracks, noise_table, scale, noise_scale, breath, white = (
-        t.to(dtype) for t in (tracks, noise_table, scale, noise_scale, breath, white))
     dev = tracks.device
     sr = float(sample_rate)
     stride = TRACK_STRIDE
@@ -271,7 +306,6 @@ def render(
     ph_d = tracks[:, 1]
     scale_c = scale[:, None]
 
-    # ---- voiced: upsample tracks, integrate phase analytically per run ----
     f0a, f0b = f0_d[:, :-1, None], f0_d[:, 1:, None]
     j = torch.arange(stride, dtype=dtype, device=dev)[None, None, :]
     incr = _c(2.0 * np.pi / sr, dtype) * (f0a * j + (f0b - f0a) * (j * j) / (2.0 * stride))
@@ -320,7 +354,57 @@ def render(
         sin_prev, sin_h = sin_h, (two_cos * sin_h).sub_(sin_prev)
     del sin_prev, sin_h, two_cos, freq, x, env, gate
     voiced = acc.mul_(amp)
-    voiced.add_(breath * (_c(0.02, dtype) * noise_scale[:, None]) * amp)
+    return voiced.add_(breath * (_c(0.02, dtype) * noise_scale[:, None]) * amp)
+
+
+@torch.no_grad()
+def render(
+    tracks: torch.Tensor,
+    noise_table: torch.Tensor,
+    scale: torch.Tensor,
+    noise_scale: torch.Tensor,
+    length: torch.Tensor,
+    breath: torch.Tensor,
+    white: torch.Tensor,
+    *,
+    l_max: int,
+    harmonics: int = DEFAULT_HARMONICS,
+    sample_rate: int = SAMPLE_RATE,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """
+    The JAX package's ``_render_impl`` in PyTorch, given the noise draws:
+    (B, 8, Ld) tracks, (B, 24, 9) noise table, per-clip scale, noise scale
+    and length, breath (B, l_max) and white (B, l_max + 128) -> (B, l_max)
+    audio peak-normalized to 0.7, zero past each clip's length. Every tensor
+    on one device. ``dtype`` float32 is the JAX function's arithmetic;
+    float64 is the reference its float32 rounding is measured against.
+
+    The voiced part (the harmonic sum) is one launch of the hand-written
+    kernel ``csrc/formant_voiced.cu`` for CUDA tensors, which render float32
+    alone (another ``dtype`` raises), and its plain version
+    ``_voiced_plain`` for CPU tensors; the two round at the same points. The
+    unvoiced part (framing, the DFT matmuls, the segment envelope, iDFT and
+    overlap-add), the mix, the mask and the peak normalisation are eager
+    PyTorch on either device.
+    """
+    tracks, noise_table, scale, noise_scale, breath, white = (
+        t.to(dtype) for t in (tracks, noise_table, scale, noise_scale, breath, white))
+    dev = tracks.device
+    sr = float(sample_rate)
+    b = tracks.shape[0]
+
+    # ---- voiced: the harmonic sum ----
+    if dev.type == "cpu":
+        voiced = _voiced_plain(tracks, scale, noise_scale, breath, l_max=l_max, harmonics=harmonics,
+                               sample_rate=sample_rate, dtype=dtype)
+    elif dev.type != "cuda":
+        raise ValueError(f"render: unsupported device {dev}")
+    elif dtype != torch.float32:
+        raise ValueError(f"render on the card is float32 alone, not {dtype}")
+    else:
+        voiced = _voiced_kernel(tracks, scale, noise_scale, breath, l_max=l_max, harmonics=harmonics,
+                                sample_rate=sample_rate)
 
     # ---- unvoiced: frame -> DFT -> spectral envelope -> iDFT -> OLA ----
     n_fft = NOISE_FFT

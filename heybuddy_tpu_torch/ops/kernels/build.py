@@ -53,7 +53,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "_build"
 )
-SOURCES = ("mel_patches", "mel_patches_fat", "mel_spectrogram", "embedding_pool", "featurize")
+SOURCES = ("mel_patches", "mel_patches_fat", "mel_spectrogram", "embedding_pool", "featurize", "formant_voiced")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
