@@ -207,17 +207,18 @@ class BaseTTS:
             audio_batch = self.synthesize_batch(
                 batch_texts, speakers, slerp_weight, length_scale, noise_scale, noise_scale_w, seed=batch_seed
             )
-            for text, clip in zip(batch_texts, audio_batch):
-                if self.sample_rate != target_sample_rate:
-                    clip = resample_audio(clip, self.sample_rate, target_sample_rate)
-                # peak-normalize into int16
-                peak = max(0.01, float(np.abs(clip).max()))
-                pcm = np.clip(clip * (32767.0 / peak), -32768, 32767).astype(np.int16)
-                pcm = np.trim_zeros(pcm)
-                if trim_silence:
-                    pcm = self.trim_silence(pcm.astype(np.float32) / 32768.0)
-                    pcm = np.clip(pcm * 32767.0, -32768, 32767).astype(np.int16)
-                samples.append((text, pcm))
+            with span("tts/resample"):  # resample, normalise, int16, trim
+                for text, clip in zip(batch_texts, audio_batch):
+                    if self.sample_rate != target_sample_rate:
+                        clip = resample_audio(clip, self.sample_rate, target_sample_rate)
+                    # peak-normalize into int16
+                    peak = max(0.01, float(np.abs(clip).max()))
+                    pcm = np.clip(clip * (32767.0 / peak), -32768, 32767).astype(np.int16)
+                    pcm = np.trim_zeros(pcm)
+                    if trim_silence:
+                        pcm = self.trim_silence(pcm.astype(np.float32) / 32768.0)
+                        pcm = np.clip(pcm * 32767.0, -32768, 32767).astype(np.int16)
+                    samples.append((text, pcm))
         return samples
 
 
@@ -383,6 +384,13 @@ class VitsTTS(BaseTTS):
     static frame budget, ``max_frames`` = 64 * ceil(2 t_x max(length scale, 1) / 64),
     which clips the longest clips as the JAX backend does; its noise comes
     from a generator on ``device`` seeded with the batch seed.
+
+    Counters over every batch synthesized: ``frames_budgeted`` (b x
+    max_frames a batch), ``frames_used`` (the frames of the clips' audio)
+    and ``clips_clipped`` (clips that fill the budget: those it cut, and any
+    that fit it exactly). Each batch is the spans ``vits/inputs`` (ids,
+    speaker slerp, budget, the upload), ``vits/infer`` and ``vits/download``
+    (the audio's copy back).
     """
 
     model_sample_rate = 22050
@@ -425,6 +433,7 @@ class VitsTTS(BaseTTS):
             self.model = Vits.from_jax_params(params, self.config, device=self.device)
         self.model.eval()
         self._speaker_table = self.model.emb_g.weight.detach().cpu().numpy()
+        self.frames_budgeted = self.frames_used = self.clips_clipped = 0
 
     @property
     def num_speakers(self) -> int:
@@ -489,16 +498,25 @@ class VitsTTS(BaseTTS):
         noise_scale_w: float,
         seed: int,
     ) -> List[np.ndarray]:
-        ids, lengths, speaker_embedding, max_frames = self.batch_inputs(texts, speakers, slerp_weight, length_scale)
         dev = self.device
+        with span("vits/inputs"):
+            ids, lengths, speaker_embedding, max_frames = self.batch_inputs(
+                texts, speakers, slerp_weight, length_scale)
+            args = (torch.from_numpy(ids).long().to(dev), torch.from_numpy(lengths).to(dev),
+                    torch.from_numpy(speaker_embedding).to(dev))
+            generator = torch.Generator(device=dev).manual_seed(seed)
         audio, audio_lengths = self.model.infer(
-            torch.from_numpy(ids).long().to(dev), torch.from_numpy(lengths).to(dev),
-            torch.from_numpy(speaker_embedding).to(dev), noise_scale=noise_scale, length_scale=length_scale,
-            noise_scale_w=noise_scale_w, max_frames=max_frames,
-            generator=torch.Generator(device=dev).manual_seed(seed),
+            *args, noise_scale=noise_scale, length_scale=length_scale, noise_scale_w=noise_scale_w,
+            max_frames=max_frames, generator=generator,
         )
-        audio_np = audio.cpu().numpy()
-        return [audio_np[i, : int(n)] for i, n in enumerate(audio_lengths.cpu().numpy())]
+        with span("vits/download"):
+            audio_np = audio.cpu().numpy()
+            audio_lengths_np = audio_lengths.cpu().numpy()
+        budget = max_frames * self.config.hop_samples
+        self.frames_budgeted += len(texts) * max_frames
+        self.frames_used += int(audio_lengths_np.sum()) // self.config.hop_samples
+        self.clips_clipped += int((audio_lengths_np == budget).sum())
+        return [audio_np[i, : int(n)] for i, n in enumerate(audio_lengths_np)]
 
 
 _GLOBAL_TTS: Dict[Tuple[str, str], BaseTTS] = {}

@@ -39,6 +39,7 @@ from torch import nn
 from heybuddy_tpu_torch.device import DeviceLike, resolve_device
 from heybuddy_tpu_torch.models.vits import modules as m
 from heybuddy_tpu_torch.models.vits.attention import Encoder
+from heybuddy_tpu_torch.utils.profiling import span
 
 __all__ = [
     "VitsConfig",
@@ -353,32 +354,40 @@ class Vits(nn.Module):
         """
         (b, t_x) zero-padded ids, (b,) lengths, (b, gin) speaker vectors ->
         (audio (b, max_frames * hop), audio lengths (b,)). Durations are
-        clipped into the static ``max_frames`` budget.
+        clipped into the static ``max_frames`` budget. Each stage is a
+        ``span``: ``vits/infer`` > ``vits/encoder``, ``vits/duration``,
+        ``vits/path``, ``vits/flow``, ``vits/decoder``.
         """
         cfg = self.config
         b, t_x = phoneme_ids.shape
         dev = phoneme_ids.device
-        x_mask = m.sequence_mask(phoneme_lengths, t_x)[:, None, :]
-        h, m_p, logs_p = self.enc_p(phoneme_ids, x_mask)
-        g = speaker_embedding[:, :, None] if speaker_embedding is not None else None
-        if self.sdp:
-            if noise_dur is None:
-                noise_dur = torch.randn((b, 2, t_x), generator=generator, device=dev)
-            logw = self.dp.reverse(h, x_mask, g, noise_dur, noise_scale_w)
-        else:
-            logw = self.dp(h, x_mask, g)
-        w = torch.exp(logw) * x_mask * length_scale
-        w_ceil = torch.ceil(w)
-        y_lengths = torch.clamp(w_ceil.sum(dim=(1, 2)), 1, max_frames).to(torch.int32)
-        y_mask = m.sequence_mask(y_lengths, max_frames)[:, None, :]
-        attn = generate_path(w_ceil, x_mask[:, :, None, :] * y_mask[:, :, :, None])[:, 0]  # (b, t_y, t_x)
-        m_p = torch.einsum("byx,bcx->bcy", attn, m_p)
-        logs_p = torch.einsum("byx,bcx->bcy", attn, logs_p)
-        if noise_prior is None:
-            noise_prior = torch.randn(m_p.shape, generator=generator, device=dev)
-        z_p = m_p + noise_prior * torch.exp(logs_p) * noise_scale
-        z = self.flow.reverse(z_p, y_mask, g)
-        audio = self.dec(z * y_mask, g)
+        with span("vits/infer"):
+            with span("vits/encoder"):
+                x_mask = m.sequence_mask(phoneme_lengths, t_x)[:, None, :]
+                h, m_p, logs_p = self.enc_p(phoneme_ids, x_mask)
+            g = speaker_embedding[:, :, None] if speaker_embedding is not None else None
+            with span("vits/duration"):
+                if self.sdp:
+                    if noise_dur is None:
+                        noise_dur = torch.randn((b, 2, t_x), generator=generator, device=dev)
+                    logw = self.dp.reverse(h, x_mask, g, noise_dur, noise_scale_w)
+                else:
+                    logw = self.dp(h, x_mask, g)
+            with span("vits/path"):
+                w = torch.exp(logw) * x_mask * length_scale
+                w_ceil = torch.ceil(w)
+                y_lengths = torch.clamp(w_ceil.sum(dim=(1, 2)), 1, max_frames).to(torch.int32)
+                y_mask = m.sequence_mask(y_lengths, max_frames)[:, None, :]
+                attn = generate_path(w_ceil, x_mask[:, :, None, :] * y_mask[:, :, :, None])[:, 0]  # (b, t_y, t_x)
+                m_p = torch.einsum("byx,bcx->bcy", attn, m_p)
+                logs_p = torch.einsum("byx,bcx->bcy", attn, logs_p)
+                if noise_prior is None:
+                    noise_prior = torch.randn(m_p.shape, generator=generator, device=dev)
+                z_p = m_p + noise_prior * torch.exp(logs_p) * noise_scale
+            with span("vits/flow"):
+                z = self.flow.reverse(z_p, y_mask, g)
+            with span("vits/decoder"):
+                audio = self.dec(z * y_mask, g)
         return audio, y_lengths * cfg.hop_samples
 
 
