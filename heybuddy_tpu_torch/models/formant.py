@@ -171,12 +171,20 @@ class FormantSynthesizer:
     # ------------------------------------------------------------------ plan
 
     def _plan(self, text: str, length_scale: float, noise_scale: float,
-              rng: np.random.Generator) -> List[_Segment]:
-        """Phones -> context-dependent segment sequence with durations."""
+              rng: np.random.Generator,
+              lexicon: Optional[Dict[str, List[str]]] = None) -> List[_Segment]:
+        """Phones -> context-dependent segment sequence with durations.
+        ``lexicon`` memoizes the G2P's phones by word for the calls that
+        share it (the device planner's batch)."""
         words = text.split()
         segments: List[_Segment] = []
         for wi, word in enumerate(words):
-            phones = self.phonemizer.word_phones(word)
+            if lexicon is None:
+                phones = self.phonemizer.word_phones(word)
+            else:
+                phones = lexicon.get(word)
+                if phones is None:
+                    phones = lexicon[word] = self.phonemizer.word_phones(word)
             if not phones:
                 continue
             # English trochaic bias: stress the word's first vowel.
@@ -275,15 +283,12 @@ class FormantSynthesizer:
         return None
 
     def _build_tracks(self, segments: List[_Segment], total: int,
-                      rng: np.random.Generator, noise_scale: float,
-                      positions: Optional[np.ndarray] = None):
-        """F1/F2/F3, voiced amp, nasalization and zero tracks, evaluated at
-        ``positions`` (sorted sample indices; default every sample). The
-        device planner passes a 64x-decimated grid — evaluating only there is
-        what makes host planning ~10x cheaper than full-rate rendering."""
+                      rng: np.random.Generator, noise_scale: float):
+        """F1/F2/F3, voiced amp, nasalization and zero tracks at every sample.
+        The device planner (``formant_device.DeviceFormantPlanner``) evaluates
+        the same tracks at its knots, a batch of clips at a time."""
         sr = self.sample_rate
-        pos = (np.arange(total, dtype=np.float64) if positions is None
-               else np.asarray(positions, dtype=np.float64))
+        pos = np.arange(total, dtype=np.float64)
         # control points for formants: (sample, f1, f2, f3)
         cp_t: List[float] = []
         cp_f: List[Tuple[float, float, float]] = []
@@ -390,14 +395,11 @@ class FormantSynthesizer:
         return f1, f2, f3, voiced_amp, nasal, zero_f
 
     def _f0_track(self, segments: List[_Segment], total: int, f0: float,
-                  rng: np.random.Generator, noise_scale: float,
-                  positions: Optional[np.ndarray] = None) -> np.ndarray:
-        """Declining F0 with stress accents and a phrase-final fall, evaluated
-        at ``positions`` (default every sample). The jitter walk's length
-        depends on ``total`` only, so decimated and full evaluations sample
-        the same underlying contour (and consume the same rng draws)."""
-        pos = (np.arange(total, dtype=np.float64) if positions is None
-               else np.asarray(positions, dtype=np.float64))
+                  rng: np.random.Generator, noise_scale: float) -> np.ndarray:
+        """Declining F0 with stress accents and a phrase-final fall at every
+        sample. The jitter walk's length depends on ``total`` only, so the
+        device planner's knots sample the same contour (and the same draws)."""
+        pos = np.arange(total, dtype=np.float64)
         t = pos / max(total - 1, 1)
         track = f0 * (1.08 - 0.18 * t)          # declination
         track *= 1.0 - 0.08 * np.clip((t - 0.85) / 0.15, 0, 1)  # final fall

@@ -3,9 +3,10 @@ Device-resident formant TTS: plan on the host, render on the card.
 
 Counterpart of the JAX package's ``models/formant_device.py``:
 
-* the **host** plans (``DeviceFormantPlanner``, numpy, a copy of JAX's: the
-  host synthesizer's own segment plan, formant / F0 tracks and phase,
-  decimated 64x), so a ``ClipPlan`` is bit-equal to the JAX package's;
+* the **host** plans (``DeviceFormantPlanner``, numpy: the host
+  synthesizer's own segment plan, formant / F0 tracks and phase at knots
+  64 samples apart, a batch of clips as arrays), so a ``ClipPlan`` is
+  bit-equal to the JAX package's one-clip planner's;
 * the **device** renders (``render``): the voiced source-filter sum (linear
   upsampling of the tracks, the phase, the Chebyshev sin recurrence over the
   harmonics through the formant resonances) is one launch of the
@@ -31,8 +32,9 @@ compiles).
 from __future__ import annotations
 
 import functools
+import hashlib
 from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,14 +85,62 @@ class ClipPlan:
     noise_table: np.ndarray  # (MAX_NOISE_SEGMENTS, 9) f32
 
 
+@functools.lru_cache(maxsize=None)
+def _walk_grid(m: int) -> np.ndarray:
+    """The f0 walk's knots on [0, 1] (``_f0_track``'s ``np.linspace``), read only."""
+    grid = np.linspace(0, 1, m)
+    grid.flags.writeable = False
+    return grid
+
+
+@dataclass
+class _ClipDraft:
+    """One clip's per-clip stage: its segments with their sample extents and
+    every draw of its generator, taken in the host synthesizer's order."""
+
+    segments: List[Any]      # the synthesizer's _Segments, start and n set
+    total: int               # samples
+    f0: float                # base f0, Hz
+    scale: float
+    noise_scale: float
+    clip_seed: int
+    color: List[float]       # the formant coloration (3)
+    walk: np.ndarray         # the f0 walk's standard normals (total // 160, at least 2)
+    phase0: float            # the phase's start
+
+
+# clips whose knot grids are evaluated together: a (32, 751) float64 array
+# stays in a core's L2 cache (at 128 rows the same work takes 2.5x as long)
+_TRACK_ROWS = 32
+# segment kinds as the batch tables' codes, and the voiced envelope's attack
+# and release seconds by code (1.0 where a kind has no envelope)
+_KINDS = {"vowel": 0, "nasal": 1, "liquid": 2, "fricative": 3, "closure": 4, "burst": 5, "aspiration": 6, "gap": 7}
+_ENV_ATTACK = np.array([0.018, 0.012, 0.012, 0.01, 0.01, 1.0, 1.0, 1.0])
+_ENV_RELEASE = np.array([0.02, 0.015, 0.015, 0.01, 0.01, 1.0, 1.0, 1.0])
+
+
 class DeviceFormantPlanner:
-    """Text -> :class:`ClipPlan` using the host synthesizer's own planning."""
+    """Text -> :class:`ClipPlan` using the host synthesizer's own planning.
+
+    ``plan_batch`` plans clips together: per clip in Python what cannot be
+    batched (the segments, their extents, the fallback tests and every draw
+    of the clip's own generator), then the tracks of ``_TRACK_ROWS`` clips at
+    a time as arrays on their shared (B, n_dec) knot grid, each knot with the
+    same float64 arithmetic in the same order as the host synthesizer's
+    ``_build_tracks`` / ``_f0_track`` evaluated at it. A plan is bit-equal to
+    the one-clip evaluation, alone or at any index of any batch.
+    """
 
     def __init__(self, sample_rate: int = SAMPLE_RATE, max_samples: int = DEFAULT_MAX_SAMPLES) -> None:
         assert max_samples % TRACK_STRIDE == 0
         self.sample_rate = sample_rate
         self.max_samples = max_samples
         self.n_dec = max_samples // TRACK_STRIDE + 1
+        self._positions = np.arange(self.n_dec, dtype=np.float64) * TRACK_STRIDE   # the knots' samples
+        # rows' knots and formant control points are laid end to end, row r
+        # at r * _row_span, for one interpolation over the batch (integer
+        # sample positions: the offsets are exact)
+        self._row_span = float(2 ** (max_samples.bit_length() + 2))
         self.synth = FormantSynthesizer(sample_rate)
 
     def plan(
@@ -105,16 +155,56 @@ class DeviceFormantPlanner:
         """Build a device plan, or None when the clip needs the host fallback
         (longer than ``max_samples``, or too many noise segments).
         ``speaker_params`` overrides the speaker-derived voice exactly like
-        ``FormantSynthesizer.synthesize``."""
-        import hashlib
+        ``FormantSynthesizer.synthesize``. A batch of one."""
+        return self.plan_batch([text], [speaker], [length_scale], [noise_scale], [seed], [speaker_params])[0]
 
+    def plan_batch(
+        self,
+        texts: Sequence[str],
+        speakers: Sequence[int],
+        length_scales: Sequence[float],
+        noise_scales: Sequence[float],
+        seeds: Sequence[Optional[int]],
+        speaker_params: Sequence[Optional[Tuple[float, float]]],
+    ) -> List[Optional[ClipPlan]]:
+        """One plan per clip, in order, each as ``plan`` builds it, or None
+        where the clip needs the host fallback. The G2P runs once for each
+        distinct word of the call. A plan's arrays are row views of the
+        batch's."""
+        with span("formant/plan/segments"):
+            lexicon: Dict[str, List[str]] = {}
+            drafts = [self._draft(*clip, lexicon)
+                      for clip in zip(texts, speakers, length_scales, noise_scales, seeds, speaker_params)]
+        plans: List[Optional[ClipPlan]] = [None] * len(drafts)
+        kept = [i for i, d in enumerate(drafts) if d is not None]
+        with span("formant/plan/tracks"):
+            for c0 in range(0, len(kept), _TRACK_ROWS):
+                chunk = kept[c0:c0 + _TRACK_ROWS]
+                tracks, tables = self._tracks([drafts[i] for i in chunk])
+                for row, i in enumerate(chunk):
+                    d = drafts[i]
+                    plans[i] = ClipPlan(length=d.total, scale=float(d.scale), noise_scale=float(d.noise_scale),
+                                        clip_seed=d.clip_seed, tracks=tracks[row], noise_table=tables[row])
+        return plans
+
+    def _draft(
+        self,
+        text: str,
+        speaker: int,
+        length_scale: float,
+        noise_scale: float,
+        seed: Optional[int],
+        speaker_params: Optional[Tuple[float, float]],
+        lexicon: Dict[str, List[str]],
+    ) -> Optional[_ClipDraft]:
+        """A clip's segments and draws, or None for the host fallback."""
         if seed is None:
             seed = int.from_bytes(hashlib.md5(text.encode()).digest()[:4], "little")
         rng = np.random.default_rng(seed + speaker * 7919)
         f0, scale = speaker_params or self.synth._speaker(speaker)
         sr = self.sample_rate
 
-        segments = self.synth._plan(text, length_scale, noise_scale, rng)
+        segments = self.synth._plan(text, length_scale, noise_scale, rng, lexicon)
         if not segments:
             return None
         cursor = 0
@@ -125,52 +215,242 @@ class DeviceFormantPlanner:
         total = cursor + int(0.02 * sr)
         if total > self.max_samples:
             return None
-
-        noise_segments = [s for s in segments if s.noise is not None and s.n > 0]
-        if len(noise_segments) > MAX_NOISE_SEGMENTS:
+        if sum(1 for s in segments if s.noise is not None and s.n > 0) > MAX_NOISE_SEGMENTS:
             return None
 
-        # the host synthesizer's rng consumption order, every track evaluated
-        # only at the decimated grid; knot phases by trapezoid accumulation
-        # (the device integrates the linearly interpolated f0 between knots)
-        n_dec = self.n_dec
-        positions = np.arange(n_dec, dtype=np.float64) * TRACK_STRIDE
-        f1, f2, f3, amp, nasal, zero_f = self.synth._build_tracks(
-            segments, total, rng, noise_scale, positions=positions)
-        f0_track = self.synth._f0_track(segments, total, f0, rng, noise_scale, positions=positions)
-        steps = (f0_track[:-1] + f0_track[1:]) * (0.5 * TRACK_STRIDE)
-        phase = rng.uniform(0, 2 * np.pi) + (2.0 * np.pi / sr) * np.concatenate([[0.0], np.cumsum(steps)])
+        # the host synthesizer's draws in its order: the formant coloration
+        # (_build_tracks), the f0 walk (_f0_track), the phase's start
+        color = 1.0 + noise_scale * 0.03 * rng.standard_normal(3)
+        walk = rng.standard_normal(max(total // 160, 2))
+        phase0 = rng.uniform(0, 2 * np.pi)
+        return _ClipDraft(segments, total, f0, scale, noise_scale, int(seed + speaker * 7919) & 0x7FFFFFFF,
+                          color.tolist(), walk, phase0)
 
-        tracks = np.stack([
-            f0_track.astype(np.float32),
-            phase.astype(np.float32),
-            f1, f2, f3,
-            np.where(positions < total, amp, 0.0).astype(np.float32),
-            np.where(positions < total, nasal, 0.0).astype(np.float32),
-            zero_f,
-        ])
+    def _tracks(self, drafts: List[_ClipDraft]) -> Tuple[np.ndarray, np.ndarray]:
+        """(B, 8, n_dec) tracks and (B, MAX_NOISE_SEGMENTS, 9) noise tables
+        of the drafts: ``_build_tracks`` and ``_f0_track`` at the knots, the
+        phase by trapezoids between them (the device integrates the linearly
+        interpolated f0)."""
+        sr, b, n_dec, span_r, pos = self.sample_rate, len(drafts), self.n_dec, self._row_span, self._positions
 
-        table = np.zeros((MAX_NOISE_SEGMENTS, 9), np.float32)
-        table[:, 1] = 1.0   # n: avoid 0-division on unused rows
-        table[:, 7] = 0.01  # attack
-        table[:, 8] = 0.01  # release
-        for i, seg in enumerate(noise_segments):
-            low, high, level = seg.noise
-            if seg.kind == "aspiration":
-                tg = seg.targets[0] if seg.targets else (500.0, 1500.0, 2500.0)
-                table[i] = (seg.start, seg.n, level, _KIND_ASPIRATION, tg[0], tg[1], tg[2], 0.0, 0.0)
+        # ---- the segments as (M,) tables, rows one after another ----
+        segs = [seg for d in drafts for seg in d.segments]
+        per_row = np.asarray([len(d.segments) for d in drafts])
+        row = np.repeat(np.arange(b), per_row)
+        first = np.cumsum(per_row) - per_row            # each row's first segment
+        # per segment: start, n, kind, amp, has targets, stressed, nasal zero,
+        # has a locus; first targets (a murmur without any: _build_tracks'
+        # default), last targets, locus
+        fields: List[Any] = []
+        add, locus_of = fields.extend, self.synth._segment_locus
+        for seg in segs:
+            tg, lc = seg.targets, locus_of(seg)
+            add((seg.start, seg.n, _KINDS[seg.kind], seg.amp, bool(tg), seg.stress, seg.anti_formant, lc is not None))
+            add(tg[0] if tg else (300.0, 1400.0, 2500.0))
+            add(tg[-1] if tg else (0.0, 0.0, 0.0))
+            add(lc or (0.0, 0.0, 0.0))
+        table = np.array(fields, np.float64).reshape(len(segs), 17)
+        start, n, kind = (table[:, i].astype(np.int64) for i in range(3))
+        amp, anti = table[:, 3], table[:, 6]
+        has_tg, stressed, has_locus = table[:, 4] > 0, table[:, 5] > 0, table[:, 7] > 0
+        tg_first, tg_last, locus = table[:, 8:11], table[:, 11:14], table[:, 14:17]
+        last = first + per_row - 1                      # and its last
+        has_prev = np.ones(len(segs), bool)
+        has_prev[first] = False
+        has_next = np.ones(len(segs), bool)
+        has_next[last] = False
+        prev = np.maximum(np.arange(len(segs)) - 1, 0)
+        nxt = np.minimum(np.arange(len(segs)) + 1, len(segs) - 1)
+
+        vowel = (kind == _KINDS["vowel"]) & has_tg
+        tract = ((kind == _KINDS["nasal"]) | (kind == _KINDS["liquid"])) & has_tg
+        murmur = ((kind == _KINDS["fricative"]) | (kind == _KINDS["closure"])) & (amp > 0)
+        env_amp = np.where(vowel | tract | murmur, amp, 0.0)
+        nasal_kind = kind == _KINDS["nasal"]
+        nasal_seg = tract & nasal_kind
+        end_on = vowel & has_next & nasal_kind[nxt]     # a vowel before a nasal
+        start_on = vowel & has_prev & nasal_kind[prev]  # a vowel after one
+
+        # ---- knots a segment holds: [ceil(start / 64), ceil((start + n) / 64)) ----
+        k0 = -(-start // TRACK_STRIDE)
+        k1 = -(-(start + n) // TRACK_STRIDE)
+
+        def knots(rows: np.ndarray, first_k: np.ndarray, stop_k: np.ndarray) -> Tuple[np.ndarray, ...]:
+            """Knots [first_k, stop_k) of each range's row, range after range:
+            their knot numbers, flat indices into (B * n_dec), and the ranges' lengths."""
+            lens = stop_k - first_k
+            k = np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens - first_k, lens)
+            return k, k + np.repeat(rows * n_dec, lens), lens
+
+        # ---- voiced envelope ----
+        at = np.flatnonzero(vowel | tract | murmur)
+        k, flat, lens = knots(row[at], k0[at], k1[at])
+        t_axis = k * float(TRACK_STRIDE) - np.repeat(start[at], lens)   # samples into the segment
+        att = np.minimum(t_axis / np.repeat(_ENV_ATTACK[kind[at]] * sr, lens), 1.0)
+        rel = np.minimum((np.repeat(n[at] - 1.0, lens) - t_axis) / np.repeat(_ENV_RELEASE[kind[at]] * sr, lens), 1.0)
+        voiced_amp = np.zeros(b * n_dec)
+        voiced_amp[flat] = np.repeat(amp[at], lens) * att * np.clip(rel, 0, 1)
+
+        # ---- nasalization and the nasal zero: nasals, then the vowel ramps ----
+        nasal = np.zeros(b * n_dec, np.float32)
+        zero_f = np.full(b * n_dec, 1500.0, np.float32)
+        at = np.flatnonzero(nasal_seg)
+        _, flat, lens = knots(row[at], k0[at], k1[at])
+        nasal[flat] = 1.0
+        zero_f[flat] = np.repeat(anti[at], lens)
+        for on, reach, ramp_from, ramp_by, zero_of in (
+            (end_on, int(0.07 * sr), 0.0, 0.9, nxt),      # the last `reach` samples, 0 -> 0.9
+            (start_on, int(0.045 * sr), 0.75, -0.75, prev),  # the first ones, 0.75 -> 0
+        ):
+            if not on.any():
+                continue
+            at = np.flatnonzero(on)
+            width = np.minimum(reach, n[at])
+            if ramp_from == 0.0:
+                lo = start[at] + n[at] - width
+                k, flat, lens = knots(row[at], -(-lo // TRACK_STRIDE), k1[at])
             else:
-                attack_s, release_s = (0.002, 0.008) if seg.kind == "burst" else (0.01, 0.02)
-                table[i] = (seg.start, seg.n, level, _KIND_BAND, low, high, 0.0, attack_s, release_s)
+                lo = start[at]
+                k, flat, lens = knots(row[at], k0[at], -(-(lo + width) // TRACK_STRIDE))
+            ramp = (ramp_from + ramp_by * (k * float(TRACK_STRIDE) - np.repeat(lo, lens))
+                    / np.repeat(np.maximum(width - 1.0, 1.0), lens)).astype(np.float32)
+            nasal[flat] = np.maximum(nasal[flat], ramp)
+            zero_f[flat] = np.repeat(anti[zero_of[at]], lens)
 
-        return ClipPlan(
-            length=total,
-            scale=float(scale),
-            noise_scale=float(noise_scale),
-            clip_seed=int(seed + speaker * 7919) & 0x7FFFFFFF,
-            tracks=tracks,
-            noise_table=table,
-        )
+        # ---- formant control points (s, s + trans, s + n - trans, s + n - 1 a vowel) ----
+        color = np.asarray([d.color for d in drafts], np.float64)[row]
+        first_c = tg_first * color
+        last_c = tg_last * color
+        lp, ln = locus[prev], locus[nxt]
+        onset = np.where((has_prev & has_locus[prev])[:, None], lp + 0.45 * (first_c - lp), first_c)
+        offset = np.where((has_next & has_locus[nxt])[:, None], ln + 0.45 * (last_c - ln), last_c)
+        trans = np.minimum(int(0.045 * sr), n // 3)
+        cp_t = np.stack([start, start + trans, start + n - trans, start + n - 1], axis=1)
+        cp_t[~vowel, 1] = (start + n - 1)[~vowel]
+        cp_f = np.stack([onset, first_c, last_c, offset], axis=1)
+        cp_f[tract, :2] = first_c[tract, None]
+        cp_f[murmur, :2] = tg_first[murmur, None]
+        used = np.zeros((len(segs), 4), bool)
+        used[vowel] = True
+        used[tract | murmur, :2] = True
+        cp_row = np.broadcast_to(row[:, None], used.shape)[used]
+        cp_t, cp_f = cp_t[used], cp_f[used]
+        empty = np.flatnonzero(np.bincount(cp_row, minlength=b) == 0)
+        if len(empty):      # a row with no voiced segment: one point, (500, 1500, 2500)
+            order = np.argsort(np.concatenate([cp_row, empty]), kind="stable")
+            cp_row = np.concatenate([cp_row, empty])[order]
+            cp_t = np.concatenate([cp_t, np.zeros(len(empty), np.int64)])[order]
+            cp_f = np.concatenate([cp_f, np.tile([500.0, 1500.0, 2500.0], (len(empty), 1))])[order]
+        # strictly increasing within a row: t_i = max(t_i, t_(i-1) + 1), an
+        # integer cummax of t_i - i; rows apart by span_r
+        per_cp_row = np.bincount(cp_row, minlength=b)
+        cp_first = np.cumsum(per_cp_row) - per_cp_row
+        local = np.arange(len(cp_t)) - cp_first[cp_row]
+        base = cp_row * int(span_r)
+        cp_t = np.maximum.accumulate(base + cp_t - local) - base + local
+        # one interpolation for the batch: each row's points at r * span_r,
+        # a flat point either side of them
+        slots = np.arange(len(cp_t)) + 2 * cp_row + 1
+        xp = np.empty(len(cp_t) + 2 * b)
+        fp = np.empty((len(cp_t) + 2 * b, 3))
+        xp[slots] = (base + cp_t).astype(np.float64)
+        fp[slots] = cp_f
+        left, right = cp_first + 2 * np.arange(b), cp_first + per_cp_row + 2 * np.arange(b) + 1
+        rows_at = np.arange(b) * span_r
+        xp[left], fp[left] = rows_at - 0.25 * span_r, fp[left + 1]
+        xp[right], fp[right] = rows_at + 0.5 * span_r, fp[right - 1]
+        # knots past a row's last point take its value: interpolate up to it
+        last_cp = cp_first + per_cp_row - 1
+        k, flat, lens = knots(np.arange(b), np.zeros(b, np.int64),
+                              np.minimum(cp_t[last_cp] // TRACK_STRIDE + 1, n_dec))
+        knot_x = k * float(TRACK_STRIDE) + np.repeat(rows_at, lens)
+        formants = []
+        for column in range(3):
+            track = np.repeat(cp_f[last_cp, column], n_dec)
+            track[flat] = np.interp(knot_x, xp, fp[:, column])
+            formants.append(track)
+        f1, f2, f3 = formants
+
+        # ---- f0: declination, final fall, stress accents, jitter (in place,
+        # each product and sum the host synthesizer's) ----
+        totals = np.asarray([d.total for d in drafts])
+        t = pos / np.maximum(totals - 1, 1).astype(np.float64)[:, None]
+        f0 = t * 0.18
+        np.subtract(1.08, f0, out=f0)
+        f0 *= np.asarray([d.f0 for d in drafts], np.float64)[:, None]
+        fall = t - 0.85
+        fall /= 0.15
+        np.clip(fall, 0, 1, out=fall)
+        fall *= 0.08
+        np.subtract(1.0, fall, out=fall)
+        f0 *= fall
+        accent = np.flatnonzero((kind == _KINDS["vowel"]) & stressed)
+        rank = np.arange(len(accent)) - np.searchsorted(accent, first)[row[accent]]
+        for nth in range(int(rank.max()) + 1 if len(accent) else 0):
+            at = accent[rank == nth]
+            x = pos - (start[at] + n[at] / 2)[:, None]
+            x /= (np.maximum(n[at], 1) * 1.2)[:, None]
+            bump = x * -4.0
+            bump *= x
+            np.exp(bump, out=bump)
+            bump *= 0.10
+            bump += 1.0
+            if len(at) == b:
+                f0 *= bump
+            else:
+                f0[row[at]] *= bump
+        lengths = [len(d.walk) for d in drafts]
+        walks = np.zeros((b, max(lengths)))
+        for r, d in enumerate(drafts):
+            walks[r, : lengths[r]] = d.walk
+        # zero draws past a walk's end repeat its last value: the max is the walk's
+        walks = np.cumsum(walks, axis=1)
+        walks /= np.abs(walks).max(axis=1, keepdims=True) + 1e-9
+        # past t = 1 the interpolation takes the walk's last value
+        jitter = np.repeat(walks[np.arange(b), np.asarray(lengths) - 1][:, None], n_dec, axis=1)
+        upto = np.minimum((totals - 1) // TRACK_STRIDE + 1, n_dec)
+        for r, m in enumerate(lengths):
+            jitter[r, : upto[r]] = np.interp(t[r, : upto[r]], _walk_grid(m), walks[r, :m])
+        jitter *= (np.asarray([d.noise_scale for d in drafts], np.float64) * 0.012)[:, None]
+        jitter += 1.0
+        f0 *= jitter
+
+        # ---- phase: trapezoids between the knots ----
+        phase = np.empty((b, n_dec))
+        phase[:, 0] = 0.0
+        steps = f0[:, :-1] + f0[:, 1:]
+        steps *= 0.5 * TRACK_STRIDE
+        np.cumsum(steps, axis=1, out=phase[:, 1:])
+        phase *= 2.0 * np.pi / sr
+        phase += np.asarray([d.phase0 for d in drafts])[:, None]
+
+        tracks = np.empty((b, _N_TRACKS, n_dec), np.float32)
+        for k, track in enumerate((f0, phase, f1, f2, f3, voiced_amp, nasal, zero_f)):
+            tracks[:, k] = track.reshape(b, n_dec)
+
+        tables = np.zeros((b, MAX_NOISE_SEGMENTS, 9), np.float32)
+        tables[:, :, 1] = 1.0   # n: avoid 0-division on unused rows
+        tables[:, :, 7] = 0.01  # attack
+        tables[:, :, 8] = 0.01  # release
+        at, values = [], []
+        for r, d in enumerate(drafts):
+            i = 0
+            for seg in d.segments:
+                if seg.noise is None or seg.n <= 0:
+                    continue
+                low, high, level = seg.noise
+                if seg.kind == "aspiration":
+                    tg = seg.targets[0] if seg.targets else (500.0, 1500.0, 2500.0)
+                    values.append((seg.start, seg.n, level, _KIND_ASPIRATION, tg[0], tg[1], tg[2], 0.0, 0.0))
+                else:
+                    attack_s, release_s = (0.002, 0.008) if seg.kind == "burst" else (0.01, 0.02)
+                    values.append((seg.start, seg.n, level, _KIND_BAND, low, high, 0.0, attack_s, release_s))
+                at.append((r, i))
+                i += 1
+        if at:
+            idx = np.asarray(at)
+            tables[idx[:, 0], idx[:, 1]] = np.asarray(values)
+        return tracks, tables
 
 
 def pack_plans(plans: List[ClipPlan], l_max: int) -> Dict[str, np.ndarray]:

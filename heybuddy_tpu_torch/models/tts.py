@@ -294,7 +294,9 @@ class DeviceFormantTTS(BaseTTS):
 
     Planning is numpy-only; the render runs on the caller's thread. Clips
     longer than ``max_samples`` or with too many noise segments fall back to
-    the host renderer.
+    the host renderer. Counters over every ``plan_batch`` call:
+    ``clips_planned`` (device plans) and ``clips_host_fallback`` (clips
+    rendered on the host instead).
     """
 
     def __init__(
@@ -316,6 +318,7 @@ class DeviceFormantTTS(BaseTTS):
         self.device = device
         self._host = FormantSynthesizer()
         self._num_speakers = num_speakers
+        self.clips_planned = self.clips_host_fallback = 0
 
     @property
     def num_speakers(self) -> int:
@@ -354,23 +357,27 @@ class DeviceFormantTTS(BaseTTS):
         noise_scale_w: float,
         seed: int,
     ) -> List[Any]:
-        """Per-clip ClipPlans; clips the device renderer cannot express come
-        back as host-rendered float32 audio instead (consumers dispatch on
-        the type)."""
-        items: List[Any] = []
+        """Per-clip ClipPlans, planned together; clips the device renderer
+        cannot express come back as host-rendered float32 audio instead
+        (consumers dispatch on the type)."""
         with span("formant/plan"):
-            for text, speaker, params, clip_seed in _clip_tasks(self._host, texts, speakers, slerp_weight, seed):
-                plan = self.planner.plan(
-                    text, speaker=speaker, length_scale=length_scale, noise_scale=noise_scale, seed=clip_seed,
-                    speaker_params=params,
-                )
+            tasks = _clip_tasks(self._host, texts, speakers, slerp_weight, seed)
+            n = len(tasks)
+            plans = self.planner.plan_batch(
+                [t[0] for t in tasks], [t[1] for t in tasks], [length_scale] * n, [noise_scale] * n,
+                [t[3] for t in tasks], [t[2] for t in tasks],
+            )
+            items: List[Any] = []
+            for (text, speaker, params, clip_seed), plan in zip(tasks, plans):
                 if plan is None:
-                    items.append(self._host.synthesize(
+                    plan = self._host.synthesize(
                         text, speaker=speaker, length_scale=length_scale, noise_scale=noise_scale, seed=clip_seed,
                         speaker_params=params,
-                    ))
-                else:
-                    items.append(plan)
+                    )
+                items.append(plan)
+            fallback = sum(plan is None for plan in plans)
+            self.clips_planned += n - fallback
+            self.clips_host_fallback += fallback
         return items
 
 

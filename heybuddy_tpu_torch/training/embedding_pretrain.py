@@ -415,13 +415,19 @@ class EmbeddingPretrainer:
 
                 chunk = 256
                 for c0 in range(0, len(tasks), chunk):
+                    batch = tasks[c0:c0 + chunk]
+                    # the clip seed of a one-clip synthesize_batch (seed * 31 + 0)
+                    voices = [dict(speaker=s1 * 104729 + s2,
+                                   speaker_params=_blend_speaker_params(tts._host, s1, s2, slerp),
+                                   length_scale=ls, noise_scale=ns, seed=seed * 31)
+                              for (_i, _j, _text, (s1, s2), slerp, ls, ns, _nsw, seed) in batch]
+                    planned = tts.planner.plan_batch(
+                        [task[2] for task in batch], [v["speaker"] for v in voices],
+                        [v["length_scale"] for v in voices], [v["noise_scale"] for v in voices],
+                        [v["seed"] for v in voices], [v["speaker_params"] for v in voices],
+                    )
                     plans, meta = [], []
-                    for (i, j, text, (s1, s2), slerp, ls, ns, _nsw, seed) in tasks[c0:c0 + chunk]:
-                        # the clip seed of a one-clip synthesize_batch (seed * 31 + 0)
-                        voice = dict(speaker=s1 * 104729 + s2,
-                                     speaker_params=_blend_speaker_params(tts._host, s1, s2, slerp),
-                                     length_scale=ls, noise_scale=ns, seed=seed * 31)
-                        plan = tts.planner.plan(text, **voice)
+                    for (i, j, text, *_), voice, plan in zip(batch, voices, planned):
                         if plan is None:
                             store(i, j, tts._host.synthesize(text, **voice))
                         else:

@@ -178,6 +178,35 @@ def test_host_formant_clip_pool_bit_equal_jax():
     assert (port._pool_lengths > 4000).all()
 
 
+def test_device_formant_clip_pool_plans_in_batches(monkeypatch):
+    """The formant-device clip pool plans each chunk of renderings in one
+    ``plan_batch`` call, and its clips equal those rendered from the JAX
+    package's one-clip plans."""
+    from heybuddy_tpu.models import formant_device as jax_fd
+    from heybuddy_tpu_torch.models import formant_device
+
+    kwargs = dict(texts=["hey buddy", "hello", "stop"], speakers_per_text=2, batch_size=2,
+                  tts_backend="formant-device", seed=5, device="cpu")
+    sizes = []
+    batched = formant_device.DeviceFormantPlanner.plan_batch
+    monkeypatch.setattr(formant_device.DeviceFormantPlanner, "plan_batch",
+                        lambda self, texts, *rest: sizes.append(len(texts)) or batched(self, texts, *rest))
+    port = pretrain.EmbeddingPretrainer(**kwargs)
+    port.build_clip_pool()
+    assert sizes == [6]
+
+    one_clip = jax_fd.DeviceFormantPlanner()
+    monkeypatch.setattr(formant_device.DeviceFormantPlanner, "plan_batch",
+                        lambda self, *columns: [one_clip.plan(text, speaker=speaker, length_scale=ls, noise_scale=ns,
+                                                              seed=seed, speaker_params=params)
+                                                for text, speaker, ls, ns, seed, params in zip(*columns)])
+    ref = pretrain.EmbeddingPretrainer(**kwargs)
+    ref.build_clip_pool()
+    assert np.array_equal(port._pool, ref._pool)
+    assert np.array_equal(port._pool_lengths, ref._pool_lengths)
+    assert (port._pool_lengths > 4000).all()
+
+
 # ----------------------------------------------------------------- the step
 
 
