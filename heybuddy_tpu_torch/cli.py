@@ -26,9 +26,11 @@ printed results; the other ranks log warnings only.
 ``train`` trains a wake-word head for PHRASE end to end with the JAX
 ``heybuddy train``'s options, names and defaults: the feature caches in
 ``$HEYBUDDY_DATASET_DIR`` that are missing or short are generated (TTS ->
-augmentation -> featurization, ``data/features.py``; ``--tts-backend`` or
-``HEYBUDDY_TTS_BACKEND`` picks the host ``formant`` or the fused
-``formant-device`` route, ``HEYBUDDY_FUSED_TTS=0`` turns the fused route
+augmentation -> featurization, ``data/features.py``; ``--tts-backend``,
+else ``HEYBUDDY_TTS_BACKEND``, else ``vits`` when ``HEYBUDDY_TTS_CHECKPOINT``
+names a file, else ``formant`` picks the TTS (``models/tts.py``'s
+``resolve_tts_backend``): ``formant`` and ``vits`` take the classic route,
+``formant-device`` the fused one, which ``HEYBUDDY_FUSED_TTS=0`` turns
 off; ``--stream-negative-samples``, ``--collision-negative-samples`` and
 ``--validation-stream-negative-samples`` synthesise continuous streams and
 featurize their sliding runtime windows), ``--prefix-negative-phrases`` /

@@ -11,20 +11,25 @@ already there stay, and the missing ones are generated with seeds keyed off
 the existing count, each cache kind in its own ``_SEED_NAMESPACE`` block. A
 cache whose space sidecar is stale (``data/space.py``) is dropped first.
 
-Two routes, as in JAX:
+Two routes, as in JAX, by the backend ``models/tts.resolve_tts_backend`` names:
 
-* classic (the host ``formant`` backend, the default): host render ->
+* classic (the host ``formant`` and the ``vits`` backends): render ->
   ``AugmentedAudioGenerator`` (``augment_batch`` on ``device``, or centring
   for pad-only caches) -> ``SpeechEmbeddings.featurize_device`` (K1 -> K2 on
-  the card), batch i dispatched before batch i-1 is drained;
+  the card);
 * fused (``formant-device`` with ``HEYBUDDY_FUSED_TTS`` not "0"): host plans
   -> ``fused_features_batch`` (render -> augment or centring -> K1 -> K2,
   the audio never leaving the device), with device-resident noise and
-  impulse banks; clips the device cannot express go the classic route.
+  impulse banks; clips the device cannot express (``DeviceFormantTTS``
+  decides) go the classic route.
+
+Both feed one loop, ``_featurize_batches``: batch i is dispatched before
+batch i-1 is drained (``_drain``), so the host's work overlaps the device's.
 
 The stream-window caches are synthesised as continuous streams
 (``data/streams.py``) and featurized a segment of up to 1024 overlapping
-windows at a time, each segment uploaded once and read by K1 in place.
+windows at a time, each segment uploaded once and read by K1 in place, in a
+loop of their own: their rows are stored unrepaired, as in JAX.
 
 Each stream logs how many featurize calls it made (fused batches, host
 fallback clips, stream segments), which is what the card's launch counts
@@ -35,7 +40,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,6 +58,7 @@ from heybuddy_tpu_torch.data.precalculated import PrecalculatedDatasetIterator, 
 from heybuddy_tpu_torch.data.space import active_space, check_cache_space, write_space_sidecar
 from heybuddy_tpu_torch.data.tts_generator import SpeechSampleGenerator
 from heybuddy_tpu_torch.device import DeviceLike, resolve_device
+from heybuddy_tpu_torch.models.tts import DEVICE_TTS_BATCH, get_tts_model, resolve_tts_backend
 from heybuddy_tpu_torch.ops.augment import AugmentConfig, seeded_generator
 from heybuddy_tpu_torch.utils.log import logger
 from heybuddy_tpu_torch.utils.npy import AppendableNpyFile
@@ -157,10 +163,8 @@ class TrainingFeaturesGenerator:
         **generator_kwargs: Any,
     ) -> None:
         auto = autoconfigure_batch_sizes(device)
-        # the device backend renders one batch per call: feed it full batches
-        resolved_backend = tts_backend or os.environ.get("HEYBUDDY_TTS_BACKEND")
-        if tts_batch_size is None and resolved_backend in ("formant-device", "device"):
-            tts_batch_size = 128
+        if tts_batch_size is None and resolve_tts_backend(tts_backend) == "formant-device":
+            tts_batch_size = DEVICE_TTS_BATCH
         self.phrase = phrase
         self.phrase_key = phrase if isinstance(phrase, str) else " ".join(phrase)
         self.directory = directory or get_default_dataset_dir()
@@ -216,6 +220,37 @@ class TrainingFeaturesGenerator:
             store.append(feats.astype(np.float32))
         return take
 
+    def _featurize_batches(
+        self, items: Iterable[Any], batch_size: int, dispatch: Callable[[List[Any], int], Tuple[torch.Tensor, int]],
+        store: AppendableNpyFile, limit: int,
+    ) -> Tuple[int, int]:
+        """Featurize ``items`` into ``store`` in batches of ``batch_size`` up to
+        ``limit`` rows; returns (rows written, batches dispatched). Batch i is
+        dispatched (``dispatch(batch, i)``) before batch i-1 is drained; a
+        short last batch only after the pending one. Nothing more is drawn
+        from ``items`` once ``limit`` rows are written."""
+        written = dispatched = 0
+        batch: List[Any] = []
+        pending: Optional[Tuple[torch.Tensor, int]] = None
+        for item in items:
+            batch.append(item)
+            if len(batch) < batch_size:
+                continue
+            current = dispatch(batch, dispatched)
+            dispatched += 1
+            batch = []
+            if pending is not None:
+                written += self._drain(pending, store, limit - written)
+            pending = current
+            if written >= limit:
+                return written, dispatched
+        if pending is not None:
+            written += self._drain(pending, store, limit - written)
+        if batch and written < limit:
+            written += self._drain(dispatch(batch, dispatched), store, limit - written)
+            dispatched += 1
+        return written, dispatched
+
     def _featurize_stream(
         self,
         samples: Iterator[Dict[str, Any]],
@@ -225,9 +260,8 @@ class TrainingFeaturesGenerator:
         seed_offset: int = 0,
         config: Optional[AugmentConfig] = None,
     ) -> int:
-        """Augment + embed a sample stream into ``store``; returns rows written.
-        Featurization of batch i is dispatched before batch i-1 is drained,
-        so the host's TTS and augmentation overlap the device's work."""
+        """Augment + embed a sample stream into ``store`` in batches of
+        ``embed_batch_size``; returns rows written."""
         augmenter = AugmentedAudioGenerator(
             samples,
             config=config or self.augment_config,
@@ -238,30 +272,10 @@ class TrainingFeaturesGenerator:
             device=self.device,
         )
         embeddings = self._embeddings()
-        written = calls = 0
-        batch: List[np.ndarray] = []
-        pending: Optional[Tuple[torch.Tensor, int]] = None
-        for sample in augmenter():
-            batch.append(sample["audio"]["array"])
-            if len(batch) >= self.embed_batch_size:
-                dispatched = embeddings.featurize_device(np.stack(batch))
-                calls += 1
-                batch = []
-                if pending is not None:
-                    written += self._drain(pending, store, limit - written)
-                pending = dispatched
-                if written >= limit:
-                    pending = None
-                    break
-        if batch and written < limit:
-            if pending is not None:
-                written += self._drain(pending, store, limit - written)
-                pending = None
-            if written < limit:
-                calls += 1
-                written += self._drain(embeddings.featurize_device(np.stack(batch)), store, limit - written)
-        if pending is not None:
-            written += self._drain(pending, store, limit - written)
+        written, calls = self._featurize_batches(
+            (sample["audio"]["array"] for sample in augmenter()), self.embed_batch_size,
+            lambda batch, _: embeddings.featurize_device(np.stack(batch)), store, limit,
+        )
         logger.info(f"Featurized {written} clips into {os.path.basename(store.path)} in {calls} featurize "
                     f"call(s) of up to {self.embed_batch_size}")
         return written
@@ -298,7 +312,6 @@ class TrainingFeaturesGenerator:
         batch size, at least 512); host-rendered fallback clips go through the
         classic path at the end."""
         from heybuddy_tpu_torch.models.formant_device import fused_features_batch
-        from heybuddy_tpu_torch.models.tts import get_tts_model
 
         embeddings = self._embeddings()
         tts = get_tts_model(backend=self.tts_backend, device=self.device)
@@ -306,14 +319,16 @@ class TrainingFeaturesGenerator:
         cfg = config or self.augment_config
         dev = resolve_device(self.device)
         batch_size = int(os.environ.get("HEYBUDDY_FUSED_TTS_BATCH", "0")) or max(self.augment_batch_size, 512)
-        written = batches = 0
-        plans: List[Any] = []
         fallback: List[Dict[str, Any]] = []
-        pending: Optional[Tuple[torch.Tensor, int]] = None
+
+        def plans() -> Iterator[Any]:
+            for sample in samples:
+                if "plan" in sample:
+                    yield sample["plan"]
+                else:
+                    fallback.append(sample)
 
         def dispatch(batch_plans: List[Any], index: int) -> Tuple[torch.Tensor, int]:
-            nonlocal batches
-            batches += 1
             # a stream of its own, apart from the classic augmenter's (seed, batch)
             generator = seeded_generator(dev, self.seed + seed_offset, 777, index)
             with span("features/batch"):
@@ -322,28 +337,7 @@ class TrainingFeaturesGenerator:
                     l_max=tts.planner.max_samples, harmonics=tts.harmonics, clip_samples=cfg.target_samples,
                 )
 
-        for sample in samples:
-            if "plan" in sample:
-                plans.append(sample["plan"])
-            else:
-                fallback.append(sample)
-            if len(plans) >= batch_size:
-                dispatched = dispatch(plans, batches)
-                plans = []
-                if pending is not None:
-                    written += self._drain(pending, store, limit - written)
-                pending = dispatched
-                if written >= limit:
-                    pending = None
-                    break
-        if plans and written < limit:
-            if pending is not None:
-                written += self._drain(pending, store, limit - written)
-                pending = None
-            if written < limit:
-                written += self._drain(dispatch(plans, batches), store, limit - written)
-        if pending is not None:
-            written += self._drain(pending, store, limit - written)
+        written, batches = self._featurize_batches(plans(), batch_size, dispatch, store, limit)
         logger.info(f"Fused {written} clips into {os.path.basename(store.path)} in {batches} batch(es) of up "
                     f"to {batch_size}; {len(fallback)} host-fallback clip(s)")
         if fallback and written < limit:
@@ -359,8 +353,7 @@ class TrainingFeaturesGenerator:
         into), unless ``HEYBUDDY_FUSED_TTS=0``."""
         if os.environ.get("HEYBUDDY_FUSED_TTS", "1") == "0":
             return False
-        resolved = self.tts_backend or os.environ.get("HEYBUDDY_TTS_BACKEND")
-        return resolved in ("formant-device", "device") and self._embeddings().backend == "trunkpool"
+        return resolve_tts_backend(self.tts_backend) == "formant-device" and self._embeddings().backend == "trunkpool"
 
     def _speech(self, adversarial: bool, seed: int, **overrides: Any) -> SpeechSampleGenerator:
         """A sample generator of the phrase with the generator options, ``overrides`` applied."""
@@ -634,6 +627,8 @@ class TrainingFeaturesGenerator:
             embeddings = self._embeddings()
             stride = RUNTIME_WINDOW_STRIDE
             written = segments = 0
+            # not ``_featurize_batches``: a segment's rows are counted as it is
+            # dispatched and stored without ``_drain``'s NaN repair, as in JAX
             pending: Optional[Tuple[torch.Tensor, int]] = None
             while written < missing or pending is not None:
                 dispatched = None

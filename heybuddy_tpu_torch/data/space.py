@@ -54,14 +54,9 @@ def tts_provenance(backend: Optional[str] = None) -> str:
     """Stable id of the synthesis source that feeds a cache (backend, versions, G2P)."""
     from heybuddy_tpu_torch.models.formant import FORMANT_VERSION
     from heybuddy_tpu_torch.models.formant_device import DEVICE_FORMANT_VERSION
-    from heybuddy_tpu_torch.models.tts import SAMPLING_VERSION
+    from heybuddy_tpu_torch.models.tts import SAMPLING_VERSION, resolve_tts_backend
 
-    backend = backend or os.environ.get("HEYBUDDY_TTS_BACKEND")
-    if backend is None:
-        ckpt = os.environ.get("HEYBUDDY_TTS_CHECKPOINT")
-        backend = "vits" if (ckpt and os.path.exists(ckpt)) else "formant"
-    if backend == "device":
-        backend = "formant-device"
+    backend = resolve_tts_backend(backend)
     g2p = _g2p_name()
     g2p_tag = "" if g2p == "simple" else f";g2p:{g2p}"
     if backend == "formant":

@@ -25,7 +25,6 @@ windows on the card without materialising them
 
 from __future__ import annotations
 
-import os
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -63,12 +62,11 @@ def texts_to_stream(
     ``(start, end, text)`` sample span of each phrase.
     """
     from heybuddy_tpu_torch.data.tts_generator import SpeechSampleGenerator
+    from heybuddy_tpu_torch.models.tts import DEVICE_TTS_BATCH, resolve_tts_backend
 
     rng = np.random.default_rng(seed)
-    # the device renderer takes full batches; the batch size sets the
-    # speaker offsets, so it is part of the stream
-    resolved = tts_backend or os.environ.get("HEYBUDDY_TTS_BACKEND")
-    batch_size = 128 if resolved in ("formant-device", "device") else 8
+    # the batch size sets the speaker offsets, so it is part of the stream
+    batch_size = DEVICE_TTS_BATCH if resolve_tts_backend(tts_backend) == "formant-device" else 8
     gen = SpeechSampleGenerator(
         texts[0], additional_phrases=list(texts[1:]), batch_size=batch_size,
         seed=seed, tts_backend=tts_backend, phrase_augment_prob=0.0, device=device,

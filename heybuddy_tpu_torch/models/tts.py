@@ -27,6 +27,7 @@ Backends behind the same interface:
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import os
@@ -229,14 +230,28 @@ def _blend_speaker_params(synth: Any, s1: int, s2: int, w: float) -> Tuple[float
     return (fa * (1.0 - w) + fb * w, sa * (1.0 - w) + sb * w)
 
 
+# A formant clip's voice, in ``DeviceFormantPlanner.plan_batch``'s column order:
+# (text, speaker id, length scale, noise scale, clip seed, blended (f0, scale)).
+ClipVoice = Tuple[str, int, float, float, int, Tuple[float, float]]
+
+
 def _clip_tasks(
-    synth: FormantSynthesizer, texts: List[str], speakers: List[Tuple[int, int]], slerp_weight: float, seed: int
-) -> List[Tuple[str, int, Tuple[float, float], int]]:
-    """(text, speaker id, blended voice, clip seed) of each clip of a batch."""
+    synth: FormantSynthesizer, texts: List[str], speakers: List[Tuple[int, int]], slerp_weight: float,
+    length_scale: float, noise_scale: float, seed: int,
+) -> List[ClipVoice]:
+    """The voice of each clip of a batch."""
     return [
-        (text, s1 * 104729 + s2, _blend_speaker_params(synth, s1, s2, slerp_weight), seed * 31 + j)
+        (text, s1 * 104729 + s2, length_scale, noise_scale, seed * 31 + j,
+         _blend_speaker_params(synth, s1, s2, slerp_weight))
         for j, (text, (s1, s2)) in enumerate(zip(texts, speakers))
     ]
+
+
+def _synthesize_voice(synth: FormantSynthesizer, voice: ClipVoice) -> np.ndarray:
+    """A clip rendered by the host synthesizer."""
+    text, speaker, length_scale, noise_scale, clip_seed, params = voice
+    return synth.synthesize(text, speaker=speaker, length_scale=length_scale, noise_scale=noise_scale,
+                            seed=clip_seed, speaker_params=params)
 
 
 class FormantTTS(BaseTTS):
@@ -269,15 +284,8 @@ class FormantTTS(BaseTTS):
         noise_scale_w: float,
         seed: int,
     ) -> List[np.ndarray]:
-        tasks = _clip_tasks(self.synth, texts, speakers, slerp_weight, seed)
-
-        def render(task: Tuple[str, int, Tuple[float, float], int]) -> np.ndarray:
-            text, speaker, params, clip_seed = task
-            return self.synth.synthesize(
-                text, speaker=speaker, length_scale=length_scale, noise_scale=noise_scale,
-                seed=clip_seed, speaker_params=params,
-            )
-
+        tasks = _clip_tasks(self.synth, texts, speakers, slerp_weight, length_scale, noise_scale, seed)
+        render = functools.partial(_synthesize_voice, self.synth)
         # Each clip renders from its own seed, so the threads' results equal
         # the serial ones (collected in submission order). The threads run
         # numpy only; no CUDA call leaves the caller's thread.
@@ -289,12 +297,18 @@ class FormantTTS(BaseTTS):
         return [render(t) for t in tasks]
 
 
+# the "formant-device" backend's batch where the caller sets none: it renders a batch a call
+DEVICE_TTS_BATCH = 128
+
+
 class DeviceFormantTTS(BaseTTS):
     """The formant backend planned on the host and rendered on ``device`` ("formant-device").
 
     Planning is numpy-only; the render runs on the caller's thread. Clips
     longer than ``max_samples`` or with too many noise segments fall back to
-    the host renderer. Counters over every ``plan_batch`` call:
+    the host renderer: ``plan_voices`` and ``render_items`` hold that rule for
+    the generator's batches and the embedding pretrainer's clip pool alike.
+    Counters over every ``plan_voices`` call, the pretrainer's included:
     ``clips_planned`` (device plans) and ``clips_host_fallback`` (clips
     rendered on the host instead).
     """
@@ -334,18 +348,8 @@ class DeviceFormantTTS(BaseTTS):
         noise_scale_w: float,
         seed: int,
     ) -> List[np.ndarray]:
-        from heybuddy_tpu_torch.models.formant_device import render_batch
-
-        items = self.plan_batch(texts, speakers, slerp_weight, length_scale, noise_scale, noise_scale_w, seed)
-        device_idx = [i for i, p in enumerate(items) if not isinstance(p, np.ndarray)]
-        rendered = render_batch(
-            [items[i] for i in device_idx], l_max=self.planner.max_samples, harmonics=self.harmonics,
-            device=self.device,
-        )
-        out: List[Any] = list(items)
-        for i, clip in zip(device_idx, rendered):
-            out[i] = clip
-        return out
+        return self.render_items(
+            self.plan_batch(texts, speakers, slerp_weight, length_scale, noise_scale, noise_scale_w, seed))
 
     def plan_batch(
         self,
@@ -357,28 +361,38 @@ class DeviceFormantTTS(BaseTTS):
         noise_scale_w: float,
         seed: int,
     ) -> List[Any]:
+        """``plan_voices`` of a generator batch's clips."""
+        with span("formant/plan"):
+            return self.plan_voices(
+                _clip_tasks(self._host, texts, speakers, slerp_weight, length_scale, noise_scale, seed))
+
+    def voice(
+        self, text: str, speakers: Tuple[int, int], slerp_weight: float, length_scale: float, noise_scale: float,
+        seed: int,
+    ) -> ClipVoice:
+        """The voice of a one-clip batch's clip."""
+        return _clip_tasks(self._host, [text], [speakers], slerp_weight, length_scale, noise_scale, seed)[0]
+
+    def plan_voices(self, voices: List[ClipVoice]) -> List[Any]:
         """Per-clip ClipPlans, planned together; clips the device renderer
         cannot express come back as host-rendered float32 audio instead
         (consumers dispatch on the type)."""
-        with span("formant/plan"):
-            tasks = _clip_tasks(self._host, texts, speakers, slerp_weight, seed)
-            n = len(tasks)
-            plans = self.planner.plan_batch(
-                [t[0] for t in tasks], [t[1] for t in tasks], [length_scale] * n, [noise_scale] * n,
-                [t[3] for t in tasks], [t[2] for t in tasks],
-            )
-            items: List[Any] = []
-            for (text, speaker, params, clip_seed), plan in zip(tasks, plans):
-                if plan is None:
-                    plan = self._host.synthesize(
-                        text, speaker=speaker, length_scale=length_scale, noise_scale=noise_scale, seed=clip_seed,
-                        speaker_params=params,
-                    )
-                items.append(plan)
-            fallback = sum(plan is None for plan in plans)
-            self.clips_planned += n - fallback
-            self.clips_host_fallback += fallback
+        plans = self.planner.plan_batch(*zip(*voices))
+        items = [_synthesize_voice(self._host, voice) if plan is None else plan
+                 for voice, plan in zip(voices, plans)]
+        fallback = sum(plan is None for plan in plans)
+        self.clips_planned += len(plans) - fallback
+        self.clips_host_fallback += fallback
         return items
+
+    def render_items(self, items: List[Any]) -> List[np.ndarray]:
+        """``plan_voices``' items as audio: the plans rendered in one batch on
+        ``device``, each back in its place among the host-rendered clips."""
+        from heybuddy_tpu_torch.models.formant_device import render_batch
+
+        rendered = iter(render_batch([p for p in items if not isinstance(p, np.ndarray)],
+                                     l_max=self.planner.max_samples, harmonics=self.harmonics, device=self.device))
+        return [p if isinstance(p, np.ndarray) else next(rendered) for p in items]
 
 
 class VitsTTS(BaseTTS):
@@ -529,18 +543,21 @@ class VitsTTS(BaseTTS):
 _GLOBAL_TTS: Dict[Tuple[str, str], BaseTTS] = {}
 
 
-def get_tts_model(backend: Optional[str] = None, device: DeviceLike = "cuda", **kwargs: Any) -> BaseTTS:
-    """
-    Shared TTS instance per backend. Resolution as in the JAX package:
-    explicit arg > HEYBUDDY_TTS_BACKEND > "vits" if a checkpoint exists >
-    "formant". "formant-device" and "vits" instances are kept per ``device``.
-    """
+def resolve_tts_backend(backend: Optional[str] = None) -> str:
+    """The TTS backend, as the JAX package resolves it (every user of the name
+    asks this): explicit arg > ``HEYBUDDY_TTS_BACKEND`` > "vits" if
+    ``HEYBUDDY_TTS_CHECKPOINT`` names a file > "formant"; "device" is "formant-device"."""
     backend = backend or os.environ.get("HEYBUDDY_TTS_BACKEND")
     if backend is None:
         ckpt = os.environ.get("HEYBUDDY_TTS_CHECKPOINT")
         backend = "vits" if (ckpt and os.path.exists(ckpt)) else "formant"
-    if backend == "device":
-        backend = "formant-device"
+    return "formant-device" if backend == "device" else backend
+
+
+def get_tts_model(backend: Optional[str] = None, device: DeviceLike = "cuda", **kwargs: Any) -> BaseTTS:
+    """Shared TTS instance of ``resolve_tts_backend(backend)``; "formant-device"
+    and "vits" instances are kept per ``device``."""
+    backend = resolve_tts_backend(backend)
     key = (backend, str(device) if backend in ("formant-device", "vits") else "")
     if key not in _GLOBAL_TTS:
         if backend == "vits":

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from heybuddy_tpu_torch.device import DeviceLike, resolve_device
+from heybuddy_tpu_torch.models.tts import DEVICE_TTS_BATCH
 
 __all__ = ["REF_SCALE", "time_tts", "time_pipeline", "time_featurize", "time_training", "extrapolate",
            "write_md", "main"]
@@ -62,7 +63,7 @@ REF_SCALE = {
     "testing": 50_000,
     "steps": 15_000,  # 3 stages x 5000 (constants.py)
 }
-TTS_DEVICE_BATCH = 128
+TTS_DEVICE_BATCH = DEVICE_TTS_BATCH
 PIPELINE_DEVICE_CLIPS = 2048  # the fewest clips the fused route is timed on
 PIPELINE_DEVICE_WARM = 512  # its warm-up: one full dispatch batch
 FEATURIZE_BATCH = 2048

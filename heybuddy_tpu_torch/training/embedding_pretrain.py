@@ -362,10 +362,11 @@ class EmbeddingPretrainer:
         (slerp weight, length, noise scales) from ``seed + 104729``, all
         drawn before any rendering, then peak-normalised through int16 with
         its zero edges trimmed, as ``BaseTTS.__call__`` does. The
-        ``formant-device`` backend plans on the host and renders 256 plans a
-        batch on ``device`` (the host renderer takes the plans it cannot
-        express); the host backends render each clip from its own seed on a
-        pool of threads, equal to rendering them in turn.
+        ``formant-device`` backend plans and renders 256 clips a batch
+        (``DeviceFormantTTS.plan_voices`` / ``render_items``: the clips the
+        device cannot express render on the host), each clip as a one-clip
+        ``synthesize_batch`` would; the host backends render each clip from
+        its own seed on a pool of threads, equal to rendering them in turn.
         """
         from heybuddy_tpu_torch.constants import (
             DEFAULT_TTS_LENGTH_SCALES,
@@ -374,7 +375,7 @@ class EmbeddingPretrainer:
             DEFAULT_TTS_SLERP_WEIGHTS,
             SAMPLE_RATE,
         )
-        from heybuddy_tpu_torch.models.tts import DeviceFormantTTS, _blend_speaker_params, get_tts_model
+        from heybuddy_tpu_torch.models.tts import DeviceFormantTTS, get_tts_model
         from heybuddy_tpu_torch.utils.audio_io import resample_audio
 
         tts = get_tts_model(backend=self.tts_backend, device=self.device)
@@ -411,31 +412,12 @@ class EmbeddingPretrainer:
 
         with stage_timer("pretrain/clip_pool"):
             if isinstance(tts, DeviceFormantTTS):
-                from heybuddy_tpu_torch.models.formant_device import render_batch
-
                 chunk = 256
                 for c0 in range(0, len(tasks), chunk):
                     batch = tasks[c0:c0 + chunk]
-                    # the clip seed of a one-clip synthesize_batch (seed * 31 + 0)
-                    voices = [dict(speaker=s1 * 104729 + s2,
-                                   speaker_params=_blend_speaker_params(tts._host, s1, s2, slerp),
-                                   length_scale=ls, noise_scale=ns, seed=seed * 31)
-                              for (_i, _j, _text, (s1, s2), slerp, ls, ns, _nsw, seed) in batch]
-                    planned = tts.planner.plan_batch(
-                        [task[2] for task in batch], [v["speaker"] for v in voices],
-                        [v["length_scale"] for v in voices], [v["noise_scale"] for v in voices],
-                        [v["seed"] for v in voices], [v["speaker_params"] for v in voices],
-                    )
-                    plans, meta = [], []
-                    for (i, j, text, *_), voice, plan in zip(batch, voices, planned):
-                        if plan is None:
-                            store(i, j, tts._host.synthesize(text, **voice))
-                        else:
-                            plans.append(plan)
-                            meta.append((i, j))
-                    rendered = render_batch(plans, l_max=tts.planner.max_samples, harmonics=tts.harmonics,
-                                            device=self.device)
-                    for (i, j), clip in zip(meta, rendered):
+                    voices = [tts.voice(text, s_pair, slerp, ls, ns, seed)
+                              for (_i, _j, text, s_pair, slerp, ls, ns, _nsw, seed) in batch]
+                    for (i, j, *_), clip in zip(batch, tts.render_items(tts.plan_voices(voices))):
                         store(i, j, clip)
             else:
                 def render(task: Tuple) -> np.ndarray:

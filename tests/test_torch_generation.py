@@ -288,6 +288,52 @@ def test_fused_route_generates_and_tops_up(tmp_path, monkeypatch):
     assert not gen._use_fused_pipeline()
 
 
+@pytest.mark.parametrize("route,events", [
+    # fused batches of 2: batch i dispatched (D) before batch i-1 is drained (R); the fourth
+    # batch is dispatched and dropped once the third's drain reaches the limit
+    ("fused", {5: "DDRDRDR", 8: "DDRDRDRR"}),
+    # classic batches of 3: the short tail is dispatched only after the pending batch is
+    # drained, and not at all once that drain reaches the limit
+    ("classic", {5: "DDRR", 8: "DDRRDR"}),
+])
+def test_the_dispatch_loop_cuts_at_the_limit(tmp_path, monkeypatch, route, events):
+    """Eight samples into a store with room for 5: the first 5 rows of the
+    uncut run, in order, through the same dispatches and ``_drain`` calls up
+    to the cut."""
+    fused = route == "fused"
+    if fused:
+        monkeypatch.setitem(tts._GLOBAL_TTS, ("formant-device", "cpu"),
+                            tts.DeviceFormantTTS(max_samples=L_MAX, harmonics=48, device="cpu"))
+        monkeypatch.setenv("HEYBUDDY_FUSED_TTS_BATCH", "2")
+    log = []
+    if fused:
+        dispatch = formant_device.fused_features_batch
+        monkeypatch.setattr(formant_device, "fused_features_batch",
+                            lambda *args, **kwargs: log.append("D") or dispatch(*args, **kwargs))
+    else:
+        embeddings = featurizer.get_speech_embeddings(device="cpu")
+        featurize = embeddings.featurize_device
+        monkeypatch.setattr(embeddings, "featurize_device", lambda *args: log.append("D") or featurize(*args))
+    rows = {}
+    for limit in (5, 8):
+        log.clear()
+        # a generator of its own: the augmenter's noise provider draws as it goes
+        gen = TrainingFeaturesGenerator("hey buddy", directory=str(tmp_path), seed=7, device="cpu",
+                                        tts_backend="formant-device" if fused else "formant", tts_batch_size=4,
+                                        augment_batch_size=4, embed_batch_size=3)
+        drain = gen._drain
+        monkeypatch.setattr(gen, "_drain", lambda *args, drain=drain: log.append("R") or drain(*args))
+        store = features.AppendableNpyFile(str(tmp_path / f"cut-{limit}.npy"))
+        speech = gen._speech(False, 9)
+        run = gen._featurize_plan_stream if fused else gen._featurize_stream
+        written = run(speech(8, yield_plans=True) if fused else speech(8), pad_only=False, store=store,
+                      limit=limit, seed_offset=3)
+        assert written == limit and "".join(log) == events[limit]
+        rows[limit] = np.load(store.path)
+    assert rows[5].shape == (5, 16, 96) and np.isfinite(rows[5]).all()
+    np.testing.assert_array_equal(rows[5], rows[8][:5])
+
+
 def test_stream_windows_still_raise(tmp_path):
     """Stream-window caches are generated (they raised while data/streams.py
     was not ported): speech and collision windows on the host route, and

@@ -125,6 +125,42 @@ def test_active_space_and_provenance_match_jax(fresh_featurizers, monkeypatch):
         assert space.tts_provenance(backend) == jax_space.tts_provenance(backend), backend
 
 
+@pytest.mark.parametrize("backend,env,checkpoint,resolved", [
+    ("formant", "vits", "present", "formant"),  # the argument first
+    ("formant-device", None, None, "formant-device"),
+    ("device", None, None, "formant-device"),  # the alias
+    ("vits", None, None, "vits"),
+    ("", "device", None, "formant-device"),  # an empty argument reads the variable
+    (None, "formant-device", "present", "formant-device"),  # the variable before the checkpoint
+    (None, "formant", "present", "formant"),
+    (None, None, "present", "vits"),
+    (None, None, "missing", "formant"),
+    (None, None, None, "formant"),
+])
+def test_resolve_tts_backend_table_and_provenance_equal_jax(tmp_path, monkeypatch, backend, env, checkpoint,
+                                                            resolved):
+    """``resolve_tts_backend``: argument > ``HEYBUDDY_TTS_BACKEND`` > "vits"
+    for an existing checkpoint > "formant", "device" read as
+    "formant-device"; each case's provenance is the JAX package's."""
+    from heybuddy_tpu_torch.models.tts import resolve_tts_backend
+
+    monkeypatch.setenv("HEYBUDDY_PHONEMIZER", "simple")
+    if env is None:
+        monkeypatch.delenv("HEYBUDDY_TTS_BACKEND", raising=False)
+    else:
+        monkeypatch.setenv("HEYBUDDY_TTS_BACKEND", env)
+    if checkpoint is None:
+        monkeypatch.delenv("HEYBUDDY_TTS_CHECKPOINT", raising=False)
+    else:
+        path = tmp_path / "voice.pt"
+        if checkpoint == "present":
+            path.write_bytes(b"")
+        monkeypatch.setenv("HEYBUDDY_TTS_CHECKPOINT", str(path))
+    assert resolve_tts_backend(backend) == resolved
+    assert space.tts_provenance(backend) == jax_space.tts_provenance(backend)
+    assert space.tts_provenance(backend).startswith(resolved + ":")
+
+
 def test_sidecar_accept_stamp_reject(tmp_path, fresh_featurizers, monkeypatch):
     path = str(tmp_path / "feats.npy")
     np.save(path, np.zeros((3, 16, 96), np.float32))
